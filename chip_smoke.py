@@ -5,23 +5,41 @@ NVIDIA GPU.
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit, the precision flags, and builds
-   every CUDA kernel of the serving path from ``radad_tpu_torch/csrc``;
+   the five CUDA kernels from ``radad_tpu_torch/csrc`` (one ``nvcc`` each,
+   in parallel): ``gather_rows``, ``exact_dot``, ``extract_candidates``,
+   ``fused_mha`` and ``flat_topk``;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes and takes the device time (``torch.profiler``) of
-   kernel, plain version, and one PyTorch library call computing the same
-   function (``library_ms``, used nowhere in the port);
-3. drives the serving path at full width: a ``DetectionPipeline`` with a
-   seeded random wav2vec2-base encoder (12 layers, 768 wide, f32) builds
-   its DB from synthetic clips, the index is padded with seeded rows to
-   25,600 x 5,376 (In-the-Wild scale), then ``predict`` on 1 clip and
-   ``predict_batch`` on 8 and 64 clips; neighbor ids must equal an f32
-   full scan and every kernel's launch counter must have moved;
+   serving paths' shapes (``flat_topk`` also against the exact scores of
+   its bf16 operands, with a control that an unrounded scan fails) and
+   takes the device time (``torch.profiler``) of kernel, plain version,
+   and one PyTorch library call computing the same function
+   (``library_ms``, used nowhere in the port);
+3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
+   wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
+   synthetic clips, the index is padded with seeded rows to 25,600 x 5,376
+   (In-the-Wild scale), then ``predict`` on 1 clip and ``predict_batch``
+   on 8 and 64 clips through the certified search; neighbors must agree
+   with an f64 full scan up to ties within f32 rounding, and
+   ``gather_rows``, ``exact_dot`` and ``extract_candidates`` must have
+   launched. One more ``predict_batch(8)`` with ``RADAD_FUSED_ATTENTION=1``
+   must launch ``fused_mha``'s bias-free body and give the same neighbors
+   and logits within 1e-4;
 4. starts the port's HTTP server on localhost and posts 3 WAV uploads to
-   ``/api/predict``.
+   ``/api/predict``;
+5. WavLM serving phase: a seeded random wavlm-base pipeline with
+   ``use_pallas=True`` and ``RADAD_FUSED_ATTENTION=1`` on the same size of
+   DB; the same calls must launch ``fused_mha``'s bias body, ``flat_topk``
+   and ``gather_rows``; the kernel's candidates must lie within its f32
+   rounding bound of the exact scores of the same bf16 operands
+   (``radad_tpu_torch/ops/topk_check.py``), the final neighbors of every
+   row must equal those of the same search run through ``flat_topk_plain``
+   up to near-ties, and recall@5 against the f64 full scan is printed (the
+   ``use_pallas`` route is not certified, so recall is not a condition).
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the kernel table. Any failure exits non-zero and prints no result. It
-imports nothing of JAX.
+Each phase sets the launch counts to 0 just before its counted run and
+reads them just after. The last line is ``{"ok": true, "device": {...}}``;
+the line before it is the kernel table. Any failure exits non-zero and
+prints no result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 DB_CLIPS = 256  # synthetic clips embedded through build_vector_database
 INDEX_ROWS = 25_600  # In-the-Wild scale (25,423 clips)
@@ -95,11 +114,11 @@ def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
                 call_ms=time_ms(torch, kernel, iters))
 
 
-def bound_ms(nbytes: float, flops: float = 0.0):
-    """(least ms for the card to move ``nbytes`` and do ``flops`` f32
-    operations, which of the two bounds it)."""
-    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3, (
-        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
+def bound_ms(nbytes: float, flops: float = 0.0, rate: float = F32_FLOPS):
+    """(least ms for the card to move ``nbytes`` and do ``flops``
+    operations at ``rate`` FLOP/s, which of the two bounds it)."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3, (
+        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / rate
         else "operations")
 
 
@@ -236,6 +255,10 @@ def kernel_phase(torch, dev):
     recs["extract_candidates"]["bound_ms"], \
         recs["extract_candidates"]["bound_by"] = bound_ms(
             b * t * 128 * 4 + b * t * 4 + out_bytes, 3.0 * b * t * 128 * mm)
+    recs["fused_mha"] = _fused_mha_record(torch, dev, g)
+    recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        recs[name]["bound_rate"] = "f32 67 TFLOP/s"
     for name, rec in recs.items():
         print(f"kernel {name}: {rec['shape']}: device {rec['ms']:.4f} ms "
               f"(per call on the event clock {rec['call_ms']:.4f} ms), "
@@ -246,6 +269,169 @@ def kernel_phase(torch, dev):
     del table, table_bf16
     torch.cuda.empty_cache()
     return recs
+
+
+def _fused_mha_record(torch, dev, g) -> dict:
+    """fused_mha at the WavLM serving shape (64 clips x two 2 s windows =
+    128 rows of 99 frames, 768 wide, 12 heads), both bodies, plus T = 600
+    and 1500 correctness points. Tolerance 1e-5 * (1 + |plain|): f32
+    summation order and the online softmax."""
+    import torch.nn.functional as F
+
+    from radad_tpu_torch.ops.attention import fused_mha, mha_reference
+
+    def inputs(b, t, d, h):
+        q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
+                   for _ in range(3))
+        q *= (d // h) ** -0.5
+        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=dev)
+        pos = torch.randn((h, t, t), generator=g, device=dev)
+        return q, k, v, dict(gate=gate, pos_bias=pos)
+
+    def worst(q, k, v, h, extra):
+        got = fused_mha(q, k, v, h, **extra)
+        want = mha_reference(q, k, v, h, **extra)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        if not bool((err <= 1e-5 * (1 + want.abs())).all()):
+            raise AssertionError(
+                f"fused_mha {'bias' if extra else 'no bias'} T={q.shape[1]} "
+                f"outside 1e-5 * (1 + |plain|): max err {float(err.max())}")
+        return float(err.max())
+
+    errs = {}
+    for b, t in ((4, 600), (2, 1500)):
+        q, k, v, bias = inputs(b, t, 768, 12)
+        for extra in ({}, bias):
+            errs[(t, bool(extra))] = worst(q, k, v, 12, extra)
+    b, t, d, h = 128, 99, 768, 12
+    hd = d // h
+    q, k, v, bias = inputs(b, t, d, h)
+    for extra in ({}, bias):
+        errs[(t, bool(extra))] = worst(q, k, v, h, extra)
+    print("fused_mha max_abs_err: " + ", ".join(
+        f"T={tt} {'bias' if bb else 'no bias'} {e:.3e}"
+        for (tt, bb), e in errs.items()) + " (tolerance 1e-5 * (1 + |plain|))")
+
+    def split(x):
+        return x.view(b, t, h, hd).transpose(1, 2)
+
+    # SDPA takes the [B, H, T, T] bias materialized (not timed); q is
+    # pre-scaled, so scale=1
+    mask = bias["gate"].transpose(1, 2)[..., None] * bias["pos_bias"][None]
+    qh, kh, vh = split(q), split(k), split(v)
+    io_bytes = 4 * b * t * d * 4
+    prod_flops = 4.0 * b * h * t * t * hd
+    no_bias = dict(**timings(
+        torch, lambda: fused_mha(q, k, v, h),
+        lambda: mha_reference(q, k, v, h),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)))
+    no_bias["bound_ms"], no_bias["bound_by"] = bound_ms(io_bytes, prod_flops)
+    no_bias["max_abs_err"] = errs[(t, False)]
+    rec = dict(
+        route="cuda", source="radad_tpu_torch/csrc/fused_mha.cu",
+        replaces="radad_tpu/ops/attention.py:134",
+        max_abs_err=max(errs.values()),
+        tolerance="1e-5 * (1 + |plain|) (f32 summation order, online "
+                  "softmax)",
+        **timings(torch, lambda: fused_mha(q, k, v, h, **bias),
+                  lambda: mha_reference(q, k, v, h, **bias),
+                  lambda: F.scaled_dot_product_attention(
+                      qh, kh, vh, attn_mask=mask, scale=1.0)),
+        shape=f"q,k,v [{b},{t},{d}] f32, {h} heads, gate [{b},{t},{h}], "
+              f"pos_bias [{h},{t},{t}] (bias body; no_bias: the same "
+              f"without)",
+        bound_rate="f32 67 TFLOP/s", no_bias=no_bias,
+        library_call="F.scaled_dot_product_attention, bias materialized")
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        io_bytes + (b * t * h + h * t * t) * 4, prod_flops + 2.0 * b * h * t * t)
+    print(f"fused_mha no-bias body: device {no_bias['ms']:.4f} ms, plain "
+          f"{no_bias['plain_ms']:.4f} ms, SDPA {no_bias['library_ms']:.4f} "
+          f"ms, bound {no_bias['bound_ms']:.4f} ms ({no_bias['bound_by']})")
+    return rec
+
+
+def _flat_topk_record(torch, dev, g, table) -> dict:
+    """flat_topk at the use_pallas search's shape: B = 64 queries over the
+    25,600 x 5,376 f32 table, r = 32 candidates, L2, bf16 scan, rows past
+    n_valid = 25,000 masked and each query of the first half excluding the
+    id of its best row; 8 queries sit next to a row past n_valid, so both
+    masks remove a row that would otherwise come first. The result is held
+    to the exact (f64) scores of the same bf16 operands within the
+    kernel's f32 rounding bound (``ops/topk_check.check_topk``), and to
+    the plain version: ids equal except near-ties within that bound,
+    values on a shared row within twice it (``compare_topk``). The same
+    kernel without the bf16 rounding must fail the check."""
+    from radad_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+    from radad_tpu_torch.ops.topk_check import check_topk, compare_topk
+
+    n, d = table.shape
+    b, r, n_valid = 64, 32, 25_000
+    q = torch.randn((b, d), generator=g, device=dev)
+    past = n_valid + 7 * torch.arange(8, device=dev)
+    q[:8] = table[past] + 0.1 * q[:8]
+    ids = (torch.arange(n, device=dev) % 5_000).to(torch.int32)
+    first = flat_topk_plain(q, table, 1, fast_scan=True)[1][:, 0]
+    best = flat_topk_plain(q, table, 1, n_valid=n_valid, fast_scan=True)[1]
+    if not torch.equal(first[:8].long(), past):
+        raise AssertionError("the rows past n_valid are not the queries' "
+                             "nearest: the mask would go untested")
+    excl = torch.full((b,), -2, device=dev, dtype=torch.int32)
+    excl[: b // 2] = ids[best[: b // 2, 0].long()]
+    kw = dict(metric="L2", n_valid=n_valid, ids=ids, exclude_ids=excl,
+              fast_scan=True)
+    got = flat_topk(q, table, r, **kw)
+    want = flat_topk_plain(q, table, r, **kw)
+    torch.cuda.synchronize()
+    held = check_topk(q, table, got, **kw)
+    if not held["ok"]:
+        raise AssertionError(f"flat_topk fails its exact check: {held}")
+    agree = compare_topk(q, table, got, want, metric="L2")
+    if not agree["ok"]:
+        raise AssertionError(f"flat_topk disagrees with its plain version "
+                             f"beyond near-ties: {agree}")
+    control = check_topk(q, table, flat_topk(q, table, r,
+                                             **dict(kw, fast_scan=False)),
+                         **kw)
+    if control["ok"]:
+        raise AssertionError("the exact check passes a scan without the bf16 "
+                             "rounding: it is too loose")
+    print(f"flat_topk vs exact bf16-operand scores: max |err| "
+          f"{held['max_abs_err']:.3e} within the kernel's f32 rounding bound "
+          f"(largest {held['max_bound']:.3e}), {held['near_cut']} rows left "
+          f"out score above the cut within it; vs plain: "
+          f"{agree['rows_differ']} of {b} rows trade near-tied ids (largest exact gap "
+          f"{agree['max_gap']:.3e}), max |value diff| on shared rows "
+          f"{agree['max_abs_err']:.3e}; control without bf16 rounding "
+          f"fails: max |err| {control['max_abs_err']:.3e}")
+    mask = ((torch.arange(n, device=dev) >= n_valid)[None, :]
+            | (ids[None, :] == excl[:, None]))
+
+    def library():
+        s = torch.mm(q.to(torch.bfloat16), table.to(torch.bfloat16).t(),
+                     out_dtype=torch.float32)
+        s = 2.0 * s - torch.linalg.vector_norm(table, dim=-1).square()
+        return torch.topk(s.masked_fill(mask, float("-inf")), r)
+
+    rec = dict(
+        route="cuda", source="radad_tpu_torch/csrc/flat_topk.cu",
+        replaces="radad_tpu/ops/topk.py:182",
+        max_abs_err=agree["max_abs_err"],
+        tolerance=f"ids equal to plain up to near-ties within the kernel's "
+                  f"f32 rounding bound of the exact bf16-operand scores "
+                  f"(largest {held['max_bound']:.3e}; max |err| vs exact "
+                  f"{held['max_abs_err']:.3e}), values on shared rows "
+                  f"within twice it",
+        **timings(torch, lambda: flat_topk(q, table, r, **kw),
+                  lambda: flat_topk_plain(q, table, r, **kw), library),
+        shape=f"q [{b},{d}] f32, x [{n},{d}] f32, r={r}, L2, bf16 scan",
+        bound_rate="bf16 989 TFLOP/s",
+        library_call="mm(bf16, bf16, out_dtype=f32) + |x|^2 + mask + topk",
+        rows_differ=agree["rows_differ"])
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        n * d * 4 + b * d * 4 + n * 4 + b * 4 + b * r * 8,
+        2.0 * b * n * d, rate=BF16_FLOPS)
+    return rec
 
 
 def _write_clips(tmp: str, n: int, seed: int, prefix: str):
@@ -297,6 +483,49 @@ def _pad_index(torch, pipe, n_rows: int, seed: int) -> None:
     ix.add(rows, labels, names)
 
 
+def _embed_paths(torch, pipe, paths):
+    """The pipeline's clip embeddings ``[B, D]`` of ``paths``."""
+    import numpy as np
+
+    from radad_tpu_torch.data.audio import load_audio
+
+    cfg = pipe.config
+    waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
+                                 duration=cfg.clip_duration) for p in paths])
+    return pipe._embed(torch.as_tensor(waves, device=pipe.device))
+
+
+def _f64_scan(torch, pipe, paths):
+    """The f64 full-scan oracle over the pipeline's embeddings of
+    ``paths``, each row excluding its own file (predict_batch's "self"
+    mode). → (tpp [B, D] f32, exclude ids [B], d64 [B, cap] squared
+    distances (inf where masked), ref [B, k] ids, -ref distances, |q|^2,
+    |x|^2)."""
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.ops.topk import top_k_stable
+
+    cfg, ix = pipe.config, pipe.index
+    tpp = _embed_paths(torch, pipe, paths)
+    excl = torch.as_tensor([file_id(p) for p in paths], device=ix.device,
+                           dtype=torch.int32)
+    invalid = torch.arange(ix.vectors.shape[0], device=ix.device) >= ix.n
+    mask = invalid[None, :] | (ix.ids[None, :] == excl[:, None])
+    q64, x64 = tpp.double(), ix.vectors.double()
+    qsq, xsq = q64.square().sum(-1), x64.square().sum(-1)
+    d64 = (qsq[:, None] - 2.0 * q64 @ x64.t() + xsq[None, :]).masked_fill(
+        mask, float("inf"))
+    neg_ref, ref = top_k_stable(-d64, cfg.top_k)
+    return tpp, excl, d64, ref, neg_ref, qsq, xsq
+
+
+def _rows_of(torch, pipe, outs):
+    """Index rows of predict_batch's neighbors ``[B, k]``."""
+    ix = pipe.index
+    name_to_row = {os.path.basename(p): i for i, p in enumerate(ix.paths)}
+    return torch.as_tensor([[name_to_row[f] for f in o["retrieved_files"]]
+                            for o in outs], device=ix.device)
+
+
 def _check_against_full_scan(torch, pipe, paths, outs):
     """Neighbors of ``outs`` (a predict_batch result) against a full scan
     on the card over the same embeddings, with per-row self exclusion, in
@@ -308,65 +537,109 @@ def _check_against_full_scan(torch, pipe, paths, outs):
     full scan's ids differ from the f64 ones)."""
     import numpy as np
 
-    from radad_tpu_torch.data.audio import load_audio
-    from radad_tpu_torch.data.manifest import file_id
-    from radad_tpu_torch.index.flat import _full_scan, top_k_stable
+    from radad_tpu_torch.index.flat import _full_scan
 
-    cfg, ix = pipe.config, pipe.index
-    k = cfg.top_k
-    waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
-                                 duration=cfg.clip_duration) for p in paths])
-    tpp = pipe._embed(torch.as_tensor(waves, device=ix.device))
-    excl = torch.as_tensor([file_id(p) for p in paths], device=ix.device,
-                           dtype=torch.int32)
-    invalid = torch.arange(ix.vectors.shape[0], device=ix.device) >= ix.n
-    mask = invalid[None, :] | (ix.ids[None, :] == excl[:, None])
-    q64, x64 = tpp.double(), ix.vectors.double()
-    qsq, xsq = q64.square().sum(-1), x64.square().sum(-1)
-    d64 = (qsq[:, None] - 2.0 * q64 @ x64.t() + xsq[None, :]).masked_fill(
-        mask, float("inf"))
-    neg_ref, ref = top_k_stable(-d64, k)
-    _, ref32 = _full_scan(tpp, ix.vectors, ix.norms_sq, mask, k,
-                          larger_better=False)
-    name_to_row = {os.path.basename(p): i for i, p in enumerate(ix.paths)}
-    got = torch.as_tensor([[name_to_row[f] for f in o["retrieved_files"]]
-                           for o in outs], device=ix.device)
+    ix = pipe.index
+    tpp, excl, d64, ref, neg_ref, qsq, xsq = _f64_scan(torch, pipe, paths)
+    mask = torch.isinf(d64)
+    _, ref32 = _full_scan(tpp, ix.vectors, ix.norms_sq, mask,
+                          pipe.config.top_k, larger_better=False)
+    got = _rows_of(torch, pipe, outs)
     d_got = d64.gather(1, got).sort(-1).values
     tol = 2.0 ** -21 * (qsq + xsq[: ix.n].max())
     worst = float(((d_got + neg_ref).abs() - tol[:, None]).max())
     if worst > 0:
         raise AssertionError(f"neighbors beyond f32 rounding of the f64 "
-                             f"top-{k} (excess {worst:.3e})")
+                             f"top-{pipe.config.top_k} (excess {worst:.3e})")
     if not all(np.isfinite(o["logit"]) for o in outs):
         raise AssertionError("non-finite logit")
     same = int((got == ref).all(-1).sum())
     return same, int((ref32.long() != ref).any(-1).sum())
 
 
-def serving_phase(torch, dev, tmp: str):
-    """The serving path at full width. Returns (pipeline, launches on the
-    counted run, query clip paths)."""
+def _check_against_plain_route(torch, pipe, paths, outs):
+    """WavLM phase: the use_pallas search of ``outs`` (predict_batch's
+    neighbors) against the same search run through ``flat_topk_plain`` on
+    the card (the same embeddings, then the same exact re-rank). The
+    kernel's candidates must pass ``check_topk`` and agree with the plain
+    candidates up to near-ties (``compare_topk``). The final top-k is
+    compared on every row: the f64 squared distances of the two routes'
+    neighbors must be equal at every rank within f32 rounding, 2^-21 (|q|^2
+    + max |x|^2), as in ``_check_against_full_scan``, unless the rows that
+    differ are candidates only one route had (a near-tie at the candidate
+    cut, which ``compare_topk`` has bounded). → (rows whose final ids
+    differ, rows whose candidate sets differ, recall@k against the f64
+    full scan, the check's numbers)."""
+    import numpy as np
+
+    from radad_tpu_torch.index.flat import _rerank_exact
+    from radad_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+    from radad_tpu_torch.ops.topk_check import check_topk, compare_topk
+
+    ix, k = pipe.index, pipe.config.top_k
+    tpp, excl, d64, ref, _, qsq, xsq = _f64_scan(torch, pipe, paths)
+    r = min(max(4 * k, 32), ix.vectors.shape[0])
+    kw = dict(metric=ix.metric, n_valid=ix.n, ids=ix.ids, exclude_ids=excl,
+              fast_scan=True)
+    cand_k = flat_topk(tpp, ix.vectors, r, **kw)
+    cand_p = flat_topk_plain(tpp, ix.vectors, r, **kw)
+    held = check_topk(tpp, ix.vectors, cand_k, **kw)
+    if not held["ok"]:
+        raise AssertionError(f"flat_topk candidates fail their exact check: "
+                             f"{held}")
+    agree = compare_topk(tpp, ix.vectors, cand_k, cand_p, metric=ix.metric)
+    if not agree["ok"]:
+        raise AssertionError(f"flat_topk candidates disagree with "
+                             f"flat_topk_plain beyond near-ties: {agree}")
+    _, plain_idx = _rerank_exact(tpp, ix.vectors, *cand_p, k,
+                                 ix.metric != "L2")
+    got, plain_idx = _rows_of(torch, pipe, outs), plain_idx.long()
+    tol = 2.0 ** -21 * (qsq + xsq[: ix.n].max())
+    off = ((d64.gather(1, got).sort(-1).values
+            - d64.gather(1, plain_idx).sort(-1).values).abs()
+           > tol[:, None]).any(-1)
+    for row in off.nonzero()[:, 0].tolist():
+        only = (set(cand_k[1][row].tolist())
+                ^ set(cand_p[1][row].tolist()))
+        if not set(got[row].tolist()) ^ set(plain_idx[row].tolist()) <= only:
+            raise AssertionError(
+                f"row {row}: final neighbors {got[row].tolist()} vs the plain "
+                f"route's {plain_idx[row].tolist()} differ beyond f32 "
+                f"rounding and not by a candidate near-tie")
+    if not all(np.isfinite(o["logit"]) for o in outs):
+        raise AssertionError("non-finite logit")
+    set_rows = (cand_k[1].sort(-1).values
+                != cand_p[1].sort(-1).values).any(-1)
+    hits = sum(len(set(a) & set(b)) for a, b in zip(got.tolist(),
+                                                     ref.tolist()))
+    return (int((got != plain_idx).any(-1).sum()), int(set_rows.sum()),
+            hits / float(got.numel()), held, agree)
+
+
+def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
+    """A DetectionPipeline with a seeded random encoder at full width whose
+    DB is DB_CLIPS synthetic clips padded to INDEX_ROWS. → (pipeline,
+    DB clip paths)."""
     import numpy as np
 
     from radad_tpu_torch.config import Config
     from radad_tpu_torch.data.manifest import Manifest, file_id
-    from radad_tpu_torch.ops.gather import gather_rows
-    from radad_tpu_torch.ops.rerank import exact_dot
-    from radad_tpu_torch.ops.topk import extract_candidates
     from radad_tpu_torch.train.pipeline import DetectionPipeline
 
+    use_pallas = cfg_kw.pop("use_pallas", None)
+    root = os.path.join(tmp, label)
     cfg = Config().replace(
-        data_root=tmp, vector_db_path=os.path.join(tmp, "vdb"),
-        train_data_path=os.path.join(tmp, "db"), use_layer_norm=True,
-        use_batch_norm=False, random_seed=SEED)
+        data_root=root, vector_db_path=os.path.join(root, "vdb"),
+        train_data_path=os.path.join(root, "db"), use_layer_norm=True,
+        use_batch_norm=False, random_seed=SEED, **cfg_kw)
     os.makedirs(cfg.train_data_path)
     t0 = time.perf_counter()
-    pipe = DetectionPipeline(cfg, device=dev)
+    pipe = DetectionPipeline(cfg, use_pallas=use_pallas, device=dev)
     enc = pipe.encoder.arch_cfg
-    print(f"pipeline: wav2vec2 {enc.num_hidden_layers} layers x "
+    print(f"pipeline: {pipe.encoder.name} {enc.num_hidden_layers} layers x "
           f"{enc.hidden_size} wide, pretrained={pipe.encoder.pretrained}, "
-          f"tpp dim {pipe.tpp_dim}, built in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"use_pallas={pipe.index.use_pallas}, tpp dim {pipe.tpp_dim}, "
+          f"built in {time.perf_counter() - t0:.2f} s")
     db_paths, db_labels = _write_clips(cfg.train_data_path, DB_CLIPS, SEED,
                                        "db")
     manifest = Manifest(
@@ -384,54 +657,209 @@ def serving_phase(torch, dev, tmp: str):
     print(f"index: {ix.ntotal} x {ix.dimension} {ix.metric}, capacity "
           f"{ix.vectors.shape[0]}, device memory "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return pipe, db_paths
 
-    q_paths, _ = _write_clips(tmp, 64, SEED + 2, "query")
-    batch64 = q_paths[:32] + db_paths[:32]  # half of them are DB clips
+
+def _reset(kernels) -> None:
+    from radad_tpu_torch.ops.attention import fused_mha, reset_launches
+
+    for w in kernels:
+        if w is fused_mha:
+            reset_launches()
+        else:
+            w.launches = 0
+
+
+def _counted_run(torch, pipe, q_paths, batch64, kernels):
+    """5 predict, 5 predict_batch(8), 3 predict_batch(64), with the launch
+    counts set to 0 just before and read just after. → (latencies,
+    stage_ms, outputs per call kind, launches, fused_mha's per body)."""
+    from radad_tpu_torch.ops.attention import fused_mha
+
     pipe.predict(q_paths[0])  # warm-up outside the counted run
     pipe.predict_batch(q_paths[:8])
     torch.cuda.synchronize()
-
-    kernels = (gather_rows, exact_dot, extract_candidates)
-    for w in kernels:
-        w.launches = 0
-    ix.searches = ix.fallbacks = 0
+    _reset(kernels)
+    pipe.index.searches = pipe.index.fallbacks = 0
     lat = {"predict_1": [], "predict_batch_8": [], "predict_batch_64": []}
-    stages = {}
+    stages, outs = {}, {}
     for _ in range(5):
         t = time.perf_counter()
-        single = pipe.predict(q_paths[1])
+        outs["predict_1"] = [pipe.predict(q_paths[1])]
         lat["predict_1"].append((time.perf_counter() - t) * 1e3)
     for name, paths, reps in (("predict_batch_8", q_paths[8:16], 5),
                               ("predict_batch_64", batch64, 3)):
         for _ in range(reps):
             t = time.perf_counter()
-            outs = pipe.predict_batch(paths)
+            outs[name] = pipe.predict_batch(paths)
             lat[name].append((time.perf_counter() - t) * 1e3)
-        stages[name] = outs[0]["stage_ms"]
-        same, f32_rows = _check_against_full_scan(torch, pipe, paths, outs)
+        stages[name] = outs[name][0]["stage_ms"]
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in kernels}
+    return lat, stages, outs, launches, dict(fused_mha.body_launches)
+
+
+def _report(lat, stages, pipe, launches, label):
+    import numpy as np
+
+    calls = sum(len(v) for v in lat.values())
+    summary = {name: {"p50_ms": float(np.median(v)), "runs_ms": v}
+               for name, v in lat.items()}
+    for name, v in summary.items():
+        print(f"{label} {name}: p50 {v['p50_ms']:.2f} ms over "
+              f"{len(v['runs_ms'])} runs "
+              f"{[round(x, 2) for x in v['runs_ms']]}, stage_ms "
+              f"{stages.get(name, '-')}")
+    ix = pipe.index
+    print(f"{label} serving path: {calls} calls, {ix.searches} searches, "
+          f"{ix.fallbacks} fallbacks to the full f32 scan; kernel launches "
+          f"{launches}")
+
+
+def _compare_fused(torch, pipe, paths, fused, default):
+    """predict_batch payloads with and without RADAD_FUSED_ATTENTION=1 on
+    the same clips. Logits within 1e-4; the embeddings' relative change
+    within 1e-4; neighbor ids equal, except that neighbors tied within what
+    that change explains may trade places: at every rank the two squared
+    distances differ by at most 2 |q - x| |dq| plus f32 rounding,
+    2^-20 (|q|^2 + max |x|^2). → (rows whose ids differ, max |dlogit|,
+    max relative embedding change)."""
+    ix = pipe.index
+    base = _embed_paths(torch, pipe, paths)
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        moved = _embed_paths(torch, pipe, paths)
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    dq = (moved - base).double().norm(dim=-1)
+    drel = float((dq / base.double().norm(dim=-1)).max())
+    dlogit = max(abs(a["logit"] - b["logit"]) for a, b in zip(fused, default))
+    d_f = torch.tensor([[x["distance"] for x in o["retrieved"]]
+                        for o in fused], dtype=torch.float64)
+    d_d = torch.tensor([[x["distance"] for x in o["retrieved"]]
+                        for o in default], dtype=torch.float64)
+    qsq = base.double().square().sum(-1).cpu()
+    tol = (2.0 * d_d.amax(-1).sqrt() * dq.cpu()
+           + 2.0 ** -20 * (qsq + float(ix.norms_sq[: ix.n].max())))
+    differ = [r for r, (a, b) in enumerate(zip(fused, default))
+              if a["retrieved_files"] != b["retrieved_files"]]
+    if dlogit > 1e-4 or drel > 1e-4 or bool(
+            ((d_f - d_d).abs() > tol[:, None]).any()):
+        raise AssertionError(
+            f"RADAD_FUSED_ATTENTION=1 changed the result: max |dlogit| "
+            f"{dlogit:.3e}, relative embedding change {drel:.3e}, rows "
+            f"{[(r, fused[r]['retrieved'], default[r]['retrieved']) for r in differ]}")
+    return len(differ), dlogit, drel
+
+
+def serving_phase(torch, dev, tmp: str):
+    """The wav2vec2 serving path at full width, certified search, default
+    attention; then one predict_batch(8) with the fused attention switch.
+    Returns (pipeline, {path: launches}, query clip paths)."""
+    import numpy as np
+
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    pipe, db_paths = _build_pipeline(torch, dev, tmp, "wav2vec2")
+    q_paths, _ = _write_clips(tmp, 64, SEED + 2, "query")
+    batch64 = q_paths[:32] + db_paths[:32]  # half of them are DB clips
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    lat, stages, outs, launches, _ = _counted_run(torch, pipe, q_paths,
+                                                  batch64, kernels)
+    if not np.isfinite(outs["predict_1"][0]["logit"]):
+        raise AssertionError("non-finite logit from predict")
+    for name in ("predict_batch_8", "predict_batch_64"):
+        paths = q_paths[8:16] if name == "predict_batch_8" else batch64
+        same, f32_rows = _check_against_full_scan(torch, pipe, paths,
+                                                  outs[name])
         print(f"{name}: neighbors match the f64 full scan on all "
               f"{len(paths)} rows, ids identical on {same} (the rest swap "
               f"neighbors tied within f32 rounding); an f32 GEMM full "
               f"scan's ids differ from f64 on {f32_rows} rows")
-    launches = {w.__name__: w.launches for w in kernels}
-    calls = sum(len(v) for v in lat.values())
-    if not np.isfinite(single["logit"]):
-        raise AssertionError("non-finite logit from predict")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"serving path")
-    summary = {name: {"p50_ms": float(np.median(v)), "runs_ms": v}
-               for name, v in lat.items()}
-    for name, v in summary.items():
-        print(f"{name}: p50 {v['p50_ms']:.2f} ms over "
-              f"{len(v['runs_ms'])} runs "
-              f"{[round(x, 2) for x in v['runs_ms']]}, stage_ms "
-              f"{stages.get(name, '-')}")
-    print(f"serving path: {calls} calls, {ix.searches} certified searches, "
-          f"{ix.fallbacks} fallbacks to the full f32 scan; kernel launches "
-          f"{launches}")
-    return pipe, launches, q_paths
+                                 f"wav2vec2 serving path")
+    if launches["fused_mha"] or launches["flat_topk"]:
+        raise AssertionError(f"the default path launched an opt-in kernel: "
+                             f"{launches}")
+    _report(lat, stages, pipe, launches, "wav2vec2")
+
+    # the same clips with the fused attention switch: bias-free body
+    _reset(kernels)
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        fused = pipe.predict_batch(q_paths[8:16])
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    fused_launches = {w.__name__: w.launches for w in kernels}
+    body = dict(fused_mha.body_launches)
+    if body["no_bias"] <= 0 or body["bias"]:
+        raise AssertionError(f"fused attention: bias-free body not launched "
+                             f"alone ({body})")
+    differ, dlogit, drel = _compare_fused(torch, pipe, q_paths[8:16], fused,
+                                          outs["predict_batch_8"])
+    print(f"wav2vec2 with RADAD_FUSED_ATTENTION=1: predict_batch(8) "
+          f"neighbors equal on {8 - differ} of 8 rows, the rest swap "
+          f"neighbors tied within the embedding change (max relative "
+          f"{drel:.3e}, limit 1e-4); max |dlogit| {dlogit:.3e} (limit "
+          f"1e-4); launches {fused_launches}, fused_mha per body {body}")
+    return pipe, {"wav2vec2": launches,
+                  "wav2vec2_fused_attention": fused_launches}, q_paths
+
+
+def wavlm_phase(torch, dev, tmp: str):
+    """The WavLM serving path at full width: use_pallas=True (flat_topk +
+    exact re-rank) and RADAD_FUSED_ATTENTION=1 (fused_mha's bias body).
+    Returns {path: launches}."""
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        pipe, db_paths = _build_pipeline(
+            torch, dev, tmp, "wavlm", feature_extractor_type="wavlm",
+            use_pallas=True)
+        q_paths, _ = _write_clips(tmp, 64, SEED + 3, "wquery")
+        batch64 = q_paths[:32] + db_paths[:32]
+        kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+                   flat_topk)
+        lat, stages, outs, launches, body = _counted_run(
+            torch, pipe, q_paths, batch64, kernels)
+        if body["bias"] <= 0 or body["no_bias"]:
+            raise AssertionError(f"WavLM: fused_mha bias body not launched "
+                                 f"alone ({body})")
+        for name in ("fused_mha", "flat_topk", "gather_rows"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"WavLM serving path")
+        _report(lat, stages, pipe, launches, "wavlm")
+        print(f"wavlm fused_mha per body {body}")
+        for name in ("predict_batch_8", "predict_batch_64"):
+            paths = q_paths[8:16] if name == "predict_batch_8" else batch64
+            differ, sets, recall, held, agree = _check_against_plain_route(
+                torch, pipe, paths, outs[name])
+            print(f"wavlm {name}: candidates within the kernel's rounding "
+                  f"bound of the exact scores (max |err| "
+                  f"{held['max_abs_err']:.3e}, largest bound "
+                  f"{held['max_bound']:.3e}); {agree['rows_differ']} rows "
+                  f"order near-tied candidates differently from "
+                  f"flat_topk_plain, {sets} hold other candidate sets; final "
+                  f"top-{pipe.config.top_k} ids differ from the plain route "
+                  f"on {differ} of {len(paths)} rows, each by a near-tie; "
+                  f"recall@{pipe.config.top_k} against the f64 full scan "
+                  f"{recall:.4f}")
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    return {"wavlm": launches}
 
 
 def server_phase(pipe, q_paths) -> None:
@@ -493,18 +921,32 @@ def main() -> int:
         print(f"chip_smoke: cannot import radad_tpu_torch ({e}); run from "
               f"the root of a checkout", file=sys.stderr)
         return 2
+    import gc
+
     t_start = time.perf_counter()
     card, dev = header(torch)
     recs = kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory(prefix="radad_smoke_") as tmp:
-        pipe, launches, q_paths = serving_phase(torch, dev, tmp)
+        pipe, by_path, q_paths = serving_phase(torch, dev, tmp)
         server_phase(pipe, q_paths)
-    kernels = [dict(name=name, route=r["route"], source=r["source"],
-                    replaces=r["replaces"], launches=launches[name],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
-               for name, r in recs.items()]
+        del pipe  # free the first pipeline before building the second
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(wavlm_phase(torch, dev, tmp))
+    kernels = []
+    for name, r in recs.items():
+        per_path = {p: n[name] for p, n in by_path.items() if n[name]}
+        rec = dict(name=name, route=r["route"], source=r["source"],
+                   replaces=r["replaces"], launches=sum(per_path.values()),
+                   max_abs_err=r["max_abs_err"], ms=r["ms"],
+                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                   bound_by=r["bound_by"], library_ms=r["library_ms"],
+                   bound_rate=r["bound_rate"], launches_by_path=per_path)
+        if "no_bias" in r:
+            rec["no_bias"] = {key: r["no_bias"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")}
+        kernels.append(rec)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,19 +2,21 @@
 """Where the time goes in the PyTorch/CUDA port's serving path, on one GPU.
 
 Builds the same full-width serving setup as ``chip_smoke.py`` (seeded
-random wav2vec2-base, 256 synthetic clips embedded, index padded to
-25,600 x 5,376), then for ``predict_batch`` at B = 1, 8 and 64:
+random wav2vec2-base or wavlm-base, 256 synthetic clips embedded, index
+padded to 25,600 x 5,376), then for ``predict_batch`` at B = 1, 8 and 64:
 
 * a stage breakdown from CUDA-synchronized host clocks: decode, embed
-  (segment + encoder + TPP), certified search, neighbor gather, fusion
-  model, payload;
+  (segment + encoder + TPP), search, neighbor gather, fusion model;
 * a ``torch.profiler`` trace of one call: device time summed by kernel
-  (the top entries and the port's three kernels) and the device's busy
+  (the top entries and the port's five kernels) and the device's busy
   share of the call's wall time.
 
 Run from the root of a checkout on a machine with a GPU:
-``python3 experiments/torch_serving_profile.py [--out FILE]``. Prints text;
-writes the per-kernel tables to ``FILE`` (default
+``python3 experiments/torch_serving_profile.py [--path wavlm] [--out
+FILE]``. ``--path`` picks one of ``chip_smoke.py``'s two serving paths:
+``wav2vec2`` (default; certified search, default attention) or ``wavlm``
+(``use_pallas=True``, ``RADAD_FUSED_ATTENTION=1``). Prints text; writes
+the per-kernel tables to ``FILE`` (default
 ``runs/torch_serving_profile.txt``).
 """
 
@@ -58,7 +60,8 @@ def _stages(torch, pipe, paths, reps=5):
             _, idx, _ = _search_device(
                 tpp, ix.vectors, ix.ids, excl, cfg.top_k, metric=ix.metric,
                 n_valid=ix.ntotal, xsq=ix.norms_sq, scan_bf16=ix.scan_bf16,
-                resid_bf16=ix.resid_bf16, exclude_mode="self")
+                resid_bf16=ix.resid_bf16, exclude_mode="self",
+                use_pallas=ix.use_pallas)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             nb = gather_rows(ix.vectors, idx.clamp_min(0).reshape(-1))
@@ -81,6 +84,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("wav2vec2", "wavlm"),
+                    default="wav2vec2")
     ap.add_argument("--out", default=os.path.join(
         "runs", "torch_serving_profile.txt"))
     args = ap.parse_args()
@@ -91,28 +96,14 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     card, dev = cs.header(torch)
-    out_lines = [f"card: {card}"]
+    wavlm = args.path == "wavlm"
+    if wavlm:
+        os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    out_lines = [f"card: {card}", f"path {args.path}"]
     with tempfile.TemporaryDirectory(prefix="radad_prof_") as tmp:
-        import numpy as np
-
-        from radad_tpu_torch.config import Config
-        from radad_tpu_torch.data.manifest import Manifest, file_id
-        from radad_tpu_torch.train.pipeline import DetectionPipeline
-
-        cfg = Config().replace(
-            data_root=tmp, vector_db_path=os.path.join(tmp, "vdb"),
-            train_data_path=os.path.join(tmp, "db"), use_layer_norm=True,
-            use_batch_norm=False, random_seed=cs.SEED)
-        os.makedirs(cfg.train_data_path)
-        pipe = DetectionPipeline(cfg, device=dev)
-        db_paths, db_labels = cs._write_clips(cfg.train_data_path,
-                                              cs.DB_CLIPS, cs.SEED, "db")
-        pipe.build_vector_database(Manifest(
-            paths=tuple(db_paths), labels=np.asarray(db_labels, np.float32),
-            speakers=tuple("" for _ in db_paths),
-            ids=np.asarray([file_id(p) for p in db_paths], np.int32)),
-            save=False)
-        cs._pad_index(torch, pipe, cs.INDEX_ROWS, cs.SEED + 1)
+        pipe, _ = cs._build_pipeline(
+            torch, dev, tmp, "profile", feature_extractor_type=args.path,
+            use_pallas=wavlm)
         q_paths, _ = cs._write_clips(tmp, 64, cs.SEED + 2, "query")
         pipe.predict_batch(q_paths[:8])  # warm-up
         for b in (1, 8, 64):
@@ -141,7 +132,8 @@ def main() -> int:
             out_lines.append(line)
             events.sort(key=lambda e: -e.device_time_total)
             ours = ("gather_rows_kernel", "exact_dot_kernel",
-                    "extract_candidates_kernel")
+                    "extract_candidates_kernel", "mha_kernel",
+                    "flat_topk_kernel")
             for e in events:
                 if events.index(e) < 12 or any(o in e.key for o in ours):
                     line = (f"  {e.device_time_total / 1e3:9.4f} ms "

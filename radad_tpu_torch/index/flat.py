@@ -1,8 +1,8 @@
 """Device-resident flat vector index with certified-exact search.
 
 Counterpart: ``radad_tpu/index/flat.py`` (``FlatIndex`` for L2, IP and
-COSINE; ``_hier_candidates``, ``_search_fast_exact``, ``_search_device``).
-IVF waits for a later slice and raises.
+COSINE; ``_hier_candidates``, ``_search_fast_exact``, ``_search_device``,
+``_rerank_exact``). IVF waits for a later slice and raises.
 
 Search is the JAX package's certified fast-exact route on every device:
 one bf16 scan with a hi/lo query split and a bf16 residual term (f32
@@ -12,6 +12,11 @@ top candidates (``ops.rerank.exact_dot``), and a certificate: when some row
 that was not re-scored could still beat the k-th exact score, the search
 falls back to a full f32 scan. That branch is a host ``if`` on one bool
 (``lax.cond`` in JAX); ``FlatIndex.fallbacks`` counts it.
+
+``FlatIndex(use_pallas=True)`` opts out of it into the JAX package's
+single-kernel route: ``ops.topk.flat_topk`` (bf16 fused scan + per-tile
+k-select) over-fetches ``max(4k, 32)`` candidates and an exact f32 re-rank
+(``_rerank_exact``) orders them. That route is not certified.
 
 Ties: ``jax.lax.top_k`` puts the lower index first among equal values, and
 ``torch.topk`` leaves their order unspecified on CUDA, so every select
@@ -32,24 +37,17 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from radad_tpu_torch.ops.gather import gather_rows
 from radad_tpu_torch.ops.rerank import exact_dot
-from radad_tpu_torch.ops.topk import LANES, extract_candidates
+from radad_tpu_torch.ops.topk import (LANES, NEG_INF, extract_candidates,
+                                      flat_topk, top_k_stable)
 from radad_tpu_torch.utils.device import resolve_device
 
 _PAD = 1024  # capacity quantum, as in the JAX package
-NEG_INF = float("-inf")
 
 
 def _round_up(n: int, m: int = _PAD) -> int:
     return max(m, ((n + m - 1) // m) * m)
-
-
-def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Top-k along the last axis, lower index first among ties (the order
-    ``jax.lax.top_k`` gives)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,13 +67,15 @@ class FlatIndex:
     ``use_float16``), ``labels [cap] f32``, ``ids [cap] int32`` (basename
     id per row, for self-exclusion), ``norms_sq [cap] f32``, and the scan
     arrays ``scan_bf16`` / ``resid_bf16``; rows ``>= n`` are masked out of
-    every search. Host state: paths and metadata lists."""
+    every search. Host state: paths and metadata lists. ``use_pallas``
+    searches with ``flat_topk`` + exact re-rank instead of the certified
+    route."""
 
     metric_kinds = ("L2", "IP", "COSINE")
 
     def __init__(self, dimension: int, metric: str = "L2", *,
                  use_float16: bool = False, add_batch_size: int = 10000,
-                 device="cuda"):
+                 use_pallas: bool = False, device="cuda"):
         metric = metric.upper()
         if metric == "IVF":
             raise NotImplementedError("IVF index: not yet ported")
@@ -85,6 +85,7 @@ class FlatIndex:
         self.metric = metric
         self.use_float16 = bool(use_float16)
         self.add_batch_size = int(add_batch_size)
+        self.use_pallas = use_pallas
         self.device = resolve_device(device)
         self.n = 0
         self._cap = 0
@@ -100,8 +101,8 @@ class FlatIndex:
         # JAX-written index round-trips unchanged
         self._meta_extra: dict = {}
         self.search_chunk = 2048
-        self.searches = 0  # certified searches run
-        self.fallbacks = 0  # of which failed the certificate
+        self.searches = 0  # searches run through _search_device
+        self.fallbacks = 0  # certified searches that failed the certificate
 
     @property
     def ntotal(self) -> int:
@@ -229,7 +230,7 @@ class FlatIndex:
             q, self.vectors, self.ids if _ids is None else _ids, ex, k,
             metric=self.metric, n_valid=self.n, xsq=self.norms_sq,
             scan_bf16=self.scan_bf16, resid_bf16=self.resid_bf16,
-            exclude_mode=_exclude_mode)
+            exclude_mode=_exclude_mode, use_pallas=self.use_pallas)
         self.count_search(fell_back)
         return dists.cpu().numpy(), idx.cpu().numpy().astype(np.int64)
 
@@ -267,11 +268,13 @@ class FlatIndex:
                            os.path.join(directory, "index_host.pkl"))
 
     @classmethod
-    def load(cls, directory: str, *, device="cuda") -> "FlatIndex":
+    def load(cls, directory: str, *, use_pallas: bool = False,
+             device="cuda") -> "FlatIndex":
         with open(os.path.join(directory, "index_meta.json")) as f:
             meta = json.load(f)
         idx = cls(meta["dimension"], meta["metric"],
-                  use_float16=meta.get("use_float16", False), device=device)
+                  use_float16=meta.get("use_float16", False),
+                  use_pallas=use_pallas, device=device)
         idx._meta_extra = {k: v for k, v in meta.items()
                            if k not in ("dimension", "metric", "n",
                                         "use_float16")}
@@ -401,11 +404,45 @@ def _full_scan(q, vectors, xsq, mask, k, larger_better):
     return dd, torch.where(ok, ti, torch.full_like(ti, -1)).to(torch.int32)
 
 
+def _rerank_exact(q, vectors, cand_scores, cand_idx, k, larger_better):
+    """Exact f32 re-rank of R candidates (JAX ``_rerank_exact`` as the
+    ``use_pallas`` route calls it): gather the rows (``gather_rows``), f32
+    dots (TF32 off), ``|x|^2`` from the gathered rows, stable top-k.
+    Candidates with a non-finite scan score stay out. → (dists [B, k],
+    idx [B, k] int32)."""
+    b, r = cand_idx.shape
+    safe = cand_idx.clamp_min(0).to(torch.int32)
+    cand = gather_rows(vectors, safe.reshape(-1)).float().reshape(
+        b, r, vectors.shape[-1])
+    qf = q.float()
+    qc = torch.bmm(cand, qf[:, :, None])[..., 0]  # [B, R]
+    if larger_better:
+        exact = qc
+    else:
+        exact = -(qf.square().sum(-1, keepdim=True) - 2.0 * qc
+                  + cand.square().sum(-1))
+    exact = exact.masked_fill(~torch.isfinite(cand_scores), NEG_INF)
+    top_scores, pos = top_k_stable(exact, k)
+    top_idx = cand_idx.gather(1, pos)
+    valid = torch.isfinite(top_scores)
+    miss = NEG_INF if larger_better else float("inf")
+    dists = torch.where(valid, top_scores if larger_better else -top_scores,
+                        torch.full_like(top_scores, miss))
+    idx = torch.where(valid, top_idx, torch.full_like(top_idx, -1))
+    return dists, idx.to(torch.int32)
+
+
 def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
                    scan_bf16, resid_bf16=None, exclude_mode="batch",
-                   rerank_depth=None):
-    """Score + mask + certified k-select. → (dists [B, k], idx [B, k]
-    int32, fell_back).
+                   rerank_depth=None, use_pallas=False):
+    """Score + mask + k-select. → (dists [B, k], idx [B, k] int32,
+    fell_back).
+
+    Default: the certified search, ``fell_back`` when it ran the full f32
+    scan. ``use_pallas``: ``flat_topk`` over-fetches ``max(4k, 32)``
+    candidates from a bf16 scan, ``_rerank_exact`` orders them (JAX
+    ``flat.py:1216-1224``, ``|x|^2`` from the gathered rows as there);
+    ``fell_back`` is False.
 
     ``exclude_mode="batch"``: ONE exclusion set from the whole query
     batch's ids (reference parity, pipeline.py:461-463); ``"self"``: each
@@ -417,6 +454,15 @@ def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
                                  device=q.device)
     cap = vectors.shape[0]
     larger_better = metric in ("IP", "COSINE")
+    if use_pallas:
+        r = min(max(4 * k, 32), cap)
+        cand_scores, cand_idx = flat_topk(
+            q.float().contiguous(), vectors, r, metric=metric,
+            n_valid=n_valid, ids=ids, exclude_ids=exclude_ids,
+            fast_scan=True)
+        dists, idx = _rerank_exact(q, vectors, cand_scores, cand_idx, k,
+                                   larger_better)
+        return dists, idx, False
     invalid_row = torch.arange(cap, device=q.device) >= n_valid
     mask = invalid_row[None, :] | (ids[None, :] == exclude_ids[:, None])
     dists, idx, certified = _search_fast_exact(

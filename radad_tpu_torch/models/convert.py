@@ -22,6 +22,7 @@ import torch
 
 from radad_tpu_torch.models.fusion import RADADModel
 from radad_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+from radad_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
 
 def _t(x) -> torch.Tensor:
@@ -29,10 +30,13 @@ def _t(x) -> torch.Tensor:
 
 
 @torch.no_grad()
-def encoder_from_jax(params: Mapping, cfg: Wav2Vec2Config) -> Wav2Vec2Model:
+def encoder_from_jax(params: Mapping, cfg: Wav2Vec2Config,
+                     model: Wav2Vec2Model = None) -> Wav2Vec2Model:
     """``radad_tpu.models.wav2vec2`` params pytree (from ``init_params``
-    or ``hf_convert.convert_wav2vec2``) → ``Wav2Vec2Model``."""
-    model = Wav2Vec2Model(cfg)
+    or ``hf_convert.convert_wav2vec2``) → ``Wav2Vec2Model`` (or into
+    ``model``, the shared skeleton of a WavLM)."""
+    if model is None:
+        model = Wav2Vec2Model(cfg)
     for layer, src in zip(model.conv_layers, params["conv_layers"]):
         layer["kernel"].copy_(_t(src["kernel"]).permute(2, 1, 0))
         for key in ("bias", "norm_scale", "norm_bias"):
@@ -59,6 +63,22 @@ def encoder_from_jax(params: Mapping, cfg: Wav2Vec2Config) -> Wav2Vec2Model:
         for ln in ("ln1", "ln2"):
             layer[ln]["scale"].copy_(_t(stacked[ln]["scale"][i]))
             layer[ln]["bias"].copy_(_t(stacked[ln]["bias"][i]))
+    return model
+
+
+@torch.no_grad()
+def wavlm_from_jax(params: Mapping, cfg: WavLMConfig) -> WavLMModel:
+    """``radad_tpu.models.wavlm`` params pytree (from ``init_params`` or
+    ``hf_convert.convert_wavlm``) → ``WavLMModel``: the wav2vec2 skeleton
+    plus ``rel_attn_embed`` and the stacked ``gate_w [L, hd, 8]``,
+    ``gate_b``, ``gate_const``."""
+    model = encoder_from_jax(params, cfg, WavLMModel(cfg))
+    model.rel_attn_embed.copy_(_t(params["rel_attn_embed"]))
+    stacked = params["layers"]
+    for i, layer in enumerate(model.layers):
+        layer["gate"]["w"].copy_(_t(stacked["gate_w"][i]).T)
+        layer["gate"]["b"].copy_(_t(stacked["gate_b"][i]))
+        layer["gate"]["const"].copy_(_t(stacked["gate_const"][i]))
     return model
 
 

@@ -1,12 +1,12 @@
-"""Frozen-encoder factory: wav2vec2 and HuBERT.
+"""Frozen-encoder factory: wav2vec2, HuBERT and WavLM.
 
 Counterpart: ``radad_tpu/models/encoder.py`` (``FrozenEncoder``,
 ``build_encoder``, ``resolve_arch_config``). Weights resolve from local
 files only: ``<weights_dir>/<model-name-with-slashes-as-dashes>/
 {model.safetensors, pytorch_model.bin}``, else the HF cache layout, else a
 seeded random init at full width with a warning (the pipeline's mechanics,
-retrieval and timing do not depend on the weights). WavLM and Whisper raise
-"not yet ported".
+retrieval and timing do not depend on the weights). Whisper raises "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -16,11 +16,11 @@ import glob
 import json
 import logging
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from radad_tpu_torch.models import hf_convert, wav2vec2
+from radad_tpu_torch.models import hf_convert, wav2vec2, wavlm
 from radad_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -30,10 +30,10 @@ logger = logging.getLogger(__name__)
 class FrozenEncoder:
     """A frozen pretrained speech encoder: module + architecture."""
 
-    name: str  # "wav2vec2" | "hubert"
+    name: str  # "wav2vec2" | "hubert" | "wavlm"
     model_name: str  # HF-style id, e.g. facebook/wav2vec2-base-960h
-    arch_cfg: wav2vec2.Wav2Vec2Config
-    model: wav2vec2.Wav2Vec2Model
+    arch_cfg: Union[wav2vec2.Wav2Vec2Config, wavlm.WavLMConfig]
+    model: wav2vec2.Wav2Vec2Model  # a WavLMModel for "wavlm"
     pretrained: bool  # False => seeded random init
     layers_to_use: tuple = (-4, -3, -2, -1)
     # HF processor do_normalize: per-segment zero-mean/unit-var input
@@ -54,22 +54,56 @@ class FrozenEncoder:
             mean = flat.mean(-1, keepdim=True)
             var = (flat - mean).square().mean(-1, keepdim=True)
             flat = (flat - mean) / torch.sqrt(var + 1e-7)
-        feats = wav2vec2.extract_features(self.model, flat,
-                                          self.layers_to_use)
+        if self.name in ("wav2vec2", "hubert"):
+            feats = wav2vec2.extract_features(self.model, flat,
+                                              self.layers_to_use)
+        elif self.name == "wavlm":
+            feats = wavlm.extract_features(self.model, flat)
+        else:
+            raise ValueError(f"unknown encoder: {self.name}")
         return feats.reshape(lead + feats.shape[1:])
 
 
-_PRESETS = {"wav2vec2-base": {}, "wav2vec2-base-960h": {},
-            "wav2vec2-large-960h": dict(hidden_size=1024,
-                                        num_hidden_layers=24,
-                                        num_attention_heads=16,
-                                        intermediate_size=4096),
-            "hubert-base-ls960": {}}
+# Architecture presets on the model id's basename (the JAX package's
+# _PRESETS); a checkpoint's own config.json wins over them.
+_LARGE_STABLE = dict(hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096,
+                     feat_extract_norm="layer", conv_bias=True,
+                     do_stable_layer_norm=True)
+_PRESETS = {
+    "wav2vec2": {
+        "wav2vec2-base": {}, "wav2vec2-base-960h": {},
+        # original large: post-LN, group-norm frontend
+        "wav2vec2-large-960h": dict(hidden_size=1024, num_hidden_layers=24,
+                                    num_attention_heads=16,
+                                    intermediate_size=4096),
+        # lv60 / robust / xlsr family: pre-LN, per-layer-LN frontend
+        "wav2vec2-large-960h-lv60": _LARGE_STABLE,
+        "wav2vec2-large-960h-lv60-self": _LARGE_STABLE,
+        "wav2vec2-large-robust": _LARGE_STABLE,
+        "wav2vec2-large-xlsr-53": _LARGE_STABLE,
+    },
+    "wavlm": {
+        "wavlm-base": {}, "wavlm-base-plus": {}, "wavlm-base-sv": {},
+        "wavlm-base-plus-sv": {},
+        "wavlm-large": _LARGE_STABLE,
+    },
+    "hubert": {
+        "hubert-base-ls960": {},
+        "hubert-large-ls960-ft": _LARGE_STABLE,
+        "hubert-xlarge-ls960-ft": dict(_LARGE_STABLE, hidden_size=1280,
+                                       num_hidden_layers=48,
+                                       intermediate_size=5120),
+    },
+}
+_CONFIGS = {"wav2vec2": wav2vec2.Wav2Vec2Config,
+            "hubert": wav2vec2.Wav2Vec2Config, "wavlm": wavlm.WavLMConfig}
 _HF_FIELDS = ("hidden_size", "num_hidden_layers", "num_attention_heads",
               "intermediate_size", "conv_dim", "conv_kernel", "conv_stride",
               "conv_bias", "feat_extract_norm", "num_conv_pos_embeddings",
               "num_conv_pos_embedding_groups", "layer_norm_eps",
               "do_stable_layer_norm")
+_HF_FIELDS_WAVLM = _HF_FIELDS + ("num_buckets", "max_bucket_distance")
 
 
 def _find_local_checkpoint(model_name: str, weights_dir: Optional[str]):
@@ -91,24 +125,27 @@ def _find_local_checkpoint(model_name: str, weights_dir: Optional[str]):
     return None
 
 
-def resolve_arch_config(model_name: str, ckpt_path: Optional[str] = None
-                        ) -> wav2vec2.Wav2Vec2Config:
-    """The checkpoint's own config.json when present, else a preset on the
-    id's basename, else the base architecture with a warning."""
+def resolve_arch_config(model_name: str, ckpt_path: Optional[str] = None,
+                        kind: str = "wav2vec2"):
+    """Architecture config of encoder ``kind`` for ``model_name``: the
+    checkpoint's own config.json when present, else a preset on the id's
+    basename, else the base architecture with a warning."""
+    cfg_cls = _CONFIGS[kind]
     if ckpt_path:
         cfg_json = os.path.join(os.path.dirname(ckpt_path), "config.json")
         if os.path.exists(cfg_json):
             with open(cfg_json) as f:
                 hf = json.load(f)
+            fields = _HF_FIELDS_WAVLM if kind == "wavlm" else _HF_FIELDS
             kw = {k: (tuple(hf[k]) if isinstance(hf[k], list) else hf[k])
-                  for k in _HF_FIELDS if k in hf}
-            return wav2vec2.Wav2Vec2Config(**kw)
-    preset = _PRESETS.get(model_name.split("/")[-1].lower())
+                  for k in fields if k in hf}
+            return cfg_cls(**kw)
+    preset = _PRESETS[kind].get(model_name.split("/")[-1].lower())
     if preset is not None:
-        return wav2vec2.Wav2Vec2Config(**preset)
-    logger.warning("No architecture preset or config.json for %r — "
-                   "assuming the base architecture.", model_name)
-    return wav2vec2.Wav2Vec2Config()
+        return cfg_cls(**preset)
+    logger.warning("No architecture preset or config.json for %s %r — "
+                   "assuming the base architecture.", kind, model_name)
+    return cfg_cls()
 
 
 def build_encoder(config, *, weights_dir: Optional[str] = None,
@@ -117,28 +154,34 @@ def build_encoder(config, *, weights_dir: Optional[str] = None,
     pipeline.py:54-65), placed on ``device``."""
     dev = resolve_device(device)
     kind = config.feature_extractor_type
-    if kind in ("wavlm", "whisper"):
+    if kind == "whisper":
         raise NotImplementedError(f"{kind} encoder: not yet ported")
-    if kind not in ("wav2vec2", "hubert"):
+    if kind not in _CONFIGS:
         raise ValueError(f"Unknown feature extractor type: {kind!r}")
     if config.use_mixed_precision:
         raise NotImplementedError("mixed-precision encoder: not yet ported")
-    model_name = (config.wav2vec2_model_name if kind == "wav2vec2"
-                  else config.hubert_model_name)
+    model_name = {"wav2vec2": config.wav2vec2_model_name,
+                  "hubert": config.hubert_model_name,
+                  "wavlm": config.wavlm_model_name}[kind]
     if weights_dir is None:
         weights_dir = os.path.join(config.data_root, "weights")
     ckpt = _find_local_checkpoint(model_name, weights_dir)
-    arch_cfg = resolve_arch_config(model_name, ckpt)
+    arch_cfg = resolve_arch_config(model_name, ckpt, kind)
     if ckpt is not None:
         logger.info("Loading %s weights from %s", kind, ckpt)
-        model = hf_convert.convert_wav2vec2(
-            hf_convert.load_state_dict(ckpt), arch_cfg)
+        convert = (hf_convert.convert_wavlm if kind == "wavlm"
+                   else hf_convert.convert_wav2vec2)
+        model = convert(hf_convert.load_state_dict(ckpt), arch_cfg)
     else:
         logger.warning(
             "No local checkpoint for %s (%s) under %s — using RANDOM "
             "encoder weights (seed %d).", kind, model_name, weights_dir, seed)
-        model = wav2vec2.init_params(wav2vec2.Wav2Vec2Model(arch_cfg),
-                                     torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        if kind == "wavlm":
+            model = wavlm.init_params(wavlm.WavLMModel(arch_cfg), gen)
+        else:
+            model = wav2vec2.init_params(wav2vec2.Wav2Vec2Model(arch_cfg),
+                                         gen)
     normalize = config.input_normalize
     if normalize is None:
         normalize = False

@@ -6,9 +6,10 @@ package's key names, in PyTorch's layouts: linear weights ``[out, in]``,
 conv kernels ``[C_out, C_in/groups, K]``, activations ``[B, C, T]`` inside
 the conv stack.
 
-Attention is plain matmul plus softmax (``mha_reference``), as the JAX
-package's default path is: its fused Pallas kernel, opt-in behind
-``RADAD_FUSED_ATTENTION=1`` there, is not ported yet.
+Attention routes through ``radad_tpu_torch/ops/attention.py``: plain
+matmul plus softmax (``mha_reference``) by default, as in the JAX package,
+and the fused CUDA kernel (``fused_mha``) with ``RADAD_FUSED_ATTENTION=1``
+on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+
+from radad_tpu_torch.ops.attention import (fused_mha, mha_reference,
+                                           use_fused_attention)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -39,32 +43,26 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  num_heads: int) -> torch.Tensor:
-    """Multi-head attention on ``[B, T, D]`` with heads as column slices;
-    ``q`` pre-scaled. Logits and softmax in f32."""
-    b, t, d = q.shape
-    hd = d // num_heads
-
-    def split(h):
-        return h.reshape(b, t, num_heads, hd).transpose(1, 2)  # [B,H,T,hd]
-
-    logits = torch.matmul(split(q).float(), split(k).float().transpose(-1, -2))
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    ctx = torch.matmul(w, split(v))  # [B, H, T, hd]
-    return ctx.transpose(1, 2).reshape(b, t, d)
-
-
 def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-                   num_heads: int) -> torch.Tensor:
+                   num_heads: int, *,
+                   bias_factors: Optional[tuple] = None) -> torch.Tensor:
     """HF eager self-attention (modeling_wav2vec2.py): q scaled by
-    head_dim**-0.5. ``p``: qw, qb, kw, kb, vw, vb, ow, ob."""
-    d = x.shape[-1]
+    head_dim**-0.5; logits optionally add ``bias_factors = (gate [B, T, H],
+    pos_bias [H, T, T])``, WavLM's gated relative position bias in factored
+    form. ``p``: qw, qb, kw, kb, vw, vb, ow, ob."""
+    _, t, d = x.shape
     scaling = (d // num_heads) ** -0.5
     q = linear(x, p["qw"], p["qb"]) * scaling
     k = linear(x, p["kw"], p["kb"])
     v = linear(x, p["vw"], p["vb"])
-    return linear(mha_reference(q, k, v, num_heads), p["ow"], p["ob"])
+    gate, pos = bias_factors if bias_factors is not None else (None, None)
+    if use_fused_attention(t, d, x.device):
+        ctx = fused_mha(q, k, v, num_heads,
+                        gate=None if gate is None else gate.contiguous(),
+                        pos_bias=None if pos is None else pos.contiguous())
+    else:
+        ctx = mha_reference(q, k, v, num_heads, gate=gate, pos_bias=pos)
+    return linear(ctx, p["ow"], p["ob"])
 
 
 def feed_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor]
@@ -73,14 +71,27 @@ def feed_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor]
     return linear(gelu(linear(x, p["w1"], p["b1"])), p["w2"], p["b2"])
 
 
-def post_ln_layer(x: torch.Tensor, p, num_heads: int,
-                  eps: float) -> torch.Tensor:
-    """Post-LN encoder layer (HF Wav2Vec2EncoderLayer):
+def post_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
+                  bias_factors: Optional[tuple] = None) -> torch.Tensor:
+    """Post-LN encoder layer (HF Wav2Vec2EncoderLayer, WavLM base):
     x = LN(x + attn(x)); x = LN2(x + ffn(x))."""
-    h = x + self_attention(x, p["attn"], num_heads)
+    h = x + self_attention(x, p["attn"], num_heads,
+                           bias_factors=bias_factors)
     h = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"], eps)
     h = h + feed_forward(h, p["ffn"])
     return layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"], eps)
+
+
+def pre_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
+                 bias_factors: Optional[tuple] = None) -> torch.Tensor:
+    """Pre-LN encoder layer (HF Wav2Vec2EncoderLayerStableLayerNorm, the
+    ``do_stable_layer_norm`` large variants): x += attn(LN(x));
+    x += ffn(LN2(x))."""
+    h = x + self_attention(
+        layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"], eps), p["attn"],
+        num_heads, bias_factors=bias_factors)
+    return h + feed_forward(
+        layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"], eps), p["ffn"])
 
 
 def conv1d(x: torch.Tensor, kernel: torch.Tensor,

@@ -1,10 +1,10 @@
-"""HF checkpoint → port encoder modules (the wav2vec2 family).
+"""HF checkpoint → port encoder modules (wav2vec2, HuBERT, WavLM).
 
-Counterpart: the wav2vec2 part of ``radad_tpu/models/hf_convert.py``
-(``convert_wav2vec2``, ``load_state_dict``). HF state dicts are already in
+Counterpart: ``radad_tpu/models/hf_convert.py`` (``convert_wav2vec2``,
+``convert_wavlm``, ``load_state_dict``). HF state dicts are already in
 PyTorch's layouts, so weights copy as they are; the weight-normed
-positional conv is materialized into a plain kernel. WavLM and Whisper
-come with their encoders in a later slice.
+positional conv is materialized into a plain kernel. Whisper comes with its
+encoder in a later slice.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from radad_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+from radad_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
 
 def _t(x) -> torch.Tensor:
@@ -35,13 +36,20 @@ def _weight_normed_conv(sd: Mapping, prefix: str) -> torch.Tensor:
     return g * v / norm.clamp_min(1e-12)  # [out, in/groups, k]
 
 
+def _put(sd: Mapping, param, key: str) -> None:
+    param.copy_(_t(sd[key]).reshape(param.shape))
+
+
 @torch.no_grad()
-def convert_wav2vec2(sd: Mapping, cfg: Wav2Vec2Config) -> Wav2Vec2Model:
-    """HF Wav2Vec2Model / HubertModel state dict → ``Wav2Vec2Model``."""
-    model = Wav2Vec2Model(cfg)
+def convert_wav2vec2(sd: Mapping, cfg: Wav2Vec2Config,
+                     model: Wav2Vec2Model = None) -> Wav2Vec2Model:
+    """HF Wav2Vec2Model / HubertModel state dict → ``Wav2Vec2Model`` (or
+    into ``model``, the shared skeleton of a WavLM)."""
+    if model is None:
+        model = Wav2Vec2Model(cfg)
 
     def put(param, key):
-        param.copy_(_t(sd[key]))
+        _put(sd, param, key)
 
     for i, layer in enumerate(model.conv_layers):
         pre = f"feature_extractor.conv_layers.{i}"
@@ -75,6 +83,22 @@ def convert_wav2vec2(sd: Mapping, cfg: Wav2Vec2Config) -> Wav2Vec2Model:
         put(ffn["b1"], f"{pre}.feed_forward.intermediate_dense.bias")
         put(ffn["w2"], f"{pre}.feed_forward.output_dense.weight")
         put(ffn["b2"], f"{pre}.feed_forward.output_dense.bias")
+    return model
+
+
+@torch.no_grad()
+def convert_wavlm(sd: Mapping, cfg: WavLMConfig) -> WavLMModel:
+    """HF WavLMModel state dict → ``WavLMModel``: the wav2vec2 skeleton
+    plus ``rel_attn_embed`` (layer 0 owns it) and each layer's
+    ``gru_rel_pos_linear`` / ``gru_rel_pos_const``."""
+    model = convert_wav2vec2(sd, cfg, WavLMModel(cfg))
+    _put(sd, model.rel_attn_embed,
+         "encoder.layers.0.attention.rel_attn_embed.weight")
+    for i, layer in enumerate(model.layers):
+        pre = f"encoder.layers.{i}.attention"
+        _put(sd, layer["gate"]["w"], f"{pre}.gru_rel_pos_linear.weight")
+        _put(sd, layer["gate"]["b"], f"{pre}.gru_rel_pos_linear.bias")
+        _put(sd, layer["gate"]["const"], f"{pre}.gru_rel_pos_const")
     return model
 
 

@@ -1,17 +1,20 @@
-"""Wav2Vec2 encoder (base architecture) as a frozen PyTorch module.
+"""Wav2Vec2 encoder as a frozen PyTorch module.
 
 Counterpart: ``radad_tpu/models/wav2vec2.py``. Raw waveform → 7-layer
-strided conv feature encoder (group norm on the first layer) → feature
-projection → convolutional positional embedding → post-LN transformer.
-``extract_features`` means hidden layers (-4..-1), as the reference does
-(feature_extractor.py:32-41).
+strided conv feature encoder → feature projection → convolutional
+positional embedding → transformer. ``extract_features`` means hidden
+layers (-4..-1), as the reference does (feature_extractor.py:32-41).
+
+Base models (``feat_extract_norm="group"``): group norm on the first conv
+layer, post-LN layers after the encoder LN. Large lv60/xlsr/HuBERT-large
+models (``feat_extract_norm="layer"``, ``do_stable_layer_norm=True``): an LN
+over channels after every conv (with conv bias), pre-LN layers, and the
+encoder LN after the stack.
 
 Parameters keep the JAX pytree's names (``conv_layers[i].kernel``,
 ``feat_proj``, ``pos_conv``, ``encoder_ln``, ``layers[i].attn.qw`` ...) in
 PyTorch layouts; the JAX package stacks the layers on one axis for
-``lax.scan``, here they are a ``ModuleList`` run in a loop. Only the base
-(post-LN, group-norm frontend) variant is ported; the large
-``do_stable_layer_norm`` variants raise.
+``lax.scan``, here they are a ``ModuleList`` run in a loop.
 """
 
 from __future__ import annotations
@@ -69,10 +72,9 @@ class Wav2Vec2Model(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        if cfg.do_stable_layer_norm or cfg.feat_extract_norm != "group":
-            raise NotImplementedError(
-                "wav2vec2 large (stable-layer-norm / layer-norm frontend) "
-                "variants are not yet ported")
+        if cfg.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm must be 'group' or 'layer', "
+                             f"got {cfg.feat_extract_norm!r}")
         self.cfg = cfg
         self.conv_layers = nn.ModuleList()
         in_dim = 1
@@ -80,7 +82,7 @@ class Wav2Vec2Model(nn.Module):
             layer = nn.ParameterDict({"kernel": _param(out_dim, in_dim, k)})
             if cfg.conv_bias:
                 layer["bias"] = _param(out_dim)
-            if i == 0:
+            if i == 0 or cfg.feat_extract_norm == "layer":
                 layer["norm_scale"] = nn.Parameter(torch.ones(out_dim),
                                                    requires_grad=False)
                 layer["norm_bias"] = _param(out_dim)
@@ -110,15 +112,20 @@ class Wav2Vec2Model(nn.Module):
 def feature_encoder(model: Wav2Vec2Model, waveform: torch.Tensor
                     ) -> torch.Tensor:
     """Strided conv stack: ``[B, T_samples]`` → ``[B, T_frames, C]``.
-    First layer group-normed, GELU after every conv, no padding."""
+    First layer group-normed ("group") or every layer LN'd over channels
+    ("layer"), GELU after every conv, no padding."""
     cfg = model.cfg
     x = waveform[:, None, :]  # [B, 1, T]
     for i, layer in enumerate(model.conv_layers):
         x = C.conv1d(x, layer["kernel"], layer.get("bias"),
                      stride=cfg.conv_stride[i], padding=0)
         if "norm_scale" in layer:
-            x = C.instance_norm_channels(x, layer["norm_scale"],
-                                         layer["norm_bias"])
+            if cfg.feat_extract_norm == "group":
+                x = C.instance_norm_channels(x, layer["norm_scale"],
+                                             layer["norm_bias"])
+            else:
+                x = C.layer_norm(x.transpose(1, 2), layer["norm_scale"],
+                                 layer["norm_bias"]).transpose(1, 2)
         x = C.gelu(x)
     return x.transpose(1, 2)
 
@@ -136,23 +143,36 @@ def positional_conv(model: Wav2Vec2Model, x: torch.Tensor) -> torch.Tensor:
     return C.gelu(out.transpose(1, 2))
 
 
-def encode(model: Wav2Vec2Model, waveform: torch.Tensor) -> list:
-    """Full forward: ``[B, T_samples]`` → hidden states, a list of L+1
-    ``[B, T_frames, D]``: entry 0 is the transformer input (after the
-    encoder LN), entry i > 0 is layer i's output (HF ordering)."""
-    cfg = model.cfg
+def embed_frames(model: Wav2Vec2Model, waveform: torch.Tensor
+                 ) -> torch.Tensor:
+    """Conv stack → feature projection (LN → linear) → + positional conv:
+    the transformer's input ``[B, T_frames, D]`` before any encoder LN."""
     feats = feature_encoder(model, waveform.float())
     fp = model.feat_proj
-    x = C.layer_norm(feats, fp["ln_scale"], fp["ln_bias"], cfg.layer_norm_eps)
+    x = C.layer_norm(feats, fp["ln_scale"], fp["ln_bias"],
+                     model.cfg.layer_norm_eps)
     x = C.linear(x, fp["kernel"], fp["bias"])
-    x = x + positional_conv(model, x)
-    x = C.layer_norm(x, model.encoder_ln["scale"], model.encoder_ln["bias"],
-                     cfg.layer_norm_eps)
+    return x + positional_conv(model, x)
+
+
+def encode(model: Wav2Vec2Model, waveform: torch.Tensor) -> list:
+    """Full forward: ``[B, T_samples]`` → hidden states, a list of L+1
+    ``[B, T_frames, D]`` in HF's ordering: entry i < L is layer i's input
+    (entry 0 after the encoder LN in base models), entry L the last layer's
+    output (after the encoder LN in stable-LN models)."""
+    cfg = model.cfg
+    eps, heads = cfg.layer_norm_eps, cfg.num_attention_heads
+    x = embed_frames(model, waveform)
+    enc_ln = model.encoder_ln
+    if not cfg.do_stable_layer_norm:
+        x = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
+    layer_fn = C.pre_ln_layer if cfg.do_stable_layer_norm else C.post_ln_layer
     hidden = [x]
     for layer in model.layers:
-        x = C.post_ln_layer(x, layer, cfg.num_attention_heads,
-                            cfg.layer_norm_eps)
+        x = layer_fn(x, layer, heads, eps)
         hidden.append(x)
+    if cfg.do_stable_layer_norm:
+        hidden[-1] = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
     return hidden
 
 

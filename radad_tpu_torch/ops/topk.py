@@ -1,25 +1,40 @@
-"""Per-tile top-m candidate extraction for the certified flat search.
+"""Top-k selection kernels of the flat search.
 
-Counterpart: ``radad_tpu/ops/topk.py`` (Pallas ``extract_candidates``; the
-module's ``flat_topk`` kernel, opt-in behind ``FlatIndex(use_pallas=True)``
-there, is not ported yet). The kernel is
-``radad_tpu_torch/csrc/extract_candidates.cu``.
+Counterpart: ``radad_tpu/ops/topk.py``:
 
-``extract_candidates`` launches the kernel for CUDA tensors and runs
-``extract_candidates_plain`` (the XLA loop of
-``radad_tpu/index/flat.py::_hier_candidates``) only for CPU tensors.
+* ``extract_candidates`` (per-tile top-m for the certified search's
+  candidate select), kernel ``radad_tpu_torch/csrc/extract_candidates.cu``;
+* ``flat_topk`` (fused scan + per-tile k-select, reached through
+  ``FlatIndex(use_pallas=True)``), kernel
+  ``radad_tpu_torch/csrc/flat_topk.cu``, with ``flat_topk_reference``.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (``extract_candidates_plain``, the XLA loop of
+``radad_tpu/index/flat.py::_hier_candidates``; ``flat_topk_plain``) only for
+CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from radad_tpu_torch.ops import _native
 
 LANES = 128
+NEG_INF = float("-inf")
+_TILE_N = 128  # rows per flat_topk kernel block (csrc/flat_topk.cu kTileN)
+_X_KIND = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Top-k along the last axis, lower index first among ties (the order
+    ``jax.lax.top_k`` gives)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def extract_candidates_plain(cand: torch.Tensor, tsel: torch.Tensor, m: int,
@@ -94,3 +109,149 @@ def extract_candidates(cand: torch.Tensor, tsel: torch.Tensor, m: int,
 
 
 extract_candidates.launches = 0  # kernel launches (never the CPU plain version)
+
+
+# ----------------------------------------------------------------------
+def _finish_topk(vals: torch.Tensor, idx: torch.Tensor, q: torch.Tensor,
+                 l2: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Missing slots → index -1; for L2 add ``-|q|^2`` back to the finite
+    values, so they are true negative squared distances."""
+    ok = torch.isfinite(vals)
+    idx = torch.where(ok, idx, torch.full_like(idx, -1)).to(torch.int32)
+    if l2:
+        qsq = q.float().square().sum(-1, keepdim=True)
+        vals = torch.where(ok, vals - qsq, vals)
+    return vals, idx
+
+
+def _check_flat_topk(q, vectors, k, metric):
+    if metric not in ("IP", "COSINE", "L2"):
+        raise ValueError(f"flat_topk metric must be IP/COSINE/L2, got "
+                         f"{metric}")
+    if not 1 <= k <= LANES:
+        raise ValueError(f"flat_topk supports 1 <= k <= {LANES}, got {k}")
+    if q.dim() != 2 or vectors.dim() != 2 or q.shape[1] != vectors.shape[1]:
+        raise ValueError(f"flat_topk: want q [B, D] and vectors [N, D], got "
+                         f"{tuple(q.shape)} and {tuple(vectors.shape)}")
+
+
+def flat_topk_plain(q: torch.Tensor, vectors: torch.Tensor, k: int, *,
+                    metric: str = "L2", n_valid: Optional[int] = None,
+                    ids: Optional[torch.Tensor] = None,
+                    exclude_ids: Optional[torch.Tensor] = None,
+                    fast_scan: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``flat_topk``: the full ``[B, N]`` score
+    matrix (bf16-rounded operands with ``fast_scan``, f32 products), masks,
+    one stable top-k. The same result as the kernel's per-tile top-k and
+    merge, whose ties also fall to the lowest row."""
+    _check_flat_topk(q, vectors, k, metric)
+    n = vectors.shape[0]
+    n_valid = n if n_valid is None else min(int(n_valid), n)
+    x = vectors.float()
+    qm, xm = q.float(), x
+    if fast_scan:
+        qm = qm.to(torch.bfloat16).float()
+        xm = x.to(torch.bfloat16).float()
+    scores = qm @ xm.t()
+    l2 = metric == "L2"
+    if l2:
+        scores = 2.0 * scores - x.square().sum(-1)[None, :]
+    mask = (torch.arange(n, device=q.device) >= n_valid)[None, :]
+    if ids is not None and exclude_ids is not None:
+        mask = mask | (ids[None, :] == exclude_ids[:, None])
+    scores = scores.masked_fill(mask, NEG_INF)
+    if n < k:
+        scores = torch.nn.functional.pad(scores, (0, k - n), value=NEG_INF)
+    vals, idx = top_k_stable(scores, k)
+    return _finish_topk(vals, idx, q, l2)
+
+
+def flat_topk_reference(q: torch.Tensor, vectors: torch.Tensor, k: int, *,
+                        metric: str = "L2", n_valid: Optional[int] = None,
+                        ids: Optional[torch.Tensor] = None,
+                        exclude_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle with ``flat_topk``'s contract (JAX ``flat_topk_reference``):
+    f32 scores ``-(|q|^2 - 2 q.x + |x|^2)`` (L2) or ``q.x``, masks, top-k."""
+    _check_flat_topk(q, vectors, k, metric)
+    qf, x = q.float(), vectors.float()
+    n = x.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    scores = qf @ x.t()
+    if metric == "L2":
+        scores = -(qf.square().sum(-1, keepdim=True) - 2.0 * scores
+                   + x.square().sum(-1)[None, :])
+    mask = (torch.arange(n, device=q.device) >= n_valid)[None, :]
+    if ids is not None and exclude_ids is not None:
+        mask = mask | (ids[None, :] == exclude_ids[:, None])
+    vals, idx = top_k_stable(scores.masked_fill(mask, NEG_INF), k)
+    ok = torch.isfinite(vals)
+    return vals, torch.where(ok, idx, torch.full_like(idx, -1)).to(
+        torch.int32)
+
+
+def flat_topk(q: torch.Tensor, vectors: torch.Tensor, k: int, *,
+              metric: str = "L2", n_valid: Optional[int] = None,
+              ids: Optional[torch.Tensor] = None,
+              exclude_ids: Optional[torch.Tensor] = None,
+              fast_scan: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused top-k scan → ``(scores [B, k] f32, larger is better; rows
+    [B, k] int32)``. ``q [B, D] f32``, ``vectors [N, D]`` f32 or bf16.
+    Rows ``>= n_valid`` and rows whose ``ids`` equal the query's
+    ``exclude_ids`` are masked; missing slots are ``(-inf, -1)``. L2 scores
+    are ``-|q - x|^2``. ``fast_scan`` rounds q and x to bf16 for the
+    products (f32 sums), as the JAX kernel's single-pass MXU scan.
+
+    The kernel gives each 128-row tile's top k; the ``[B, tiles * k]``
+    candidates merge with a stable top-k here (the JAX wrapper's
+    ``lax.top_k``)."""
+    _check_flat_topk(q, vectors, k, metric)
+    if (ids is None) != (exclude_ids is None):
+        raise ValueError("flat_topk: ids and exclude_ids come together")
+    tensors = [q, vectors] + ([] if ids is None else [ids, exclude_ids])
+    if all(t.device.type == "cpu" for t in tensors):
+        return flat_topk_plain(q, vectors, k, metric=metric, n_valid=n_valid,
+                               ids=ids, exclude_ids=exclude_ids,
+                               fast_scan=fast_scan)
+    _native.require_cuda("flat_topk", *tensors)
+    b, d = q.shape
+    n = vectors.shape[0]
+    kind = _X_KIND.get(vectors.dtype)
+    if q.dtype != torch.float32 or kind is None:
+        raise TypeError(f"flat_topk: want q f32 and vectors f32 or bf16, got "
+                        f"{q.dtype} and {vectors.dtype}")
+    if ids is not None and (ids.dtype != torch.int32
+                            or exclude_ids.dtype != torch.int32
+                            or ids.shape != (n,)
+                            or exclude_ids.shape != (b,)):
+        raise TypeError("flat_topk: want ids [N] and exclude_ids [B] int32")
+    if d % 4 or q.data_ptr() % 16 or vectors.data_ptr() % 16:
+        raise ValueError("flat_topk: the kernel needs D % 4 == 0 and "
+                         "16-byte aligned q and vectors")
+    if b > 64 * 65_535:
+        raise ValueError(f"flat_topk: B={b} exceeds the kernel's grid")
+    n_valid = n if n_valid is None else max(0, min(int(n_valid), n))
+    tiles = -(-n // _TILE_N)
+    vals = torch.empty((b, tiles, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, tiles, k), dtype=torch.int32, device=q.device)
+    if b == 0 or n == 0:
+        return (torch.full((b, k), NEG_INF, device=q.device),
+                torch.full((b, k), -1, dtype=torch.int32, device=q.device))
+    fn = _native.library("flat_topk").radad_flat_topk
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), vectors.data_ptr(),
+            None if ids is None else ids.data_ptr(),
+            None if ids is None else exclude_ids.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), b, n, n_valid, d, k, kind,
+            int(fast_scan), int(metric == "L2"), _native.stream_of(q))
+    _native.check_launch("flat_topk", rc)
+    flat_topk.launches += 1
+    top, pos = top_k_stable(vals.reshape(b, tiles * k), k)
+    return _finish_topk(top, idx.reshape(b, tiles * k).gather(1, pos), q,
+                        metric == "L2")
+
+
+flat_topk.launches = 0  # kernel launches (never the CPU plain version)

@@ -70,6 +70,12 @@ class PredictBatcher:
         self._q.put((path, fut, _time.perf_counter()))
         return fut.result(timeout=600)
 
+    def close(self) -> None:
+        """Stop the worker thread after the requests queued so far; it then
+        drops its reference to the pipeline."""
+        self._q.put(None)
+        self._thread.join(timeout=600)
+
     def _bucket(self, n: int) -> int:
         for b in self.BUCKETS:
             if n <= b:
@@ -81,8 +87,11 @@ class PredictBatcher:
         import time as _time
 
         while True:
-            path, fut, t_enq = self._q.get()
-            batch = [(path, fut, t_enq)]
+            item = self._q.get()
+            if item is None:  # close()
+                self.pipeline = None
+                return
+            batch = [item]
             # Adaptive linger: drain whatever already queued while the
             # previous device call was in flight (free coalescing), but
             # only wait the linger window for stragglers when this batch
@@ -92,9 +101,13 @@ class PredictBatcher:
             # busy.
             while len(batch) < self.max_batch:
                 try:
-                    batch.append(self._q.get_nowait())
+                    item = self._q.get_nowait()
                 except _queue.Empty:
                     break
+                if item is None:
+                    self._q.put(None)  # close() after this batch
+                    break
+                batch.append(item)
             if 1 < len(batch) < self.max_batch:
                 deadline = _time.time() + self.linger
                 while len(batch) < self.max_batch:
@@ -102,9 +115,13 @@ class PredictBatcher:
                     if remaining <= 0:
                         break
                     try:
-                        batch.append(self._q.get(timeout=remaining))
+                        item = self._q.get(timeout=remaining)
                     except _queue.Empty:
                         break
+                    if item is None:
+                        self._q.put(None)
+                        break
+                    batch.append(item)
             paths = [p for p, _, _ in batch]
             bucket = self._bucket(len(paths))
             padded = paths + [paths[-1]] * (bucket - len(paths))
@@ -488,6 +505,17 @@ def serve(config, *, host: str = "0.0.0.0", port: int = 5000,
         # experiments/serve_load_test.py at the 1M-row scale).
         request_queue_size = 128
         daemon_threads = True
+
+        def server_close(self):
+            """Close the socket, stop the micro-batcher and release the
+            pipeline (a served pipeline's device memory is freed once the
+            caller drops it too)."""
+            super().server_close()
+            if state.batcher is not None:
+                state.batcher.close()
+            state.pipeline = None
+            if Handler.state is state:
+                Handler.state = None
 
     httpd = _Server((host, port), Handler)
     logger.info("serving on http://%s:%d (audio dir: %s)", host, port,

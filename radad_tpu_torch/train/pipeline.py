@@ -6,9 +6,12 @@ Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
 ``predict_batch``, ``save_models``, ``load_models``). Training, evaluation
 and meshes come in later slices.
 
-A predict call runs embed (segment → wav2vec2 → TPP → mean over windows)
-→ certified flat search → neighbor gather (``ops.gather.gather_rows``) →
-fusion model. JAX compiles that into one program with ``lax.cond`` for the
+A predict call runs embed (segment → encoder → TPP → mean over windows)
+→ flat search → neighbor gather (``ops.gather.gather_rows``) → fusion
+model. The search is the certified route, or with
+``DetectionPipeline(use_pallas=True)`` the ``flat_topk`` scan + exact
+re-rank; the JAX package's ``retrieve_on_device`` pins ``use_pallas=False``,
+so there only ``FlatIndex.search`` reaches its kernel. JAX compiles that into one program with ``lax.cond`` for the
 retry of rows whose neighbors were all excluded; here it runs eagerly and
 the retry is a host branch on one bool.
 
@@ -82,18 +85,18 @@ def grid_cover_samples(samples: int, segment_samples: int,
 
 def retrieve_on_device(tpp, vectors, labels, ids, exclude_ids, *, k, metric,
                        n_valid, xsq, scan_bf16, resid_bf16=None,
-                       exclude_mode="batch"):
-    """Certified search + neighbor/label gather. → (neighbors [B, k, D]
-    f32, labels [B, k], dists [B, k], idx [B, k], fell_back). Missing
-    neighbors are zero vectors with label 0 and index -1 (reference
-    pipeline.py:511-515)."""
+                       exclude_mode="batch", use_pallas=False):
+    """Search (certified, or ``flat_topk`` + re-rank with ``use_pallas``) +
+    neighbor/label gather. → (neighbors [B, k, D] f32, labels [B, k],
+    dists [B, k], idx [B, k], fell_back). Missing neighbors are zero
+    vectors with label 0 and index -1 (reference pipeline.py:511-515)."""
     q = tpp
     if metric == "COSINE":
         q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     dists, idx, fell_back = _search_device(
         q, vectors, ids, exclude_ids, k, metric=metric, n_valid=n_valid,
         xsq=xsq, scan_bf16=scan_bf16, resid_bf16=resid_bf16,
-        exclude_mode=exclude_mode)
+        exclude_mode=exclude_mode, use_pallas=use_pallas)
     safe = idx.clamp_min(0).to(torch.int32)
     d = vectors.shape[-1]
     neighbors = gather_rows(vectors, safe.reshape(-1)).float()
@@ -109,12 +112,16 @@ class DetectionPipeline:
     """Encoder → TPP → index → fusion model, for serving."""
 
     def __init__(self, config: Config, *,
-                 encoder: Optional[FrozenEncoder] = None, device="cuda"):
+                 encoder: Optional[FrozenEncoder] = None,
+                 use_pallas: bool = False, device="cuda"):
+        """``use_pallas``: search with the ``flat_topk`` kernel + exact
+        re-rank instead of the certified route (``FlatIndex``)."""
         self.device = resolve_device(device)
         metric = config.vector_db_index_type.upper()
         if metric in ("SQ8", "IVF"):
             raise NotImplementedError(f"{metric} index: not yet ported")
         self.config = config
+        self.use_pallas = use_pallas
         self.encoder = (encoder if encoder is not None
                         else build_encoder(config, device=self.device))
         self.tpp_dim = tpp_output_dim(config.tpp_levels,
@@ -129,7 +136,7 @@ class DetectionPipeline:
         return FlatIndex(self.tpp_dim, cfg.vector_db_index_type,
                          use_float16=cfg.use_float16,
                          add_batch_size=cfg.vector_add_batch_size,
-                         device=self.device)
+                         use_pallas=self.use_pallas, device=self.device)
 
     def _grid_pad(self) -> Optional[int]:
         cfg = self.config
@@ -204,7 +211,7 @@ class DetectionPipeline:
             tpp, ix.vectors, ix.labels, ix.ids, exclude, k=self.config.top_k,
             metric=ix.metric, n_valid=ix.ntotal, xsq=ix.norms_sq,
             scan_bf16=ix.scan_bf16, resid_bf16=ix.resid_bf16,
-            exclude_mode=exclude_mode)
+            exclude_mode=exclude_mode, use_pallas=ix.use_pallas)
         ix.count_search(out[4])
         return out[:4]
 
@@ -369,5 +376,6 @@ class DetectionPipeline:
                 f"the configured encoder produces {self.tpp_dim}-d "
                 f"embeddings; rebuild the DB or use the encoder it was "
                 f"built with")
-        self.index = FlatIndex.load(path, device=self.device)
+        self.index = FlatIndex.load(path, use_pallas=self.index.use_pallas,
+                                    device=self.device)
         return True

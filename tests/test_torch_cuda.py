@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and the certified scan's bf16 product on the card.
+"""The port's CUDA kernels and the certified scan's bf16 product on the card:
+each kernel against its plain PyTorch version.
 
 These import neither JAX nor ``radad_tpu`` and skip without a CUDA device.
 On a machine with an NVIDIA GPU (where JAX need not be installed, hence
@@ -11,10 +12,13 @@ import pytest
 import torch
 
 from radad_tpu_torch.index.flat import bf16_mm_f32
+from radad_tpu_torch.ops.attention import fused_mha, mha_reference
 from radad_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from radad_tpu_torch.ops.rerank import exact_dot, exact_dot_plain
 from radad_tpu_torch.ops.topk import (extract_candidates,
-                                      extract_candidates_plain)
+                                      extract_candidates_plain, flat_topk,
+                                      flat_topk_plain)
+from radad_tpu_torch.ops.topk_check import check_topk, compare_topk
 
 I32 = torch.int32
 pytestmark = pytest.mark.cuda
@@ -94,3 +98,72 @@ def test_bf16_scan_product_on_card(cuda):
     assert got.dtype == torch.float32
     want = a.double() @ b.double().t()
     assert float((got.double() - want).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("t", [7, 99, 600, 1500])
+def test_fused_mha_kernel_on_card(cuda, t):
+    """Both bodies within 1e-5 * (1 + |plain|) (f32 summation order and the
+    online softmax), every T the fused path takes up to 1500 frames, head
+    widths 64 (the encoders) and 16 / 128 (the other builds; 128 uses more
+    than 48 KB of shared memory); one launch per call, counted per body."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for b, h, hd in ((3, 12, 64), (2, 4, 16), (2, 2, 128)):
+        d = h * hd
+        q, k, v = (torch.randn((b, t, d), generator=g, device=cuda)
+                   for _ in range(3))
+        q *= hd ** -0.5
+        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=cuda)
+        pos = torch.randn((h, t, t), generator=g, device=cuda)
+        for extra in ({}, dict(gate=gate, pos_bias=pos)):
+            body = "bias" if extra else "no_bias"
+            before = fused_mha.body_launches[body]
+            got = fused_mha(q, k, v, h, **extra)
+            want = mha_reference(q, k, v, h, **extra)
+            torch.cuda.synchronize()
+            assert fused_mha.body_launches[body] == before + 1
+            assert bool(((got - want).abs()
+                         <= 1e-5 * (1 + want.abs())).all()), (t, hd, body)
+
+
+def test_fused_mha_rejects_bf16_on_card(cuda):
+    x = torch.randn((2, 9, 64), device=cuda).to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_mha(x, x, x, 4)
+    with pytest.raises(ValueError):  # head width 24: no kernel build
+        fused_mha(*(torch.zeros((1, 5, 48), device=cuda),) * 3, 2)
+
+
+@pytest.mark.parametrize("metric", ["L2", "IP"])
+def test_flat_topk_kernel_on_card(cuda, metric):
+    """f32 and bf16 rows, both scan precisions, a ragged last tile, rows
+    past n_valid, excluded ids and a whole 128-row tile masked out by
+    exclusion: each result within the kernel's rounding bound of the exact
+    scores (ops/topk_check.py), ids equal to the plain version's except
+    near-ties within that bound; an unrounded scan fails the bf16 check."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, d, b = 3000, 516, 70  # 24 tiles, the last one ragged; 2 query blocks
+    x = torch.randn((n, d), generator=g, device=cuda)
+    q = torch.randn((b, d), generator=g, device=cuda)
+    ids = torch.arange(n, device=cuda, dtype=I32) // 128  # one id per tile
+    excl = torch.full((b,), -5, device=cuda, dtype=I32)
+    excl[::3] = 7  # tile 7 masked for every third query
+    for rows in (x, x.to(torch.bfloat16)):
+        for fast, k in ((True, 32), (False, 5), (True, 128)):
+            kw = dict(metric=metric, n_valid=2900, ids=ids,
+                      exclude_ids=excl, fast_scan=fast)
+            before = flat_topk.launches
+            got = flat_topk(q, rows, k, **kw)
+            want = flat_topk_plain(q, rows, k, **kw)
+            torch.cuda.synchronize()
+            assert flat_topk.launches == before + 1
+            held = check_topk(q, rows, got, **kw)
+            assert held["ok"], (rows.dtype, fast, k, held)
+            agree = compare_topk(q, rows, got, want, metric=metric,
+                                 fast_scan=fast)
+            assert agree["ok"], (rows.dtype, fast, k, agree)
+    kw = dict(metric=metric, n_valid=2900, ids=ids, exclude_ids=excl)
+    unrounded = flat_topk(q, x, 32, fast_scan=False, **kw)
+    assert not check_topk(q, x, unrounded, fast_scan=True, **kw)["ok"]
+    # every row masked: all slots empty
+    v, i = flat_topk(q, x, 5, metric=metric, n_valid=0)
+    assert bool((i == -1).all()) and bool(torch.isinf(v).all())

@@ -139,5 +139,5 @@ def test_build_encoder_random_and_local(tmp_path, rng):
     torch.testing.assert_close(a.model.pos_conv["kernel"],
                                b.model.pos_conv["kernel"])
     with pytest.raises(NotImplementedError):
-        build_encoder(cfg.replace(feature_extractor_type="wavlm"),
+        build_encoder(cfg.replace(feature_extractor_type="whisper"),
                       device="cpu")

@@ -265,3 +265,30 @@ def test_cli_build_db_and_predict(synthetic_dataset, tmp_path, rng):
     # no checkpoint under the data root: predict fails cleanly
     empty = [a if a != root else str(tmp_path / "empty") for a in common]
     assert cli.main(["--mode", "predict", "--audio_path", clip] + empty) == 1
+
+
+def test_server_close_releases_the_pipeline(tmp_path):
+    """Closing the server stops its micro-batcher thread, and nothing of
+    the server keeps the pipeline (and its device memory) alive."""
+    import gc
+    import weakref
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.serve import app
+
+    class Pipe:
+        pass
+
+    pipe = Pipe()
+    httpd = app.serve(Config().replace(data_root=str(tmp_path),
+                                       train_data_path=str(tmp_path)),
+                      host="127.0.0.1", port=0, pipeline=pipe)
+    batcher = app.Handler.state.batcher
+    assert batcher._thread.is_alive()
+    httpd.server_close()
+    assert not batcher._thread.is_alive() and batcher.pipeline is None
+    assert app.Handler.state is None
+    ref = weakref.ref(pipe)
+    del pipe
+    gc.collect()
+    assert ref() is None
