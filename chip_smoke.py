@@ -9,11 +9,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    in parallel): ``gather_rows``, ``exact_dot``, ``extract_candidates``,
    ``fused_mha`` and ``flat_topk``;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving paths' shapes (``flat_topk`` also against the exact scores of
-   its bf16 operands, with a control that an unrounded scan fails) and
-   takes the device time (``torch.profiler``) of kernel, plain version,
-   and one PyTorch library call computing the same function
-   (``library_ms``, used nowhere in the port);
+   serving paths' shapes (``flat_topk`` at B = 64 and 8 also against the
+   exact scores of its bf16 operands within the bound of its tensor-core
+   summation order, with a control that an unrounded scan fails, and its
+   HMMA instructions counted with ``cuobjdump``) and takes the device time
+   (``torch.profiler``) of kernel, plain version, and one PyTorch library
+   call computing the same function (``library_ms``, used nowhere in the
+   port);
 3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
    wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
    synthetic clips, the index is padded with seeded rows to 25,600 x 5,376
@@ -83,10 +85,10 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
+def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
     """Mean device milliseconds per call: the time of every kernel and
-    copy ``fn`` runs on the card, summed by ``torch.profiler`` over
-    ``iters`` calls (host launch gaps excluded)."""
+    copy ``fn`` runs on the card whose name holds ``name``, summed by
+    ``torch.profiler`` over ``iters`` calls (host launch gaps excluded)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -98,9 +100,9 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages()
                    if getattr(getattr(e, "device_type", None), "name", "")
-                   == "CUDA")
+                   == "CUDA" and name in e.key)
     if total_us <= 0:
-        raise RuntimeError("the profiler saw no device time")
+        raise RuntimeError(f"the profiler saw no device time of *{name}*")
     return total_us / 1e3 / iters
 
 
@@ -351,19 +353,49 @@ def _fused_mha_record(torch, dev, g) -> dict:
     return rec
 
 
+def _hmma_counts() -> dict:
+    """HMMA (tensor-core) instructions in each function of the built
+    flat_topk library's SASS, from ``cuobjdump -sass`` where the toolkit
+    has it (else {})."""
+    import shutil
+
+    from radad_tpu_torch.ops import _native
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run(
+        [tool, "-sass", os.path.join(_native.BUILD_DIR, "libflat_topk.so")],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def _flat_topk_record(torch, dev, g, table) -> dict:
-    """flat_topk at the use_pallas search's shape: B = 64 queries over the
-    25,600 x 5,376 f32 table, r = 32 candidates, L2, bf16 scan, rows past
-    n_valid = 25,000 masked and each query of the first half excluding the
-    id of its best row; 8 queries sit next to a row past n_valid, so both
-    masks remove a row that would otherwise come first. The result is held
-    to the exact (f64) scores of the same bf16 operands within the
-    kernel's f32 rounding bound (``ops/topk_check.check_topk``), and to
-    the plain version: ids equal except near-ties within that bound,
-    values on a shared row within twice it (``compare_topk``). The same
-    kernel without the bf16 rounding must fail the check."""
+    """flat_topk at the use_pallas search's shape: B = 64 and B = 8 queries
+    over the 25,600 x 5,376 f32 table, r = 32 candidates, L2, bf16 scan
+    (the tensor-core body), rows past n_valid = 25,000 masked and each
+    query of the first half of the 64 excluding the id of its best row; 8
+    queries sit next to a row past n_valid, so both masks remove a row that
+    would otherwise come first (B = 8 takes queries 28..35: 4 with an
+    excluded id, 4 without). Each result is held to the exact (f64) scores
+    of the same bf16 operands within the bound of the kernel's tensor-core
+    summation order (``ops/topk_check.check_topk``, order "mma"), and to
+    the plain version: ids equal except near-ties within that bound, values
+    on a shared row within twice it (``compare_topk``). The same kernel
+    without the bf16 rounding (its f32 body) must fail the check. Times:
+    the wrapper with its merge and the kernel alone (profiler time of the
+    kernels named flat_topk), the plain version and the library call."""
     from radad_tpu_torch.ops.topk import flat_topk, flat_topk_plain
-    from radad_tpu_torch.ops.topk_check import check_topk, compare_topk
+    from radad_tpu_torch.ops.topk_check import (MMA, check_topk,
+                                                compare_topk)
 
     n, d = table.shape
     b, r, n_valid = 64, 32, 25_000
@@ -378,59 +410,94 @@ def _flat_topk_record(torch, dev, g, table) -> dict:
                              "nearest: the mask would go untested")
     excl = torch.full((b,), -2, device=dev, dtype=torch.int32)
     excl[: b // 2] = ids[best[: b // 2, 0].long()]
-    kw = dict(metric="L2", n_valid=n_valid, ids=ids, exclude_ids=excl,
-              fast_scan=True)
-    got = flat_topk(q, table, r, **kw)
-    want = flat_topk_plain(q, table, r, **kw)
-    torch.cuda.synchronize()
-    held = check_topk(q, table, got, **kw)
-    if not held["ok"]:
-        raise AssertionError(f"flat_topk fails its exact check: {held}")
-    agree = compare_topk(q, table, got, want, metric="L2")
-    if not agree["ok"]:
-        raise AssertionError(f"flat_topk disagrees with its plain version "
-                             f"beyond near-ties: {agree}")
-    control = check_topk(q, table, flat_topk(q, table, r,
-                                             **dict(kw, fast_scan=False)),
-                         **kw)
-    if control["ok"]:
-        raise AssertionError("the exact check passes a scan without the bf16 "
-                             "rounding: it is too loose")
-    print(f"flat_topk vs exact bf16-operand scores: max |err| "
-          f"{held['max_abs_err']:.3e} within the kernel's f32 rounding bound "
-          f"(largest {held['max_bound']:.3e}), {held['near_cut']} rows left "
-          f"out score above the cut within it; vs plain: "
-          f"{agree['rows_differ']} of {b} rows trade near-tied ids (largest exact gap "
-          f"{agree['max_gap']:.3e}), max |value diff| on shared rows "
-          f"{agree['max_abs_err']:.3e}; control without bf16 rounding "
-          f"fails: max |err| {control['max_abs_err']:.3e}")
-    mask = ((torch.arange(n, device=dev) >= n_valid)[None, :]
-            | (ids[None, :] == excl[:, None]))
+    counts = _hmma_counts()
+    hmma = sum(c for f, c in counts.items() if "flat_topk_kernel" in f)
+    if counts:
+        print(f"flat_topk SASS (cuobjdump): {hmma} HMMA instructions in the "
+              f"bf16 body; per function {counts}")
+    else:
+        print("flat_topk SASS: cuobjdump not found, HMMA not counted")
+    if counts and hmma <= 0:
+        raise AssertionError("flat_topk's bf16 body has no HMMA instruction")
+    recs = {}
+    for bb, sl in ((64, slice(0, 64)), (8, slice(28, 36))):
+        qb, eb = q[sl].contiguous(), excl[sl].contiguous()
+        kw = dict(metric="L2", n_valid=n_valid, ids=ids, exclude_ids=eb,
+                  fast_scan=True)
+        got = flat_topk(qb, table, r, **kw)
+        want = flat_topk_plain(qb, table, r, **kw)
+        torch.cuda.synchronize()
+        held = check_topk(qb, table, got, order=MMA, **kw)
+        if not held["ok"]:
+            raise AssertionError(f"flat_topk B={bb} fails its exact check: "
+                                 f"{held}")
+        agree = compare_topk(qb, table, got, want, metric="L2", order=MMA)
+        if not agree["ok"]:
+            raise AssertionError(f"flat_topk B={bb} disagrees with its plain "
+                                 f"version beyond near-ties: {agree}")
+        control = check_topk(
+            qb, table, flat_topk(qb, table, r, **dict(kw, fast_scan=False)),
+            order=MMA, **kw)
+        if control["ok"]:
+            raise AssertionError("the exact check passes a scan without the "
+                                 "bf16 rounding: it is too loose")
+        print(f"flat_topk B={bb} vs exact bf16-operand scores (tensor-core "
+              f"order): max |err| {held['max_abs_err']:.3e}, largest bound "
+              f"{held['max_bound']:.3e}, max(err / bound) "
+              f"{held['max_ratio']:.4f}; {held['near_cut']} rows left out "
+              f"score above the cut within it; vs plain: "
+              f"{agree['rows_differ']} of {bb} rows trade near-tied ids "
+              f"(largest exact gap {agree['max_gap']:.3e}), max |value "
+              f"diff| on shared rows {agree['max_abs_err']:.3e}; control "
+              f"without bf16 rounding fails: max |err| "
+              f"{control['max_abs_err']:.3e}, max(err / bound) "
+              f"{control['max_ratio']:.2f}")
+        mask = ((torch.arange(n, device=dev) >= n_valid)[None, :]
+                | (ids[None, :] == eb[:, None]))
 
-    def library():
-        s = torch.mm(q.to(torch.bfloat16), table.to(torch.bfloat16).t(),
-                     out_dtype=torch.float32)
-        s = 2.0 * s - torch.linalg.vector_norm(table, dim=-1).square()
-        return torch.topk(s.masked_fill(mask, float("-inf")), r)
+        def library(qb=qb, mask=mask):
+            s = torch.mm(qb.to(torch.bfloat16), table.to(torch.bfloat16).t(),
+                         out_dtype=torch.float32)
+            s = 2.0 * s - torch.linalg.vector_norm(table, dim=-1).square()
+            return torch.topk(s.masked_fill(mask, float("-inf")), r)
 
+        call = (lambda qb=qb, kw=kw: flat_topk(qb, table, r, **kw))
+        rec = dict(
+            max_abs_err=agree["max_abs_err"],
+            check_max_abs_err=held["max_abs_err"],
+            check_max_bound=held["max_bound"],
+            check_max_ratio=held["max_ratio"],
+            control_max_abs_err=control["max_abs_err"],
+            control_max_ratio=control["max_ratio"],
+            rows_differ=agree["rows_differ"],
+            **timings(torch, call,
+                      lambda qb=qb, kw=kw: flat_topk_plain(qb, table, r,
+                                                           **kw),
+                      library),
+            kernel_ms=device_ms(torch, call, name="flat_topk"))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            n * d * 4 + bb * d * 4 + n * 4 + bb * 4 + bb * r * 8,
+            2.0 * bb * n * d, rate=BF16_FLOPS)
+        print(f"flat_topk B={bb}: kernel alone {rec['kernel_ms']:.4f} ms, "
+              f"wrapper with merge {rec['ms']:.4f} ms on the device, library "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
+        recs[bb] = rec
     rec = dict(
         route="cuda", source="radad_tpu_torch/csrc/flat_topk.cu",
         replaces="radad_tpu/ops/topk.py:182",
-        max_abs_err=agree["max_abs_err"],
         tolerance=f"ids equal to plain up to near-ties within the kernel's "
-                  f"f32 rounding bound of the exact bf16-operand scores "
-                  f"(largest {held['max_bound']:.3e}; max |err| vs exact "
-                  f"{held['max_abs_err']:.3e}), values on shared rows "
-                  f"within twice it",
-        **timings(torch, lambda: flat_topk(q, table, r, **kw),
-                  lambda: flat_topk_plain(q, table, r, **kw), library),
-        shape=f"q [{b},{d}] f32, x [{n},{d}] f32, r={r}, L2, bf16 scan",
+                  f"tensor-core-order f32 rounding bound of the exact "
+                  f"bf16-operand scores (largest "
+                  f"{recs[64]['check_max_bound']:.3e}; max |err| vs exact "
+                  f"{recs[64]['check_max_abs_err']:.3e}), values on shared "
+                  f"rows within twice it",
+        shape=f"q [{b},{d}] f32, x [{n},{d}] f32, r={r}, L2, bf16 scan "
+              f"(b8: the same at B = 8)",
         bound_rate="bf16 989 TFLOP/s",
         library_call="mm(bf16, bf16, out_dtype=f32) + |x|^2 + mask + topk",
-        rows_differ=agree["rows_differ"])
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        n * d * 4 + b * d * 4 + n * 4 + b * 4 + b * r * 8,
-        2.0 * b * n * d, rate=BF16_FLOPS)
+        hmma=hmma if counts else None, **recs[64])
+    rec["b8"] = recs[8]
     return rec
 
 
@@ -574,7 +641,7 @@ def _check_against_plain_route(torch, pipe, paths, outs):
 
     from radad_tpu_torch.index.flat import _rerank_exact
     from radad_tpu_torch.ops.topk import flat_topk, flat_topk_plain
-    from radad_tpu_torch.ops.topk_check import check_topk, compare_topk
+    from radad_tpu_torch.ops.topk_check import MMA, check_topk, compare_topk
 
     ix, k = pipe.index, pipe.config.top_k
     tpp, excl, d64, ref, _, qsq, xsq = _f64_scan(torch, pipe, paths)
@@ -583,11 +650,12 @@ def _check_against_plain_route(torch, pipe, paths, outs):
               fast_scan=True)
     cand_k = flat_topk(tpp, ix.vectors, r, **kw)
     cand_p = flat_topk_plain(tpp, ix.vectors, r, **kw)
-    held = check_topk(tpp, ix.vectors, cand_k, **kw)
+    held = check_topk(tpp, ix.vectors, cand_k, order=MMA, **kw)
     if not held["ok"]:
         raise AssertionError(f"flat_topk candidates fail their exact check: "
                              f"{held}")
-    agree = compare_topk(tpp, ix.vectors, cand_k, cand_p, metric=ix.metric)
+    agree = compare_topk(tpp, ix.vectors, cand_k, cand_p, metric=ix.metric,
+                         order=MMA)
     if not agree["ok"]:
         raise AssertionError(f"flat_topk candidates disagree with "
                              f"flat_topk_plain beyond near-ties: {agree}")
@@ -850,7 +918,8 @@ def wavlm_phase(torch, dev, tmp: str):
             print(f"wavlm {name}: candidates within the kernel's rounding "
                   f"bound of the exact scores (max |err| "
                   f"{held['max_abs_err']:.3e}, largest bound "
-                  f"{held['max_bound']:.3e}); {agree['rows_differ']} rows "
+                  f"{held['max_bound']:.3e}, max(err / bound) "
+                  f"{held['max_ratio']:.4f}); {agree['rows_differ']} rows "
                   f"order near-tied candidates differently from "
                   f"flat_topk_plain, {sets} hold other candidate sets; final "
                   f"top-{pipe.config.top_k} ids differ from the plain route "
@@ -942,6 +1011,12 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
                    bound_rate=r["bound_rate"], launches_by_path=per_path)
+        if "b8" in r:
+            rec["kernel_ms"] = r["kernel_ms"]
+            rec["b8"] = {key: r["b8"][key] for key in (
+                "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
+            rec["hmma"] = r["hmma"]
         if "no_bias" in r:
             rec["no_bias"] = {key: r["no_bias"][key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",

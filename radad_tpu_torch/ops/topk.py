@@ -26,6 +26,7 @@ from radad_tpu_torch.ops import _native
 LANES = 128
 NEG_INF = float("-inf")
 _TILE_N = 128  # rows per flat_topk kernel block (csrc/flat_topk.cu kTileN)
+_STAGE_D = 64  # columns per stage of its bf16 body's ring (kMC)
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -238,11 +239,17 @@ def flat_topk(q: torch.Tensor, vectors: torch.Tensor, k: int, *,
     if b == 0 or n == 0:
         return (torch.full((b, k), NEG_INF, device=q.device),
                 torch.full((b, k), -1, dtype=torch.int32, device=q.device))
+    # the bf16 body rounds q once into this scratch, rows padded to whole
+    # ring stages
+    q_bf16 = (torch.empty((b, -(-d // _STAGE_D) * _STAGE_D),
+                          dtype=torch.bfloat16, device=q.device)
+              if fast_scan else None)
     fn = _native.library("flat_topk").radad_flat_topk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), vectors.data_ptr(),
+    rc = fn(q.data_ptr(), None if q_bf16 is None else q_bf16.data_ptr(),
+            vectors.data_ptr(),
             None if ids is None else ids.data_ptr(),
             None if ids is None else exclude_ids.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), b, n, n_valid, d, k, kind,

@@ -18,7 +18,8 @@ from radad_tpu_torch.ops.rerank import exact_dot, exact_dot_plain
 from radad_tpu_torch.ops.topk import (extract_candidates,
                                       extract_candidates_plain, flat_topk,
                                       flat_topk_plain)
-from radad_tpu_torch.ops.topk_check import check_topk, compare_topk
+from radad_tpu_torch.ops.topk_check import (CHAIN, MMA, check_topk,
+                                            compare_topk)
 
 I32 = torch.int32
 pytestmark = pytest.mark.cuda
@@ -138,7 +139,8 @@ def test_flat_topk_kernel_on_card(cuda, metric):
     """f32 and bf16 rows, both scan precisions, a ragged last tile, rows
     past n_valid, excluded ids and a whole 128-row tile masked out by
     exclusion: each result within the kernel's rounding bound of the exact
-    scores (ops/topk_check.py), ids equal to the plain version's except
+    scores (ops/topk_check.py; the tensor-core order for the bf16 body, the
+    FMA chain for the f32 body), ids equal to the plain version's except
     near-ties within that bound; an unrounded scan fails the bf16 check."""
     g = torch.Generator(device=cuda).manual_seed(5)
     n, d, b = 3000, 516, 70  # 24 tiles, the last one ragged; 2 query blocks
@@ -148,7 +150,8 @@ def test_flat_topk_kernel_on_card(cuda, metric):
     excl = torch.full((b,), -5, device=cuda, dtype=I32)
     excl[::3] = 7  # tile 7 masked for every third query
     for rows in (x, x.to(torch.bfloat16)):
-        for fast, k in ((True, 32), (False, 5), (True, 128)):
+        for fast, order, k in ((True, MMA, 32), (False, CHAIN, 5),
+                               (True, MMA, 128)):
             kw = dict(metric=metric, n_valid=2900, ids=ids,
                       exclude_ids=excl, fast_scan=fast)
             before = flat_topk.launches
@@ -156,14 +159,42 @@ def test_flat_topk_kernel_on_card(cuda, metric):
             want = flat_topk_plain(q, rows, k, **kw)
             torch.cuda.synchronize()
             assert flat_topk.launches == before + 1
-            held = check_topk(q, rows, got, **kw)
+            held = check_topk(q, rows, got, order=order, **kw)
             assert held["ok"], (rows.dtype, fast, k, held)
             agree = compare_topk(q, rows, got, want, metric=metric,
-                                 fast_scan=fast)
+                                 fast_scan=fast, order=order)
             assert agree["ok"], (rows.dtype, fast, k, agree)
     kw = dict(metric=metric, n_valid=2900, ids=ids, exclude_ids=excl)
     unrounded = flat_topk(q, x, 32, fast_scan=False, **kw)
-    assert not check_topk(q, x, unrounded, fast_scan=True, **kw)["ok"]
+    assert not check_topk(q, x, unrounded, fast_scan=True, order=MMA,
+                          **kw)["ok"]
     # every row masked: all slots empty
     v, i = flat_topk(q, x, 5, metric=metric, n_valid=0)
     assert bool((i == -1).all()) and bool(torch.isinf(v).all())
+
+
+@pytest.mark.parametrize("n,d,b,dtype", [
+    (1000, 512, 8, torch.bfloat16),  # 16-byte copies of bf16 rows
+    (1000, 5376, 1, torch.float32),  # one query: one n8 fragment
+    (700, 200, 64, torch.float32),   # a full query block, a ragged stage
+    (129, 4, 3, torch.float32),      # 4 columns; a 1-row last tile
+    (300, 36, 65, torch.bfloat16),   # 8-byte copies; 2 query blocks
+])
+def test_flat_topk_bf16_body_shapes_on_card(cuda, n, d, b, dtype):
+    """The bf16 body at the ring's and the fragments' edges: within the
+    tensor-core order's bound of the exact scores, ids equal to the plain
+    version's except near-ties, every unmasked row found when k covers
+    them."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    q = torch.randn((b, d), generator=g, device=cuda)
+    k = min(128, n)
+    for metric in ("L2", "IP"):
+        kw = dict(metric=metric, n_valid=n - 1, fast_scan=True)
+        got = flat_topk(q, x, k, **kw)
+        want = flat_topk_plain(q, x, k, **kw)
+        torch.cuda.synchronize()
+        held = check_topk(q, x, got, order=MMA, **kw)
+        assert held["ok"], (n, d, b, metric, held)
+        agree = compare_topk(q, x, got, want, metric=metric, order=MMA)
+        assert agree["ok"], (n, d, b, metric, agree)
