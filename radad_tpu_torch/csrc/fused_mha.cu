@@ -11,25 +11,65 @@
 // the bias is formed in a register from its two factors.
 //
 // Bound on the H100: at the WavLM serving shape (B = 128 windows, T = 99,
-// D = 768, H = 12) the kernel reads q, k, v, gate and pos_bias once and
-// writes the context, 157 MB, 0.047 ms at the H100 SXM's 3.35 TB/s; its
-// 3.85 GFLOP of f32 products take 0.058 ms at 67 TFLOP/s outside the tensor
-// cores (data sheet, 700 W). So it is bound by f32 operations. The TPU's
-// 512-row query tiles and its rows-per-program heuristic exist for VMEM and
-// are not carried over.
+// D = 768, H = 12) the kernel reads q, k and v once and writes the context,
+// 155.7 MB, plus gate and pos_bias, 1.1 MB: 0.0465 / 0.0469 ms at the H100
+// SXM's 3.35 TB/s. Its 3.85 GFLOP of products, run three times on the TF32
+// tensor cores (below), take 3 x 3.85 / 495 TFLOP/s = 0.023 ms (data sheet,
+// 700 W). So it is bound by bytes. (On the f32 CUDA cores, 67 TFLOP/s, the
+// operations alone took 0.058 ms: that was the bound of the SIMT design this
+// one replaces.)
 //
-// Design: the grid runs over (query tile, head, batch row). A block of
-// kWarps warps takes kWarps * kRowsPerWarp query rows of one head; each warp
-// owns kRowsPerWarp rows, so every value it reads from shared memory feeds
-// kRowsPerWarp FMAs. The head's K and V columns stream through shared memory
-// in tiles of 32 keys, one key per lane for q.k (K rows padded to HD + 4
-// floats, so 16-byte reads by a quarter warp hit distinct banks) and lanes
-// over the head dimension for p.V. An online softmax in f32 keeps each
-// row's running max and sum and an HD-wide f32 accumulator (HD / 32 values
-// a lane), rescaled when the max grows; the context is divided by the sum
-// once at the end and written to the head's column slice. The kernel is
-// right for every T: only the key tiles loop, and rows and keys past T are
-// masked. f32 only; wgmma/TMA (bf16, tensor cores) come later.
+// Design:
+// - Arithmetic: 3xTF32 on mma.sync m16n8k8 for both products, S = Q K^T and
+//   O = P V. Every operand value is split once, where it is read, into
+//   hi = rna_tf32(x) and lo = rna_tf32(x - hi) (x - hi is exact); for each
+//   k8 step lo.hi and hi.lo go into the f32 accumulator first, then hi.hi.
+//   hi + lo holds x within 2^-22 relative, and the dropped lo.lo term is of
+//   the same order, so the products are f32-grade; one TF32 product alone
+//   is ~2^-11 off and misses the 1e-5 * (1 + |plain|) tolerance by 20-100x
+//   (tests/test_torch_attention_tf32.py emulates both). The rounding is
+//   written as two integer ops: the PTX cvt.rna.tf32.f32 measured slower.
+//   The tensor core truncates when it adds into its accumulator, so O,
+//   which sums over all T keys, takes each k8 step's three products in a
+//   zero accumulator and adds the block sum with round-to-nearest f32 adds;
+//   S keeps the products of a tile's HD / 8 steps in its accumulator.
+// - Tiling: the grid runs over (query tile, head, batch row). A block of
+//   kWarps warps takes 16 query rows a warp. Q stays in shared memory, and
+//   each warp splits its A fragments there at each use. K and V stream
+//   through shared memory in tiles of 32 keys by 16-byte cp.async copies
+//   with zero-fill past T, double-buffered: tile j + 1 lands while tile j
+//   is multiplied. What limits the kernel is the latency of its dependent
+//   chains, not one unit's rate, so what counts is the warps an SM holds
+//   (PERF.md). Measured choices
+//   (experiments/fused_mha_variants.py): at most 128 registers and 70 KB
+//   of shared memory put 2 blocks of 8 warps (128 rows, so K and V are
+//   read once per batch row and head) on an SM, 16 warps. 4 warps a block
+//   (4 blocks an SM) measured 1-2 % slower on the bias body and within
+//   2 % on the bias-free one; Q split once into registers (64 more a
+//   thread, 3 blocks of 4 warps) and 64-key tiles (a 32-register S tile)
+//   were slower. Rows keep a stride of HD + 4 floats, so the A- and
+//   B-fragment reads (Q and K: row = lane / 4, dim = lane % 4; V: key =
+//   2 (lane % 4), dim = lane / 4) hit 32 distinct banks.
+// - Softmax in f32 on the CUDA cores, online over the key tiles: the row max
+//   and row sum over the 4 lanes of a quad that share a row of the
+//   accumulator, expf, and a rescale of O when the max grows. The gated bias
+//   is added to S in registers: gate[b,t,h], one register a row, times
+//   pos_bias[h,t,s] read from L2 into registers, 0 past T (8-byte loads
+//   where T is even; the whole [12, T, T] table stays in L2 across the
+//   batch). Staged with the key tile by cp.async it measured slower; read
+//   before or after the tile's products, the same.
+// - P V without shuffles: the S accumulator holds columns 2c and 2c + 1 of
+//   a lane's row (c = lane % 4), and the A operand of m16n8k8 wants columns
+//   c and c + 4. The k order of the P V product is taken as j -> key 2j for
+//   j < 4 and j -> key 2(j - 4) + 1 for j >= 4, and V's B fragment is read in
+//   the same order, so P goes from the accumulator into the A operand in
+//   place; the sum over keys does not depend on their order.
+// - Edges: keys >= T take -inf before the row max (and zero V rows); rows
+//   >= T read zeros, add no bias and are not stored; a warp whose 16 rows
+//   all lie past T skips the products. Every T is right (only the key tiles
+//   loop), and every HD in {16, 32, 64, 128}, each a multiple of the k8
+//   depth. Shared memory above 48 KB is requested by cudaFuncSetAttribute.
+// No wgmma or TMA yet.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,148 +77,295 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
+constexpr int kWarps = 8;                     // 16 query rows each
+constexpr int kRows = kWarps * 16;            // query rows per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMinBlocks = 16 / kWarps;       // blocks an SM (register budget)
 constexpr int kKeys = 32;                     // keys per shared-memory tile
+constexpr int kKF = kKeys / 8;                // n8 key fragments of a tile
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// floats of one stage of the ring: a K and a V tile
+template <int HD>
+constexpr int kStageFloats = 2 * kKeys * (HD + 4);
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
+// the two stages of the ring, then Q
 template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kRows * HD + kKeys * (HD + 4) + kKeys * HD);
+  return sizeof(float) * (2 * kStageFloats<HD> + kRows * (HD + 4));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; zero-fills the destination if !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// x = hi + lo, each a TF32 value (10 explicit mantissa bits, the low 13 bits
+// zero): round to nearest, ties away, as cvt.rna.tf32.f32, written as integer
+// ops so the low bits are zero by construction; x - hi is exact in f32.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// d += A (16 x 8) . B (8 x 8), TF32 operands, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: the correction products lo.hi and hi.lo first, then hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// d += b with round-to-nearest f32 adds
+__device__ __forceinline__ void add4(float (&d)[4], const float (&b)[4]) {
+  d[0] += b[0];
+  d[1] += b[1];
+  d[2] += b[2];
+  d[3] += b[3];
+}
+
+// The A fragment of rows g, g + 8 and columns c, c + 4 at p = &X[g][c]
+// (row stride `stride` floats), split
+__device__ __forceinline__ void load_a(const float* p, int stride, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * stride], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * stride + 4], hi[3], lo[3]);
+}
+
+// pos_bias[key], pos_bias[key + 1] of one row (key even); 0 past T
+__device__ __forceinline__ float2 bias_pair(const float* row, int key, int t_len, bool pair) {
+  if (pair && key + 1 < t_len) return *reinterpret_cast<const float2*>(row + key);
+  return make_float2(key < t_len ? row[key] : 0.f, key + 1 < t_len ? row[key + 1] : 0.f);
 }
 
 template <int HD, bool BIAS>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 mha_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ gate,
            const float* __restrict__ pos, float* __restrict__ out, int t_len,
            int d_model, int heads) {
-  constexpr int KS = HD + 4;            // padded K row stride (floats)
-  constexpr int NACC = (HD + 31) / 32;  // accumulator values per lane
-  constexpr int V4 = HD / 4;            // float4 per head row
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][HD]
-  float* ks = qs + kRows * HD;                  // [kKeys][KS]
-  float* vs = ks + kKeys * KS;                  // [kKeys][HD]
+  constexpr int KS = HD + 4;        // padded row stride of Q, K and V tiles (floats)
+  constexpr int KSTEPS = HD / 8;    // k8 steps of Q K^T; n8 fragments of O
+  constexpr int kPer = HD / 4;      // 16-byte copies a row
+  constexpr int kStage = kStageFloats<HD>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem + 2 * kStage;  // [kRows][KS]
 
   const int t0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int64_t b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;  // fragment row group, column pair
   const int64_t base = b * t_len * static_cast<int64_t>(d_model) + h * HD;
+  const int r0 = warp * 16;              // the warp's first row in the tile
+  const int t_lo = t0 + r0 + g, t_hi = t_lo + 8;  // the lane's two query rows
+  const bool active = t0 + r0 < t_len;   // warp-uniform
+  const int n_tiles = (t_len + kKeys - 1) / kKeys;
 
-  for (int i = threadIdx.x; i < kRows * V4; i += blockDim.x) {
-    const int r = i / V4, c = (i % V4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t0 + r < t_len)
-      val = *reinterpret_cast<const float4*>(q + base + static_cast<int64_t>(t0 + r) * d_model + c);
-    *reinterpret_cast<float4*>(qs + r * HD + c) = val;
+  auto issue = [&](int j) {
+    float* ks = smem + (j % 2) * kStage;
+    float* vs = ks + kKeys * KS;
+    const int s0 = j * kKeys;
+    for (int i = tid; i < kKeys * kPer; i += kThreads) {
+      const int r = i / kPer, col = (i % kPer) * 4;
+      const bool ok = s0 + r < t_len;
+      const int64_t off = ok ? base + static_cast<int64_t>(s0 + r) * d_model + col : 0;
+      cp_async16(ks + r * KS + col, k + off, ok);
+      cp_async16(vs + r * KS + col, v + off, ok);
+    }
+  };
+
+  for (int i = tid; i < kRows * kPer; i += kThreads) {
+    const int r = i / kPer, col = (i % kPer) * 4;
+    const bool ok = t0 + r < t_len;
+    cp_async16(qs + r * KS + col, q + (ok ? base + static_cast<int64_t>(t0 + r) * d_model + col : 0),
+               ok);
   }
+  issue(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
-  const int row0 = warp * kRowsPerWarp;  // this warp's first row in the tile
-  float m[kRowsPerWarp], l[kRowsPerWarp], g[kRowsPerWarp];
-  float acc[kRowsPerWarp][NACC];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    g[i] = 0.f;
-    if (BIAS && t0 + row0 + i < t_len)
-      g[i] = gate[(b * t_len + t0 + row0 + i) * heads + h];
-#pragma unroll
-    for (int j = 0; j < NACC; ++j) acc[i][j] = 0.f;
+  const float* qw = qs + (r0 + g) * KS + c;  // the lane's A-fragment origin
+
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float g_lo = 0.f, g_hi = 0.f;
+  if (BIAS) {
+    if (t_lo < t_len) g_lo = gate[(b * t_len + t_lo) * heads + h];
+    if (t_hi < t_len) g_hi = gate[(b * t_len + t_hi) * heads + h];
   }
+  const float* pos_lo = BIAS ? pos + (static_cast<int64_t>(h) * t_len + t_lo) * t_len : nullptr;
+  const float* pos_hi = BIAS ? pos_lo + 8 * static_cast<int64_t>(t_len) : nullptr;
+  const bool pair = (t_len % 2 == 0) && (reinterpret_cast<uintptr_t>(pos) % 8 == 0);
 
-  for (int s0 = 0; s0 < t_len; s0 += kKeys) {
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    for (int i = threadIdx.x; i < kKeys * V4; i += blockDim.x) {
-      const int r = i / V4, c = (i % V4) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (s0 + r < t_len) {
-        const int64_t off = base + static_cast<int64_t>(s0 + r) * d_model + c;
-        kv = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
-      *reinterpret_cast<float4*>(ks + r * KS + c) = kv;
-      *reinterpret_cast<float4*>(vs + r * HD + c) = vv;
+  float o[KSTEPS][4];
+#pragma unroll
+  for (int nd = 0; nd < KSTEPS; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j > 0) {
+      cp_async_wait_all();  // tile j has landed (this thread's copies)
+      __syncthreads();      // ... everyone's; tile j - 1 is consumed
     }
-    __syncthreads();
-
-    const int s = s0 + lane;  // this lane's key
-    const bool key_ok = s < t_len;
-    float logit[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) logit[i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(ks + lane * KS + d);
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(qs + (row0 + i) * HD + d);
-        logit[i] = fmaf(qq.x, kk.x, logit[i]);
-        logit[i] = fmaf(qq.y, kk.y, logit[i]);
-        logit[i] = fmaf(qq.z, kk.z, logit[i]);
-        logit[i] = fmaf(qq.w, kk.w, logit[i]);
-      }
+    if (j + 1 < n_tiles) {
+      issue(j + 1);
+      cp_async_commit();
     }
+    if (!active) continue;
+    const float* ks = smem + (j % 2) * kStage;
+    const float* vs = ks + kKeys * KS;
+    const int s0 = j * kKeys;
+    const int nkf = min(kKF, (t_len - s0 + 7) / 8);  // key fragments holding a key < T
 
-    float p[kRowsPerWarp];
+    // the tile's pos_bias pairs, 0 past T
+    float2 pb_lo[kKF], pb_hi[kKF];
+    if constexpr (BIAS) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int t = t0 + row0 + i;
-      if (BIAS && key_ok && t < t_len)
-        logit[i] += g[i] * pos[(static_cast<int64_t>(h) * t_len + t) * t_len + s];
-      const float x = key_ok ? logit[i] : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(x));  // finite: key s0 exists
-      const float scale = expf(m[i] - m_new);        // 0 on the first tile
-      p[i] = key_ok ? expf(x - m_new) : 0.f;
-      l[i] = l[i] * scale + warp_sum(p[i]);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NACC; ++j) acc[i][j] *= scale;
+      for (int f = 0; f < kKF; ++f) {
+        const int key = s0 + 8 * f + 2 * c;
+        const float2 zero = make_float2(0.f, 0.f);
+        pb_lo[f] = f < nkf && t_lo < t_len ? bias_pair(pos_lo, key, t_len, pair) : zero;
+        pb_hi[f] = f < nkf && t_hi < t_len ? bias_pair(pos_hi, key, t_len, pair) : zero;
+      }
     }
 
-    const int n_keys = min(kKeys, t_len - s0);
-    for (int sk = 0; sk < n_keys; ++sk) {
-      float vv[NACC];
+    // S = Q K^T; s[f] = {(g, 8f + 2c), (g, 8f + 2c + 1), (g + 8, ..), (g + 8, ..)}
+    float s[kKF][4];
 #pragma unroll
-      for (int j = 0; j < NACC; ++j) {
-        const int d = lane + 32 * j;
-        vv[j] = (d < HD) ? vs[sk * HD + d] : 0.f;
+    for (int f = 0; f < kKF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[f][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t ah[4], al[4];
+      load_a(qw + 8 * kk, KS, ah, al);
+#pragma unroll
+      for (int f = 0; f < kKF; ++f) {
+        if (f < nkf) {
+          const float* kp = ks + (8 * f + g) * KS + 8 * kk + c;
+          uint32_t bh[2], bl[2];
+          split(kp[0], bh[0], bl[0]);
+          split(kp[4], bh[1], bl[1]);
+          mma3(s[f], ah, al, bh, bl);
+        }
       }
+    }
+
+    // the gated bias (product rounded, then added, as the plain version),
+    // keys >= T to -inf, the row max over the quad
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float ps = __shfl_sync(0xffffffffu, p[i], sk);
+    for (int f = 0; f < kKF; ++f) {
+      const int key = s0 + 8 * f + 2 * c;
+      if constexpr (BIAS) {
+        s[f][0] = __fadd_rn(s[f][0], __fmul_rn(g_lo, pb_lo[f].x));
+        s[f][1] = __fadd_rn(s[f][1], __fmul_rn(g_lo, pb_lo[f].y));
+        s[f][2] = __fadd_rn(s[f][2], __fmul_rn(g_hi, pb_hi[f].x));
+        s[f][3] = __fadd_rn(s[f][3], __fmul_rn(g_hi, pb_hi[f].y));
+      }
+      if (key >= t_len) s[f][0] = s[f][2] = -INFINITY;
+      if (key + 1 >= t_len) s[f][1] = s[f][3] = -INFINITY;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[f][0], s[f][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[f][2], s[f][3]));
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 2));
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);  // finite: key s0 < T
+    const float sc_lo = expf(m_lo - mn_lo), sc_hi = expf(m_hi - mn_hi);  // 0 on the first tile
+    float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-        for (int j = 0; j < NACC; ++j) acc[i][j] = fmaf(ps, vv[j], acc[i][j]);
+    for (int f = 0; f < kKF; ++f) {
+      s[f][0] = expf(s[f][0] - mn_lo);
+      s[f][1] = expf(s[f][1] - mn_lo);
+      s[f][2] = expf(s[f][2] - mn_hi);
+      s[f][3] = expf(s[f][3] - mn_hi);
+      sum_lo += s[f][0] + s[f][1];
+      sum_hi += s[f][2] + s[f][3];
+    }
+    sum_lo += __shfl_xor_sync(kFull, sum_lo, 1);
+    sum_lo += __shfl_xor_sync(kFull, sum_lo, 2);
+    sum_hi += __shfl_xor_sync(kFull, sum_hi, 1);
+    sum_hi += __shfl_xor_sync(kFull, sum_hi, 2);
+    l_lo = l_lo * sc_lo + sum_lo;
+    l_hi = l_hi * sc_hi + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int nd = 0; nd < KSTEPS; ++nd) {
+      o[nd][0] *= sc_lo;
+      o[nd][1] *= sc_lo;
+      o[nd][2] *= sc_hi;
+      o[nd][3] *= sc_hi;
+    }
+
+    // O += P V, k8 step f over keys 8f + {0, 2, 4, 6, 1, 3, 5, 7}: the A
+    // operand (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4) is s[f][0, 2, 1, 3].
+    // Each step's three products go into a zero accumulator and the block
+    // sum into O by RN adds: the tensor core truncates when it adds, and O
+    // would take 3 T / 8 truncating steps (2.9e-5 off at T = 1,500, outside
+    // the tolerance, when O was the accumulator), while S takes 3 HD / 8.
+#pragma unroll
+    for (int f = 0; f < kKF; ++f) {
+      if (f < nkf) {
+        uint32_t ph[4], pl[4];
+        split(s[f][0], ph[0], pl[0]);
+        split(s[f][2], ph[1], pl[1]);
+        split(s[f][1], ph[2], pl[2]);
+        split(s[f][3], ph[3], pl[3]);
+        const float* vp = vs + (8 * f + 2 * c) * KS + g;
+#pragma unroll
+        for (int nd = 0; nd < KSTEPS; ++nd) {
+          uint32_t bh[2], bl[2];
+          split(vp[8 * nd], bh[0], bl[0]);
+          split(vp[8 * nd + KS], bh[1], bl[1]);
+          float blk[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(blk, ph, pl, bh, bl);
+          add4(o[nd], blk);
+        }
       }
     }
   }
+  if (!active) return;
 
+  // O fragment: o[nd] = {(g, 8nd + 2c), (g, 8nd + 2c + 1), (g + 8, ..), (g + 8, ..)}
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int t = t0 + row0 + i;
-    if (t >= t_len) continue;
-    const float inv = 1.f / l[i];
-    float* o = out + base + static_cast<int64_t>(t) * d_model;
-#pragma unroll
-    for (int j = 0; j < NACC; ++j) {
-      const int d = lane + 32 * j;
-      if (d < HD) o[d] = acc[i][j] * inv;
-    }
+  for (int nd = 0; nd < KSTEPS; ++nd) {
+    const int col = 8 * nd + 2 * c;
+    if (t_lo < t_len)
+      *reinterpret_cast<float2*>(out + base + static_cast<int64_t>(t_lo) * d_model + col) =
+          make_float2(o[nd][0] / l_lo, o[nd][1] / l_lo);
+    if (t_hi < t_len)
+      *reinterpret_cast<float2*>(out + base + static_cast<int64_t>(t_hi) * d_model + col) =
+          make_float2(o[nd][2] / l_hi, o[nd][3] / l_hi);
   }
 }
 
@@ -188,14 +375,18 @@ int launch(const float* q, const float* k, const float* v, const float* gate,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         mha_kernel<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mha_kernel<HD, BIAS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((t + kRows - 1) / kRows, heads, static_cast<unsigned>(b));
-  mha_kernel<HD, BIAS><<<grid, kWarps * 32, smem, stream>>>(q, k, v, gate, pos, out, t, d,
-                                                            heads);
+  mha_kernel<HD, BIAS><<<grid, kThreads, smem, stream>>>(q, k, v, gate, pos, out, t, d,
+                                                         heads);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,6 +10,17 @@ kernel is opt-in with ``RADAD_FUSED_ATTENTION=1`` (``use_fused_attention``).
 ``fused_mha`` launches the kernel for CUDA tensors and runs its plain
 version, ``mha_reference``, only for CPU tensors. The kernel takes f32; a bf16 input
 on CUDA raises (bf16 attention comes with the mixed-precision slice).
+
+Numerics: the kernel computes both products, q·kᵀ and p·v, on the tensor
+cores as 3xTF32: each f32 operand is split into a TF32 high part and a TF32
+low part, and the products hi·lo, lo·hi and hi·hi are summed in f32. That
+is f32-grade, and it is held to ``mha_reference`` within
+1e-5 · (1 + |plain|): the f32 summation order, the online softmax over key
+tiles and the ~2⁻²² relative split all sit well inside it, while one TF32
+product alone (hi·hi) misses it by 20–100×
+(``tests/test_torch_attention_tf32.py`` emulates both on the CPU;
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel to it on
+the card).
 """
 
 from __future__ import annotations

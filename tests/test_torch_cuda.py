@@ -101,18 +101,31 @@ def test_bf16_scan_product_on_card(cuda):
     assert float((got.double() - want).abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("t", [7, 99, 600, 1500])
-def test_fused_mha_kernel_on_card(cuda, t):
-    """Both bodies within 1e-5 * (1 + |plain|) (f32 summation order and the
-    online softmax), every T the fused path takes up to 1500 frames, head
-    widths 64 (the encoders) and 16 / 128 (the other builds; 128 uses more
-    than 48 KB of shared memory); one launch per call, counted per body."""
+@pytest.mark.parametrize("t,saturate", [
+    (t, False) for t in (1, 7, 8, 63, 64, 65, 99, 128, 129, 600, 1500)
+] + [(130, True)])
+def test_fused_mha_kernel_on_card(cuda, t, saturate):
+    """Both bodies within 1e-5 * (1 + |plain|) (3xTF32 products, f32
+    softmax online over 32-key tiles): T at the edges of the 16-row warp
+    tiles, the 128-row block and the key tiles, up to 1500 frames; head
+    widths 64 (the encoders) and 16 / 32 / 128 (the other builds; 64 and
+    128 take more than 48 KB of shared memory). ``saturate``: logits from
+    about -70 to 80 with one key dominating each row by at least ~10, that
+    key spread over the five key tiles so the running max grows from tile
+    to tile and exp underflows. One launch per call, counted per body."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    for b, h, hd in ((3, 12, 64), (2, 4, 16), (2, 2, 128)):
+    for b, h, hd in ((3, 12, 64), (2, 4, 16), (2, 4, 32), (2, 2, 128)):
         d = h * hd
         q, k, v = (torch.randn((b, t, d), generator=g, device=cuda)
                    for _ in range(3))
         q *= hd ** -0.5
+        if saturate:  # keys of norm sqrt(hd); row t's query along key
+            # (37 t mod T): logit 80 there, 80 cos(angle) at the others
+            kh = k.view(b, t, h, hd)
+            kh = kh * (hd ** 0.5 / kh.norm(dim=-1, keepdim=True))
+            k = kh.reshape(b, t, d).contiguous()
+            q = (80 / hd * kh[:, (37 * torch.arange(t, device=cuda)) % t]
+                 ).reshape(b, t, d).contiguous()
         gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=cuda)
         pos = torch.randn((h, t, t), generator=g, device=cuda)
         for extra in ({}, dict(gate=gate, pos_bias=pos)):
@@ -123,7 +136,8 @@ def test_fused_mha_kernel_on_card(cuda, t):
             torch.cuda.synchronize()
             assert fused_mha.body_launches[body] == before + 1
             assert bool(((got - want).abs()
-                         <= 1e-5 * (1 + want.abs())).all()), (t, hd, body)
+                         <= 1e-5 * (1 + want.abs())).all()), (
+                t, hd, body, float((got - want).abs().max()))
 
 
 def test_fused_mha_rejects_bf16_on_card(cuda):
