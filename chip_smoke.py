@@ -7,12 +7,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. prints the card's name and power limit, the precision flags, and builds
    the five CUDA kernels from ``radad_tpu_torch/csrc`` (one ``nvcc`` each,
    in parallel): ``gather_rows``, ``exact_dot``, ``extract_candidates``,
-   ``fused_mha`` and ``flat_topk``;
+   ``fused_mha`` and ``flat_topk``, with ptxas's registers and spills of
+   each template instance;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving paths' shapes (``flat_topk`` at B = 64 and 8 also against the
+   serving paths' shapes (``gather_rows`` at M = 5, 32, 40, 256, 320,
+   1,280 and 2,048 rows, each timed call reading its rows from device
+   memory, not the L2; ``extract_candidates`` at B = 1, 8, 64 and 256
+   queries;
+   ``flat_topk`` at B = 64 and 8 also against the
    exact scores of its bf16 operands within the bound of its tensor-core
    summation order, with a control that an unrounded scan fails;
-   ``fused_mha``'s two 3xTF32 bodies at T = 99, 600 and 1,500; the HMMA
+   ``fused_mha``'s two 3xTF32 bodies at T = 99, 600 and 1,500, and at head
+   width 80; the HMMA
    instructions of both kernels counted with ``cuobjdump``) and takes the
    device time
    (``torch.profiler``) of kernel, plain version, and one PyTorch library
@@ -38,7 +44,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``radad_tpu_torch/ops/topk_check.py``), the final neighbors of every
    row must equal those of the same search run through ``flat_topk_plain``
    up to near-ties, and recall@5 against the f64 full scan is printed (the
-   ``use_pallas`` route is not certified, so recall is not a condition).
+   ``use_pallas`` route is not certified, so recall is not a condition);
+6. hubert-xlarge phase: a seeded random ``hubert-xlarge-ls960-ft`` encoder
+   (48 layers, 1,280 wide, 16 heads of 80) embeds 8 two-second windows with
+   ``RADAD_FUSED_ATTENTION=1``; ``fused_mha`` must launch once a layer and
+   the features stay within 1e-4 relative of the same forward without it.
 
 Each phase sets the launch counts to 0 just before its counted run and
 reads them just after. The last line is ``{"ok": true, "device": {...}}``;
@@ -56,6 +66,7 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+L2_BYTES = 50 * 2**20  # H100 SXM L2
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
@@ -91,22 +102,29 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
     """Mean device milliseconds per call: the time of every kernel and
     copy ``fn`` runs on the card whose name holds ``name``, summed by
-    ``torch.profiler`` over ``iters`` calls (host launch gaps excluded)."""
+    ``torch.profiler`` over ``iters`` calls (host launch gaps excluded). A
+    session that lost device events, seen as no device time (once in some
+    hundreds of sessions in one process) or as a kernel counted other than
+    a whole number of times a call (a 0.18 ms kernel once read 0.11 ms),
+    is run again, up to 3 sessions in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if getattr(getattr(e, "device_type", None), "name", "")
-                   == "CUDA" and name in e.key)
-    if total_us <= 0:
-        raise RuntimeError(f"the profiler saw no device time of *{name}*")
-    return total_us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if getattr(getattr(e, "device_type", None), "name", "")
+                == "CUDA" and name in e.key]
+        total_us = sum(e.device_time_total for e in seen)
+        if total_us > 0 and all(e.count % iters == 0 for e in seen):
+            return total_us / 1e3 / iters
+    raise RuntimeError(f"the profiler lost device events of *{name}* in 3 "
+                       f"sessions: {[(e.key, e.count) for e in seen]}")
 
 
 def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
@@ -117,6 +135,32 @@ def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
                 plain_ms=device_ms(torch, plain, iters),
                 library_ms=device_ms(torch, library, iters),
                 call_ms=time_ms(torch, kernel, iters))
+
+
+class ColdRows:
+    """Ids and an output ring for timed gathers of ``m`` rows of an
+    ``[n, ...]`` table that read their rows from device memory, not from
+    the L2: call i takes the next ``m`` ids of a random permutation of the
+    rows, so a row comes back only after every other row was read, and
+    ``keep`` holds each output in a ring of more than twice the L2, so that
+    later calls write to fresh lines."""
+
+    def __init__(self, torch, n: int, m: int, out_bytes: int, g):
+        perm = torch.randperm(n, generator=g, device=g.device)
+        self.ids32 = torch.cat([perm, perm[:m]]).to(torch.int32)
+        self.ids64 = self.ids32.long()
+        self.n, self.m, self.i = n, m, 0
+        self.ring = [None] * max(2, -(-2 * L2_BYTES // out_bytes))
+
+    def next(self, wide: bool = False):
+        """The next call's ids, int32 (or int64 where ``wide``)."""
+        start = (self.i * self.m) % self.n
+        self.i += 1
+        return (self.ids64 if wide else self.ids32)[start:start + self.m]
+
+    def keep(self, out):
+        self.ring[self.i % len(self.ring)] = out
+        return out
 
 
 def bound_ms(nbytes: float, flops: float = 0.0, rate: float = F32_FLOPS):
@@ -145,10 +189,23 @@ def header(torch):
     secs = _native.build()
     print(f"kernel build: {secs:.2f} s for {list(_native.SOURCES)}")
     for name in _native.SOURCES:
-        for line in _native.build_reports.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+        for fn, line in ptxas_lines(_native.build_reports.get(name, "")):
+            print(f"  ptxas[{name}] {fn}: {line}")
     return card, dev
+
+
+def ptxas_lines(report: str):
+    """(entry function, line) for each register and spill line of a
+    ``-Xptxas -v`` report, each named by the ``Compiling entry function`` /
+    ``Function properties for`` line before it (the template instance)."""
+    fn = "?"
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line.strip()
+        elif "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            yield fn, line.strip()
 
 
 def kernel_phase(torch, dev):
@@ -164,31 +221,39 @@ def kernel_phase(torch, dev):
     table = torch.randn((n, d), generator=g, device=dev)
     recs = {}
 
-    # gather_rows: M = 1280 neighbor rows (B = 256 queries x top-5), with
-    # out-of-range ids that both versions clamp
-    m = 1_280
-    idx = torch.randint(0, n, (m,), generator=g, device=dev,
-                        dtype=torch.int32)
-    idx[:3] = torch.tensor([-1, n, n + 7], device=dev, dtype=torch.int32)
-    got = gather_rows(table, idx)
-    want = gather_rows_plain(table, idx)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("gather_rows differs from its plain version")
-    idx_long = idx.long().clamp(0, n - 1)
+    # gather_rows: the neighbor fetch's M = 5 B rows at B = 1, 8, 64, 256
+    # (5, 40, 320, 1,280) and the use_pallas re-rank's M = 32 B at B = 1,
+    # 8, 64 (32, 256, 2,048), checked with out-of-range ids that both
+    # versions clamp, timed on ids that read every row from device memory
+    by_m = {}
+    for m in (5, 32, 40, 256, 320, 1_280, 2_048):
+        idx = torch.randint(0, n, (m,), generator=g, device=dev,
+                            dtype=torch.int32)
+        idx[:3] = torch.tensor([-1, n, n + 7], device=dev, dtype=torch.int32)
+        got = gather_rows(table, idx)
+        want = gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather_rows M={m} differs from its plain "
+                                 f"version")
+        cold = ColdRows(torch, n, m, m * d * 4, g)
+        rec = timings(
+            torch, lambda c=cold: c.keep(gather_rows(table, c.next())),
+            lambda c=cold: c.keep(gather_rows_plain(table, c.next())),
+            lambda c=cold: c.keep(torch.index_select(table, 0,
+                                                     c.next(wide=True))))
+        # bytes the timed ids need: each of the m distinct source rows read
+        # once, every output row written once, the ids read once
+        rec["bound_ms"], rec["bound_by"] = bound_ms(2 * m * d * 4 + m * 4)
+        by_m[m] = rec
+        print(f"gather_rows M={m}: device {rec['ms']:.4f} ms, index_select "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms")
     recs["gather_rows"] = dict(
         route="cuda", source="radad_tpu_torch/csrc/gather_rows.cu",
         replaces="radad_tpu/ops/gather.py:96", max_abs_err=0.0,
-        tolerance="bit-equal",
-        **timings(torch, lambda: gather_rows(table, idx),
-                  lambda: gather_rows_plain(table, idx),
-                  lambda: torch.index_select(table, 0, idx_long)),
-        shape=f"x [{n},{d}] f32, idx [{m}]")
-    # bytes this run's ids need: each distinct source row read once, every
-    # output row written once, the ids read once
-    rows_read = int(torch.unique(idx_long).numel())
-    recs["gather_rows"]["bound_ms"], recs["gather_rows"]["bound_by"] = \
-        bound_ms((rows_read + m) * d * 4 + m * 4)
+        tolerance="bit-equal", **by_m[1_280], by_shape=_shape_table(by_m, "M"),
+        shape=f"x [{n},{d}] f32, idx [1280] (by_shape: M = 5 .. 2048)")
 
     # exact_dot: B = 256 queries x R = 32 candidates, f32 and bf16 rows.
     # Tolerance: f32 summation order, |err| <= 1e-5 * sum_d |q_d x_d|.
@@ -229,37 +294,51 @@ def kernel_phase(torch, dev):
     recs["exact_dot"]["bound_ms"], recs["exact_dot"]["bound_by"] = bound_ms(
         rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
 
-    # extract_candidates: B = 256, T = 24 tiles of 128 lanes, m = 8 rounds,
-    # with exact ties and all-(-inf) tiles
+    # extract_candidates: B = 1, 8, 64, 256 queries, T = 24 tiles of 128
+    # lanes, m = 8 rounds, with exact ties, all-(-inf) tiles and a -0 at a
+    # lower lane than a +0 (the lower lane goes first)
     t, mm, nt = 24, 8, n // 128
-    cand = torch.randn((b, t, 128), generator=g, device=dev)
-    cand[0, 0, :] = float("-inf")
-    cand[5, 3, :] = float("-inf")
-    cand[1, t - 1, 7] = cand[1, t - 1, 99]
-    cand[2, 4, :] = 0.5  # a whole tile tied
-    cand[3, 2, 10:20] = float("-inf")
-    tsel = torch.randint(0, nt, (b, t), generator=g, device=dev,
-                         dtype=torch.int32)
-    got = extract_candidates(cand, tsel, mm, nt)
-    want = extract_candidates_plain(cand, tsel, mm, nt)
-    torch.cuda.synchronize()
-    for gv, wv, what in zip(got, want, ("vals", "rows", "leftover")):
-        if not torch.equal(gv, wv):
-            raise AssertionError(f"extract_candidates {what} differs from "
-                                 f"its plain version")
+    by_b = {}
+    for bb in (1, 8, 64, 256):
+        cand = torch.randn((bb, t, 128), generator=g, device=dev)
+        cand[0, 0, :] = float("-inf")
+        cand[5 % bb, 3, :] = float("-inf")
+        cand[1 % bb, t - 1, 7] = cand[1 % bb, t - 1, 99]
+        cand[2 % bb, 4, :] = 0.5  # a whole tile tied
+        cand[3 % bb, 2, 10:20] = float("-inf")
+        cand[0, 1, :] = -1.0 - torch.rand(128, generator=g, device=dev)
+        cand[0, 1, 9], cand[0, 1, 40] = -0.0, 0.0
+        tsel = torch.randint(0, nt, (bb, t), generator=g, device=dev,
+                             dtype=torch.int32)
+        got = extract_candidates(cand, tsel, mm, nt)
+        want = extract_candidates_plain(cand, tsel, mm, nt)
+        torch.cuda.synchronize()
+        for gv, wv, what in zip(got, want, ("vals", "rows", "leftover")):
+            if not torch.equal(gv, wv):
+                raise AssertionError(f"extract_candidates B={bb} {what} "
+                                     f"differs from its plain version")
+        if int(got[1][0, 1]) != 9 * nt + int(tsel[0, 1]):
+            raise AssertionError("extract_candidates: the -0 at the lower "
+                                 "lane did not go first")
+        rec = timings(
+            torch, lambda c=cand, s=tsel: extract_candidates(c, s, mm, nt),
+            lambda c=cand, s=tsel: extract_candidates_plain(c, s, mm, nt),
+            lambda c=cand: torch.topk(c, mm, dim=-1))
+        # operations: per round and lane a max, a compare and a select
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            bb * t * 128 * 4 + bb * t * 4 + bb * mm * t * 8 + bb * t * 4,
+            3.0 * bb * t * 128 * mm)
+        by_b[bb] = rec
+        print(f"extract_candidates B={bb}: device {rec['ms']:.4f} ms, topk "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms")
     recs["extract_candidates"] = dict(
         route="cuda", source="radad_tpu_torch/csrc/extract_candidates.cu",
         replaces="radad_tpu/ops/topk.py:338", max_abs_err=0.0,
-        tolerance="bit-equal",
-        **timings(torch, lambda: extract_candidates(cand, tsel, mm, nt),
-                  lambda: extract_candidates_plain(cand, tsel, mm, nt),
-                  lambda: torch.topk(cand, mm, dim=-1)),
-        shape=f"cand [{b},{t},128] f32, m={mm}")
-    # operations: per round and lane a max, a compare and a select
-    out_bytes = b * mm * t * 8 + b * t * 4
-    recs["extract_candidates"]["bound_ms"], \
-        recs["extract_candidates"]["bound_by"] = bound_ms(
-            b * t * 128 * 4 + b * t * 4 + out_bytes, 3.0 * b * t * 128 * mm)
+        tolerance="equal (values as floats: a zero maximum is +0), rows and "
+                  "leftover exact",
+        **by_b[256], by_shape=_shape_table(by_b, "B"),
+        shape=f"cand [256,{t},128] f32, m={mm} (by_shape: B = 1 .. 256)")
     recs["fused_mha"] = _fused_mha_record(torch, dev, g)
     recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
     for name in ("gather_rows", "exact_dot", "extract_candidates"):
@@ -274,6 +353,14 @@ def kernel_phase(torch, dev):
     del table, table_bf16
     torch.cuda.empty_cache()
     return recs
+
+
+def _shape_table(by_shape: dict, key: str) -> dict:
+    """{"<key>=<n>": the timings and bound at that shape}."""
+    keep = ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
+            "bound_by")
+    return {f"{key}={n}": {k: r[k] for k in keep}
+            for n, r in by_shape.items()}
 
 
 def _fused_mha_record(torch, dev, g) -> dict:
@@ -353,6 +440,7 @@ def _fused_mha_record(torch, dev, g) -> dict:
     no_bias["bound_ms"], no_bias["bound_by"] = bound_ms(
         io_bytes, 3.0 * prod_flops, rate=TF32_FLOPS)
     no_bias["max_abs_err"], no_bias["max_rel_err"] = errs[(t, False)]
+    hd80 = _fused_mha_hd80(torch, inputs, worst, counts)
     rec = dict(
         route="cuda", source="radad_tpu_torch/csrc/fused_mha.cu",
         replaces="radad_tpu/ops/attention.py:134",
@@ -370,13 +458,53 @@ def _fused_mha_record(torch, dev, g) -> dict:
         bound_rate="3xTF32: 3 x products at the TF32 tensor-core rate, "
                    "495 TFLOP/s", no_bias=no_bias,
         library_call="F.scaled_dot_product_attention, bias materialized",
-        hmma=hmma if counts else None)
+        hmma=hmma if counts else None, hd80=hd80)
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         io_bytes + bias_bytes, 3.0 * prod_flops, rate=TF32_FLOPS)
     print(f"fused_mha no-bias body: device {no_bias['ms']:.4f} ms, plain "
           f"{no_bias['plain_ms']:.4f} ms, SDPA {no_bias['library_ms']:.4f} "
           f"ms, bound {no_bias['bound_ms']:.4f} ms ({no_bias['bound_by']})")
     return rec
+
+
+def _fused_mha_hd80(torch, inputs, worst, counts) -> dict:
+    """Both bodies at head width 80, hubert-xlarge's attention shape (16
+    two-second windows, T = 99, D = 1,280, 16 heads), within 1e-5 * (1 +
+    |plain|), timed beside SDPA; the TF32 HMMA instructions of the HD = 80
+    instances. → {body: record}."""
+    import torch.nn.functional as F
+
+    from radad_tpu_torch.ops.attention import fused_mha, mha_reference
+
+    b, t, d, h = 16, 99, 1_280, 16
+    hd = d // h
+    q, k, v, bias = inputs(b, t, d, h)
+    qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in (q, k, v))
+    mask = bias["gate"].transpose(1, 2)[..., None] * bias["pos_bias"][None]
+    out = {}
+    for body, extra, flag in (("no_bias", {}, 0), ("bias", bias, 1)):
+        err, rel = worst(q, k, v, h, extra)
+        rec = timings(
+            torch, lambda extra=extra: fused_mha(q, k, v, h, **extra),
+            lambda extra=extra: mha_reference(q, k, v, h, **extra),
+            lambda extra=extra: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask if extra else None, scale=1.0))
+        bias_bytes = (b * t * h + h * t * t) * 4 if extra else 0
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * b * t * d * 4 + bias_bytes, 3.0 * 4.0 * b * h * t * t * hd,
+            rate=TF32_FLOPS)
+        rec.update(max_abs_err=err, max_rel_err=rel, hmma=sum(
+            c for f, c in counts.items() if f"mha_kernelILi80ELb{flag}E" in f)
+            if counts else None)
+        if counts and rec["hmma"] <= 0:
+            raise AssertionError(f"fused_mha HD 80 {body}: no TF32 HMMA")
+        print(f"fused_mha HD 80 {body} [{b},{t},{d}] {h} heads: device "
+              f"{rec['ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"max |err| {err:.3e} ({rel:.3e} of 1 + |plain|), TF32 HMMA "
+              f"{rec['hmma']}")
+        out[body] = rec
+    return out
 
 
 def _hmma_counts(name: str, form: str = "") -> dict:
@@ -958,6 +1086,73 @@ def wavlm_phase(torch, dev, tmp: str):
     return {"wavlm": launches}
 
 
+def hubert_xlarge_phase(torch, dev, tmp: str):
+    """hubert-xlarge-ls960-ft at full size (48 layers, 1,280 wide, 16 heads
+    of 80) with seeded random weights: one encoder forward of 8 two-second
+    windows with RADAD_FUSED_ATTENTION=1 must launch fused_mha's bias-free
+    body once a layer and stay within 1e-4 relative of the same forward
+    without it. Returns {path: launches}."""
+    import gc
+
+    import numpy as np
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.models.encoder import build_encoder
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    cfg = Config().replace(
+        feature_extractor_type="hubert",
+        hubert_model_name="facebook/hubert-xlarge-ls960-ft",
+        data_root=os.path.join(tmp, "hubert"))
+    t0 = time.perf_counter()
+    enc = build_encoder(cfg, seed=SEED, device=dev)
+    arch = enc.arch_cfg
+    layers, heads = arch.num_hidden_layers, arch.num_attention_heads
+    print(f"hubert-xlarge encoder: {layers} layers x {arch.hidden_size} "
+          f"wide, {heads} heads of {arch.hidden_size // heads}, "
+          f"pretrained={enc.pretrained}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 4)
+    sr = cfg.sample_rate
+    tone = np.sin(2 * np.pi * rng.uniform(120, 600, (8, 1))
+                  * np.arange(2 * sr) / sr)
+    wave = torch.as_tensor((0.4 * tone + 0.02 * rng.standard_normal(
+        tone.shape)).astype(np.float32), device=dev)
+    base = enc.segment_features(wave)
+    torch.cuda.synchronize()
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    _reset(kernels)
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        fused = enc.segment_features(wave)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    launches = {w.__name__: w.launches for w in kernels}
+    body = dict(fused_mha.body_launches)
+    rel = float(((fused - base).double().flatten(1).norm(dim=1)
+                 / base.double().flatten(1).norm(dim=1)).max())
+    print(f"hubert-xlarge with RADAD_FUSED_ATTENTION=1: features "
+          f"{list(fused.shape)}, max relative change per window {rel:.3e} "
+          f"(limit 1e-4), max |diff| {float((fused - base).abs().max()):.3e}"
+          f"; launches {launches}, fused_mha per body {body}")
+    if body != {"bias": 0, "no_bias": layers}:
+        raise AssertionError(f"hubert-xlarge: want {layers} bias-free "
+                             f"fused_mha launches, got {body}")
+    if not (rel <= 1e-4 and bool(torch.isfinite(fused).all())):
+        raise AssertionError(f"hubert-xlarge: fused attention moved the "
+                             f"features by {rel:.3e} relative")
+    del enc, base, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"hubert_xlarge_fused_attention": launches}
+
+
 def server_phase(pipe, q_paths) -> None:
     """The port's HTTP server on localhost: 3 WAV uploads to /api/predict."""
     import threading
@@ -1029,6 +1224,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(wavlm_phase(torch, dev, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(hubert_xlarge_phase(torch, dev, tmp))
     kernels = []
     for name, r in recs.items():
         per_path = {p: n[name] for p, n in by_path.items() if n[name]}
@@ -1050,6 +1248,9 @@ def main() -> int:
                 "max_abs_err", "max_rel_err")}
         if "hmma" in r:
             rec["hmma"] = r["hmma"]
+        for key in ("by_shape", "hd80"):
+            if key in r:
+                rec[key] = r[key]
         kernels.append(rec)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")

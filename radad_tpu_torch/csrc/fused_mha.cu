@@ -67,8 +67,11 @@
 // - Edges: keys >= T take -inf before the row max (and zero V rows); rows
 //   >= T read zeros, add no bias and are not stored; a warp whose 16 rows
 //   all lie past T skips the products. Every T is right (only the key tiles
-//   loop), and every HD in {16, 32, 64, 128}, each a multiple of the k8
-//   depth. Shared memory above 48 KB is requested by cudaFuncSetAttribute.
+//   loop), and every HD in {16, 32, 64, 80, 128}, each a multiple of the
+//   k8 depth (80, hubert-xlarge's 1,280 columns over 16 heads: ten k8 steps
+//   and ten n8 fragments of O; its stride of 84 floats keeps the fragment
+//   reads on 32 banks too). Shared memory above 48 KB is requested by
+//   cudaFuncSetAttribute.
 // No wgmma or TMA yet.
 
 #include <cuda_runtime.h>
@@ -398,6 +401,7 @@ int dispatch(const float* q, const float* k, const float* v, const float* gate,
     case 16: return launch<16, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
     case 32: return launch<32, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
     case 64: return launch<64, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
+    case 80: return launch<80, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
     case 128: return launch<128, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -406,7 +410,7 @@ int dispatch(const float* q, const float* k, const float* v, const float* gate,
 }  // namespace
 
 // q, k, v, out [B, T, D] f32 contiguous, D = heads * HD with HD in
-// {16, 32, 64, 128}; gate [B, T, heads] and pos [heads, T, T] f32, both null
+// {16, 32, 64, 80, 128}; gate [B, T, heads] and pos [heads, T, T] f32, both null
 // for the bias-free body. Returns cudaGetLastError() after the launch
 // (0 on success).
 extern "C" int radad_fused_mha(const float* q, const float* k, const float* v,

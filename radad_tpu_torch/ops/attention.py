@@ -33,7 +33,7 @@ import torch
 
 from radad_tpu_torch.ops import _native
 
-_HEAD_DIMS = (16, 32, 64, 128)  # head widths the kernel is built for
+_HEAD_DIMS = (16, 32, 64, 80, 128)  # head widths the kernel is built for
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

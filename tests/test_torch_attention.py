@@ -25,10 +25,11 @@ def _inputs(rng, b, t, d, h):
 
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("b,t,d,h", [(3, 7, 128, 4), (2, 99, 128, 2),
-                                     (1, 600, 64, 2)])
+                                     (1, 600, 64, 2), (2, 99, 160, 2)])
 def test_fused_mha_matches_pallas_interpret(b, t, d, h, bias, rng):
     """Both Pallas bodies (``_mha_kernel``, ``_mha_bias_kernel``); T = 600
-    crosses the JAX kernel's 512-row query tile."""
+    crosses the JAX kernel's 512-row query tile; head width 80 is
+    hubert-xlarge's (1,280 columns over 16 heads)."""
     q, k, v, gate, pos = _inputs(rng, b, t, d, h)
     extra = dict(gate=gate, pos_bias=pos) if bias else {}
     want = np.asarray(jfused_mha(jnp.asarray(q), jnp.asarray(k),

@@ -110,9 +110,10 @@ def _rel_err(got, want) -> float:
 
 
 # T = 7 (one partial key tile), 99 (the serving T: four tiles), 600 (19,
-# crossing the JAX kernel's 512-row query tile), each at HD 16, 64 and 128;
-# ``saturate`` at T = 130 (five tiles, the row's dominant key in any of them)
-GRID = [(t, hd, False) for t in (7, 99, 600) for hd in (16, 64, 128)] + [
+# crossing the JAX kernel's 512-row query tile), each at HD 16, 64, 80
+# (hubert-xlarge: ten k8 steps) and 128; ``saturate`` at T = 130 (five
+# tiles, the row's dominant key in any of them)
+GRID = [(t, hd, False) for t in (7, 99, 600) for hd in (16, 64, 80, 128)] + [
     (130, 64, True)]
 
 

@@ -35,19 +35,22 @@ def cuda():
 
 
 def test_gather_rows_kernel_on_card(cuda):
-    """Bit-equal to the plain version for 16-, 4- and 2-byte row widths,
-    with out-of-range ids clamped; one launch per call."""
+    """Bit-equal to the plain version for 16-, 4- and 2-byte row widths
+    (f32 5,376 is 3 chunks a row, the last one masked), with out-of-range
+    ids clamped, at M = 517 and at the serving M (1, 5, 40, 320, 2,048);
+    one launch per call."""
     g = torch.Generator(device=cuda).manual_seed(0)
     for dtype, d in ((torch.float32, 5376), (torch.bfloat16, 5376),
                      (torch.float32, 250), (torch.bfloat16, 7)):
         x = torch.randn((3000, d), generator=g, device=cuda).to(dtype)
-        idx = torch.randint(-5, 3010, (517,), generator=g, device=cuda,
-                            dtype=I32)
-        before = gather_rows.launches
-        got = gather_rows(x, idx)
-        torch.cuda.synchronize()
-        assert gather_rows.launches == before + 1
-        assert torch.equal(got, gather_rows_plain(x, idx))
+        for m in (517, 1, 5, 40, 320, 2048):
+            idx = torch.randint(-5, 3010, (m,), generator=g, device=cuda,
+                                dtype=I32)
+            before = gather_rows.launches
+            got = gather_rows(x, idx)
+            torch.cuda.synchronize()
+            assert gather_rows.launches == before + 1
+            assert torch.equal(got, gather_rows_plain(x, idx)), (dtype, d, m)
     with pytest.raises(TypeError):
         gather_rows(x, idx.long())
 
@@ -74,19 +77,29 @@ def test_exact_dot_kernel_on_card(cuda):
 
 
 def test_extract_candidates_kernel_on_card(cuda):
-    """Bit-equal to the plain version, ties and -inf tiles included, from
-    m = 8 to all 128 lanes."""
+    """Equal to the plain version (values as floats, so a zero maximum may
+    differ in sign; rows and leftover exactly), ties, -inf tiles and a -0
+    at a lower lane than a +0 included (the lower lane goes first), from
+    m = 8 to all 128 lanes, at B = 1 and 64 of the serving shape and with
+    tiles that split over two blocks (T = 40)."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    for b, t, m in ((256, 24, 8), (5, 40, 20), (3, 8, 128)):
+    for b, t, m in ((256, 24, 8), (1, 24, 8), (64, 24, 8), (5, 40, 20),
+                    (3, 8, 128)):
         cand = torch.randn((b, t, 128), generator=g, device=cuda)
         cand[0, 0] = float("-inf")
         cand[b - 1, t - 1, 3] = cand[b - 1, t - 1, 64]
+        zero = cand[0, 1]
+        zero[:] = -1.0 - torch.rand(128, generator=g, device=cuda)
+        zero[9], zero[40] = -0.0, 0.0
         tsel = torch.randint(0, 200, (b, t), generator=g, device=cuda,
                              dtype=I32)
         got = extract_candidates(cand, tsel, m, 200)
         want = extract_candidates_plain(cand, tsel, m, 200)
+        torch.cuda.synchronize()
         for gv, wv in zip(got, want):
-            assert torch.equal(gv, wv)
+            assert torch.equal(gv, wv), (b, t, m)
+        assert int(got[1][0, t + 1]) == 40 * 200 + int(tsel[0, 1])
+        assert int(got[1][0, 1]) == 9 * 200 + int(tsel[0, 1])
 
 
 def test_bf16_scan_product_on_card(cuda):
@@ -108,13 +121,15 @@ def test_fused_mha_kernel_on_card(cuda, t, saturate):
     """Both bodies within 1e-5 * (1 + |plain|) (3xTF32 products, f32
     softmax online over 32-key tiles): T at the edges of the 16-row warp
     tiles, the 128-row block and the key tiles, up to 1500 frames; head
-    widths 64 (the encoders) and 16 / 32 / 128 (the other builds; 64 and
-    128 take more than 48 KB of shared memory). ``saturate``: logits from
+    widths 64 (the base and large encoders), 80 (hubert-xlarge) and
+    16 / 32 / 128 (the other builds; 64, 80 and 128 take more than 48 KB of
+    shared memory). ``saturate``: logits from
     about -70 to 80 with one key dominating each row by at least ~10, that
     key spread over the five key tiles so the running max grows from tile
     to tile and exp underflows. One launch per call, counted per body."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    for b, h, hd in ((3, 12, 64), (2, 4, 16), (2, 4, 32), (2, 2, 128)):
+    for b, h, hd in ((3, 12, 64), (2, 4, 16), (2, 4, 32), (2, 16, 80),
+                     (2, 2, 128)):
         d = h * hd
         q, k, v = (torch.randn((b, t, d), generator=g, device=cuda)
                    for _ in range(3))
