@@ -10,10 +10,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``fused_mha`` and ``flat_topk``, with ptxas's registers and spills of
    each template instance;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving paths' shapes (``gather_rows`` at M = 5, 32, 40, 256, 320,
-   1,280 and 2,048 rows, each timed call reading its rows from device
-   memory, not the L2; ``extract_candidates`` at B = 1, 8, 64 and 256
-   queries;
+   serving and training paths' shapes (``gather_rows`` at M = 5, 32, 40,
+   256, 320, 640, 1,280 and 2,048 rows, each timed call reading its rows
+   from device memory, not the L2; ``exact_dot`` at B = 128 and 256;
+   ``extract_candidates`` at B = 1, 8, 64, 128 and 256 queries;
    ``flat_topk`` at B = 64 and 8 also against the
    exact scores of its bf16 operands within the bound of its tensor-core
    summation order, with a control that an unrounded scan fails;
@@ -48,7 +48,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 6. hubert-xlarge phase: a seeded random ``hubert-xlarge-ls960-ft`` encoder
    (48 layers, 1,280 wide, 16 heads of 80) embeds 8 two-second windows with
    ``RADAD_FUSED_ATTENTION=1``; ``fused_mha`` must launch once a layer and
-   the features stay within 1e-4 relative of the same forward without it.
+   the features stay within 1e-4 relative of the same forward without it;
+7. train phase: the trainer at the shipped defaults (wav2vec2-base, the
+   BatchNorm head with dropout 0.1, batch 128, eval batch 256) on 500
+   train and 300 val synthetic clips, the DB padded to 25,600 rows:
+   ``train`` for 3 epochs and ``evaluate`` must launch ``gather_rows``,
+   ``exact_dot`` and ``extract_candidates`` (path "train"); a train batch's
+   (B = 128, batch exclusion) and an eval batch's (B = 256) retrieval must
+   agree with the f64 scan up to near-ties; the card's update (dropout 0)
+   must agree with the same update on the CPU; the saved checkpoint must
+   load into a fresh pipeline with equal optimizer state and step and
+   train one more epoch; the step's median retrieve / forward+backward /
+   update ms, steps/s and the device busy share of a profiled step are
+   printed.
 
 Each phase sets the launch counts to 0 just before its counted run and
 reads them just after. The last line is ``{"ok": true, "device": {...}}``;
@@ -73,6 +85,7 @@ TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core rate
 SEED = 0
 DB_CLIPS = 256  # synthetic clips embedded through build_vector_database
 INDEX_ROWS = 25_600  # In-the-Wild scale (25,423 clips)
+TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
 
 
 def _card_line() -> str:
@@ -106,11 +119,15 @@ def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
     session that lost device events, seen as no device time (once in some
     hundreds of sessions in one process) or as a kernel counted other than
     a whole number of times a call (a 0.18 ms kernel once read 0.11 ms),
-    is run again, up to 3 sessions in all."""
+    is run again, up to 3 sessions in all. Where all 3 lost events (one
+    kernel of 20 calls counted 19 times in 3 sessions in a row), each
+    kernel's mean over the events kept, times its launches a call, is the
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -123,6 +140,13 @@ def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
         total_us = sum(e.device_time_total for e in seen)
         if total_us > 0 and all(e.count % iters == 0 for e in seen):
             return total_us / 1e3 / iters
+    per_call = [round(e.count / iters) for e in seen]
+    if seen and all(per_call) and total_us > 0:
+        print(f"device_ms: the profiler lost events of *{name}* in 3 "
+              f"sessions {[(e.key[:40], e.count) for e in seen]}; timed "
+              f"from the mean of the events kept")
+        return sum(e.device_time_total / e.count * k
+                   for e, k in zip(seen, per_call)) / 1e3
     raise RuntimeError(f"the profiler lost device events of *{name}* in 3 "
                        f"sessions: {[(e.key, e.count) for e in seen]}")
 
@@ -221,12 +245,13 @@ def kernel_phase(torch, dev):
     table = torch.randn((n, d), generator=g, device=dev)
     recs = {}
 
-    # gather_rows: the neighbor fetch's M = 5 B rows at B = 1, 8, 64, 256
-    # (5, 40, 320, 1,280) and the use_pallas re-rank's M = 32 B at B = 1,
-    # 8, 64 (32, 256, 2,048), checked with out-of-range ids that both
-    # versions clamp, timed on ids that read every row from device memory
+    # gather_rows: the neighbor fetch's M = 5 B rows at B = 1, 8, 64, 128
+    # (the train batch), 256 (5, 40, 320, 640, 1,280) and the use_pallas
+    # re-rank's M = 32 B at B = 1, 8, 64 (32, 256, 2,048), checked with
+    # out-of-range ids that both versions clamp, timed on ids that read
+    # every row from device memory
     by_m = {}
-    for m in (5, 32, 40, 256, 320, 1_280, 2_048):
+    for m in (5, 32, 40, 256, 320, 640, 1_280, 2_048):
         idx = torch.randint(0, n, (m,), generator=g, device=dev,
                             dtype=torch.int32)
         idx[:3] = torch.tensor([-1, n, n + 7], device=dev, dtype=torch.int32)
@@ -255,51 +280,64 @@ def kernel_phase(torch, dev):
         tolerance="bit-equal", **by_m[1_280], by_shape=_shape_table(by_m, "M"),
         shape=f"x [{n},{d}] f32, idx [1280] (by_shape: M = 5 .. 2048)")
 
-    # exact_dot: B = 256 queries x R = 32 candidates, f32 and bf16 rows.
-    # Tolerance: f32 summation order, |err| <= 1e-5 * sum_d |q_d x_d|.
-    b, r = 256, 32
-    q = torch.randn((b, d), generator=g, device=dev)
-    cidx = torch.randint(0, n, (b, r), generator=g, device=dev,
-                         dtype=torch.int32)
+    # exact_dot: B = 256 (eval batch) and 128 (train batch) queries x R = 32
+    # candidates, f32 and bf16 rows. Tolerance: f32 summation order,
+    # |err| <= 1e-5 * sum_d |q_d x_d|.
+    r = 32
     table_bf16 = table.to(torch.bfloat16)
-    errs = {}
-    for name, x in (("f32", table), ("bf16", table_bf16)):
-        got = exact_dot(q, x, cidx)
-        want = exact_dot_plain(q, x, cidx)
-        scale = (x[cidx.long()].float().abs()
-                 * q.abs()[:, None, :]).sum(-1)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        if not bool((err <= 1e-5 * scale).all()):
-            raise AssertionError(f"exact_dot[{name}] outside tolerance: "
-                                 f"max err {float(err.max())}")
-        errs[name] = float(err.max())
-    print(f"exact_dot max_abs_err: f32 {errs['f32']:.3e}, "
-          f"bf16 {errs['bf16']:.3e} (tolerance 1e-5 * sum|q*x|)")
-    bf16_ms = device_ms(torch, lambda: exact_dot(q, table_bf16, cidx))
-    bf16_bound = bound_ms(int(torch.unique(cidx).numel()) * d * 2 + b * d * 4
-                          + 2 * b * r * 4, 2.0 * b * r * d)[0]
-    print(f"exact_dot bf16 rows: {bf16_ms:.4f} ms on the device, bound "
-          f"{bf16_bound:.4f} ms")
+    by_b, errs = {}, {}
+    for b in (256, 128):
+        q = torch.randn((b, d), generator=g, device=dev)
+        cidx = torch.randint(0, n, (b, r), generator=g, device=dev,
+                             dtype=torch.int32)
+        for name, x in (("f32", table), ("bf16", table_bf16)):
+            got = exact_dot(q, x, cidx)
+            want = exact_dot_plain(q, x, cidx)
+            scale = (x[cidx.long()].float().abs()
+                     * q.abs()[:, None, :]).sum(-1)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            if not bool((err <= 1e-5 * scale).all()):
+                raise AssertionError(f"exact_dot[{name}] B={b} outside "
+                                     f"tolerance: max err {float(err.max())}")
+            errs[(b, name)] = float(err.max())
+        rec = timings(torch, lambda q=q, c=cidx: exact_dot(q, table, c),
+                      lambda q=q, c=cidx: exact_dot_plain(q, table, c),
+                      lambda q=q, c=cidx: torch.bmm(table[c.long()],
+                                                    q[:, :, None]))
+        # each distinct candidate row read once, q and the ids read, out
+        # written
+        rows_read = int(torch.unique(cidx).numel())
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
+        by_b[b] = rec
+        print(f"exact_dot B={b}: device {rec['ms']:.4f} ms, gather + bmm "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms; max_abs_err f32 "
+              f"{errs[(b, 'f32')]:.3e}, bf16 {errs[(b, 'bf16')]:.3e} "
+              f"(tolerance 1e-5 * sum|q*x|)")
+        if b == 256:
+            bf16_ms = device_ms(torch, lambda: exact_dot(q, table_bf16,
+                                                         cidx))
+            bf16_bound = bound_ms(rows_read * d * 2 + b * d * 4
+                                  + 2 * b * r * 4, 2.0 * b * r * d)[0]
+            print(f"exact_dot bf16 rows: {bf16_ms:.4f} ms on the device, "
+                  f"bound {bf16_bound:.4f} ms")
     recs["exact_dot"] = dict(
         route="cuda", source="radad_tpu_torch/csrc/exact_dot.cu",
-        replaces="radad_tpu/ops/rerank.py:131", max_abs_err=errs["f32"],
+        replaces="radad_tpu/ops/rerank.py:131",
+        max_abs_err=max(e for (_, kind), e in errs.items() if kind == "f32"),
         tolerance="1e-5 * sum|q*x| (f32 summation order)",
-        **timings(torch, lambda: exact_dot(q, table, cidx),
-                  lambda: exact_dot_plain(q, table, cidx),
-                  lambda: torch.bmm(table[cidx.long()], q[:, :, None])),
-        shape=f"q [{b},{d}] f32, x [{n},{d}] f32, idx [{b},{r}]")
-    # each distinct candidate row read once, q and the ids read, out written
-    rows_read = int(torch.unique(cidx).numel())
-    recs["exact_dot"]["bound_ms"], recs["exact_dot"]["bound_by"] = bound_ms(
-        rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
+        **by_b[256], by_shape=_shape_table(by_b, "B"),
+        shape=f"q [256,{d}] f32, x [{n},{d}] f32, idx [256,{r}] (by_shape: "
+              f"B = 128, 256)")
 
     # extract_candidates: B = 1, 8, 64, 256 queries, T = 24 tiles of 128
     # lanes, m = 8 rounds, with exact ties, all-(-inf) tiles and a -0 at a
     # lower lane than a +0 (the lower lane goes first)
     t, mm, nt = 24, 8, n // 128
     by_b = {}
-    for bb in (1, 8, 64, 256):
+    for bb in (1, 8, 64, 128, 256):
         cand = torch.randn((bb, t, 128), generator=g, device=dev)
         cand[0, 0, :] = float("-inf")
         cand[5 % bb, 3, :] = float("-inf")
@@ -681,6 +719,18 @@ def _write_clips(tmp: str, n: int, seed: int, prefix: str):
     return paths, labels
 
 
+def _manifest(paths, labels):
+    """A Manifest of clips written by ``_write_clips`` (8 speakers)."""
+    import numpy as np
+
+    from radad_tpu_torch.data.manifest import Manifest, file_id
+
+    return Manifest(
+        paths=tuple(paths), labels=np.asarray(labels, np.float32),
+        speakers=tuple(f"spk{i % 8}" for i in range(len(paths))),
+        ids=np.asarray([file_id(p) for p in paths], np.int32))
+
+
 def _pad_index(torch, pipe, n_rows: int, seed: int) -> None:
     """Pad the index to ``n_rows`` with seeded rows around the real clip
     embeddings: one contiguous block of 32 tight clusters x 32 near-
@@ -717,6 +767,29 @@ def _embed_paths(torch, pipe, paths):
     return pipe._embed(torch.as_tensor(waves, device=pipe.device))
 
 
+def _f64_distances(torch, ix, tpp, mask, k):
+    """f64 squared distances ``[B, cap]`` of ``tpp`` to the index rows (inf
+    where ``mask``), their top-k (ids, -distances), |q|^2 and |x|^2."""
+    from radad_tpu_torch.ops.topk import top_k_stable
+
+    q64, x64 = tpp.double(), ix.vectors.double()
+    qsq, xsq = q64.square().sum(-1), x64.square().sum(-1)
+    d64 = (qsq[:, None] - 2.0 * q64 @ x64.t() + xsq[None, :]).masked_fill(
+        mask, float("inf"))
+    neg_ref, ref = top_k_stable(-d64, k)
+    return d64, ref, neg_ref, qsq, xsq
+
+
+def _exclusion_mask(torch, ix, excl, mode: str):
+    """Rows a search may not return: past n, and those whose id the query
+    excludes ("self": its own; "batch": any of the batch's)."""
+    invalid = torch.arange(ix.vectors.shape[0], device=ix.device) >= ix.n
+    if mode == "self":
+        return invalid[None, :] | (ix.ids[None, :] == excl[:, None])
+    hit = invalid | torch.isin(ix.ids, excl)
+    return hit[None, :].expand(excl.shape[0], -1)
+
+
 def _f64_scan(torch, pipe, paths):
     """The f64 full-scan oracle over the pipeline's embeddings of
     ``paths``, each row excluding its own file (predict_batch's "self"
@@ -724,20 +797,13 @@ def _f64_scan(torch, pipe, paths):
     distances (inf where masked), ref [B, k] ids, -ref distances, |q|^2,
     |x|^2)."""
     from radad_tpu_torch.data.manifest import file_id
-    from radad_tpu_torch.ops.topk import top_k_stable
 
     cfg, ix = pipe.config, pipe.index
     tpp = _embed_paths(torch, pipe, paths)
     excl = torch.as_tensor([file_id(p) for p in paths], device=ix.device,
                            dtype=torch.int32)
-    invalid = torch.arange(ix.vectors.shape[0], device=ix.device) >= ix.n
-    mask = invalid[None, :] | (ix.ids[None, :] == excl[:, None])
-    q64, x64 = tpp.double(), ix.vectors.double()
-    qsq, xsq = q64.square().sum(-1), x64.square().sum(-1)
-    d64 = (qsq[:, None] - 2.0 * q64 @ x64.t() + xsq[None, :]).masked_fill(
-        mask, float("inf"))
-    neg_ref, ref = top_k_stable(-d64, cfg.top_k)
-    return tpp, excl, d64, ref, neg_ref, qsq, xsq
+    mask = _exclusion_mask(torch, ix, excl, "self")
+    return (tpp, excl) + _f64_distances(torch, ix, tpp, mask, cfg.top_k)
 
 
 def _rows_of(torch, pipe, outs):
@@ -748,35 +814,48 @@ def _rows_of(torch, pipe, outs):
                             for o in outs], device=ix.device)
 
 
-def _check_against_full_scan(torch, pipe, paths, outs):
-    """Neighbors of ``outs`` (a predict_batch result) against a full scan
-    on the card over the same embeddings, with per-row self exclusion, in
-    f64. Ids must be identical, except that neighbors whose f64 squared
-    distances differ by less than f32 rounding, 2^-21 * (|q|^2 + max |x|^2)
-    (the certified search scores ``|q|^2 - 2 q.x + |x|^2`` in f32), may
-    swap: there the returned distances must equal the f64 top-k within
-    that bound. Returns (rows with identical ids, rows where an f32 GEMM
-    full scan's ids differ from the f64 ones)."""
-    import numpy as np
-
+def _hold_to_f64(torch, ix, tpp, mask, got, k):
+    """Neighbor rows ``got [B, k]`` of queries ``tpp`` against a full scan
+    on the card in f64 with the same ``mask``. Ids must be identical,
+    except that neighbors whose f64 squared distances differ by less than
+    f32 rounding, 2^-21 * (|q|^2 + max |x|^2) (the certified search scores
+    ``|q|^2 - 2 q.x + |x|^2`` in f32), may swap: there the returned
+    distances must equal the f64 top-k within that bound. Returns (rows
+    with identical ids, rows where an f32 GEMM full scan's ids differ from
+    the f64 ones)."""
     from radad_tpu_torch.index.flat import _full_scan
 
-    ix = pipe.index
-    tpp, excl, d64, ref, neg_ref, qsq, xsq = _f64_scan(torch, pipe, paths)
-    mask = torch.isinf(d64)
-    _, ref32 = _full_scan(tpp, ix.vectors, ix.norms_sq, mask,
-                          pipe.config.top_k, larger_better=False)
-    got = _rows_of(torch, pipe, outs)
-    d_got = d64.gather(1, got).sort(-1).values
+    d64, ref, neg_ref, qsq, xsq = _f64_distances(torch, ix, tpp, mask, k)
+    _, ref32 = _full_scan(tpp, ix.vectors, ix.norms_sq, mask, k,
+                          larger_better=False)
+    d_got = d64.gather(1, got.long()).sort(-1).values
     tol = 2.0 ** -21 * (qsq + xsq[: ix.n].max())
     worst = float(((d_got + neg_ref).abs() - tol[:, None]).max())
     if worst > 0:
         raise AssertionError(f"neighbors beyond f32 rounding of the f64 "
-                             f"top-{pipe.config.top_k} (excess {worst:.3e})")
+                             f"top-{k} (excess {worst:.3e})")
+    same = int((got.long() == ref).all(-1).sum())
+    return same, int((ref32.long() != ref).any(-1).sum())
+
+
+def _check_against_full_scan(torch, pipe, paths, outs):
+    """Neighbors of ``outs`` (a predict_batch result, per-row self
+    exclusion) held to the f64 full scan by ``_hold_to_f64``; logits
+    finite. Returns its counts."""
+    import numpy as np
+
+    from radad_tpu_torch.data.manifest import file_id
+
+    ix = pipe.index
+    tpp = _embed_paths(torch, pipe, paths)
+    excl = torch.as_tensor([file_id(p) for p in paths], device=ix.device,
+                           dtype=torch.int32)
+    counts = _hold_to_f64(torch, ix, tpp,
+                          _exclusion_mask(torch, ix, excl, "self"),
+                          _rows_of(torch, pipe, outs), pipe.config.top_k)
     if not all(np.isfinite(o["logit"]) for o in outs):
         raise AssertionError("non-finite logit")
-    same = int((got == ref).all(-1).sum())
-    return same, int((ref32.long() != ref).any(-1).sum())
+    return counts
 
 
 def _check_against_plain_route(torch, pipe, paths, outs):
@@ -843,10 +922,7 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
     """A DetectionPipeline with a seeded random encoder at full width whose
     DB is DB_CLIPS synthetic clips padded to INDEX_ROWS. → (pipeline,
     DB clip paths)."""
-    import numpy as np
-
     from radad_tpu_torch.config import Config
-    from radad_tpu_torch.data.manifest import Manifest, file_id
     from radad_tpu_torch.train.pipeline import DetectionPipeline
 
     use_pallas = cfg_kw.pop("use_pallas", None)
@@ -865,10 +941,7 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
           f"built in {time.perf_counter() - t0:.2f} s")
     db_paths, db_labels = _write_clips(cfg.train_data_path, DB_CLIPS, SEED,
                                        "db")
-    manifest = Manifest(
-        paths=tuple(db_paths), labels=np.asarray(db_labels, np.float32),
-        speakers=tuple(f"spk{i % 8}" for i in range(len(db_paths))),
-        ids=np.asarray([file_id(p) for p in db_paths], np.int32))
+    manifest = _manifest(db_paths, db_labels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe.build_vector_database(manifest, save=False)
@@ -1199,6 +1272,297 @@ def server_phase(pipe, q_paths) -> None:
         raise AssertionError("server thread did not stop")
 
 
+def _update_on_cpu(torch, pipe, batch, neighbors):
+    """The card's update against the same update on the CPU, both with the
+    port's own code and dropout 0: a copy of the trained model and its
+    optimizer state, one batch (B = 128, pad rows included) and the
+    neighbors the card retrieved for it. Tolerances (f32 on both sides,
+    sums in other orders, TF32 off on the card): loss within 1e-5 relative,
+    logits within 1e-4 (1 + |logit|), per-group gradient norms within 1e-4
+    relative, BatchNorm running statistics within 1e-5 (1 + |x|), Adam's
+    moments within 1e-4 of their group's largest value; parameters within
+    1e-6 + 1e-5 |p|, except where the two first moments disagree by more
+    than 0.1 % (Adam's input within rounding of 0, where its step may go
+    up to lr either way): at most 0.5 % of the coordinates, each within
+    2 lr. → the largest errors seen."""
+    import copy
+
+    from radad_tpu_torch.train.optim import GroupAdam
+    from radad_tpu_torch.train.pipeline import (make_step_fns,
+                                                new_accumulators)
+
+    tpp, labels, _, valid = batch
+    pw = 1.25
+    out = {}
+    for side, dev in (("card", pipe.device), ("cpu", torch.device("cpu"))):
+        model = copy.deepcopy(pipe.model).to(dev)
+        model.projection_layer.dropout = model.detection_model.dropout = 0.0
+        opt = GroupAdam(pipe.opt.lr, pipe.opt.wd)
+        opt.load_state_dict(pipe.opt.state, device=dev)
+        steps = make_step_fns(model, opt, None)
+        args = [x.to(dev) for x in (neighbors, tpp, labels, valid)]
+        loss, logits, grads = steps.forward_backward(*args, pw)
+        bm = steps.apply(new_accumulators(dev), args[0], args[2], args[3],
+                         loss, logits, grads)
+        out[side] = dict(
+            loss=float(loss), logits=logits.cpu(),
+            gn={k: float(bm[k]) for k in ("gn_proj", "gn_fuse", "gn_det")},
+            state={k: v.cpu() for k, v in model.state_dict().items()},
+            opt={g: {key: {n: t.cpu() for n, t in st[key].items()}
+                     for key in ("mu", "nu")}
+                 for g, st in opt.state.items()})
+    card, cpu = out["card"], out["cpu"]
+    errs = dict(loss=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]))
+    errs["logits"] = float(((card["logits"] - cpu["logits"]).abs()
+                            / (1 + cpu["logits"].abs())).max())
+    errs["grad_norms"] = max(abs(card["gn"][k] - cpu["gn"][k]) / cpu["gn"][k]
+                             for k in cpu["gn"])
+    errs["bn_stats"] = max(
+        float(((card["state"][k] - v).abs() / (1 + v.abs())).max())
+        for k, v in cpu["state"].items() if "running" in k)
+    errs["moments"], mu_off = 0.0, {}
+    for g, st in cpu["opt"].items():
+        for key in ("mu", "nu"):
+            scale = max(float(t.abs().max()) for t in st[key].values())
+            for n, want in st[key].items():
+                diff = (card["opt"][g][key][n] - want).abs()
+                errs["moments"] = max(errs["moments"],
+                                      float(diff.max()) / scale)
+                if key == "mu":
+                    mu_off[n] = diff > 1e-3 * want.abs()
+    off = total = 0
+    errs["params"] = errs["params_near_zero"] = 0.0
+    for n, want in cpu["state"].items():
+        if n not in mu_off:
+            continue
+        diff = (card["state"][n] - want).abs()
+        ratio = diff / (1e-6 + 1e-5 * want.abs())
+        for key, vals, sel in (("params", ratio, ~mu_off[n]),
+                               ("params_near_zero", diff, mu_off[n])):
+            if bool(sel.any()):
+                errs[key] = max(errs[key], float(vals[sel].max()))
+        off += int((ratio > 1).sum())
+        total += diff.numel()
+    errs["near_zero_share"] = off / total
+    # params: |diff| / (1e-6 + 1e-5 |p|); params_near_zero: |diff| on the
+    # near-zero coordinates
+    limits = dict(loss=1e-5, logits=1e-4, grad_norms=1e-4, bn_stats=1e-5,
+                  moments=1e-4, params=1.0, near_zero_share=0.005,
+                  params_near_zero=2 * pipe.opt.lr + 1e-6)
+    over = {k: v for k, v in errs.items() if v > limits[k]}
+    if over:
+        raise AssertionError(f"update check: the card's update differs from "
+                             f"the CPU's: {over} (limits {limits})")
+    return errs
+
+
+def _step_times(torch, pipe, train_m, n_steps: int = 12):
+    """Median ms of one train step's retrieve, forward+backward and update
+    (optimizer + BatchNorm statistics), each ended by a CUDA synchronize,
+    over ``n_steps`` steps after one warm-up; steps/s of one epoch of
+    ``train_step`` calls; the device busy share of one profiled step (the
+    profiler's CUDA time over the step's wall time). It trains ``pipe``
+    further."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from radad_tpu_torch.train.pipeline import new_accumulators
+
+    steps = pipe._steps()
+    pw = train_m.pos_weight()
+    batches = list(pipe._query_batches(train_m, pipe.config.batch_size,
+                                       shuffle=True, seed=SEED + 99))
+    acc = new_accumulators(pipe.device)
+    split = {"retrieve": [], "forward_backward": [], "update": []}
+    for i in range(n_steps + 1):
+        tpp, labels, ids, valid = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        neighbors, _ = steps.fetch(tpp, ids)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, logits, grads = steps.forward_backward(
+            neighbors, tpp, labels, valid, pw, pipe.generator)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        steps.apply(acc, neighbors, labels, valid, loss, logits, grads)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i:
+            for key, a, b in (("retrieve", t0, t1),
+                              ("forward_backward", t1, t2),
+                              ("update", t2, t3)):
+                split[key].append((b - a) * 1e3)
+    medians = {k: statistics.median(v) for k, v in split.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tpp, labels, ids, valid in batches:
+        steps.train_step(acc, tpp, labels, ids, valid, pw, pipe.generator)
+    torch.cuda.synchronize()
+    steps_per_s = len(batches) / (time.perf_counter() - t0)
+    tpp, labels, ids, valid = batches[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.train_step(acc, tpp, labels, ids, valid, pw, pipe.generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if getattr(getattr(e, "device_type", None), "name", "")
+                  == "CUDA") / 1e3
+    return medians, steps_per_s, busy_ms / wall_ms, wall_ms
+
+
+def train_phase(torch, dev, tmp: str):
+    """The trainer at the shipped defaults (wav2vec2-base-960h, f32, seeded
+    random weights, TPP (1, 2, 4) max → D = 5,376, L2 top-5, the BatchNorm
+    head with dropout 0.1, batch 128, eval batch 256, lr 1e-3, wd 1e-5,
+    cached embeddings): 500 train and 300 val clips (a partial last batch
+    in both), the DB built from the train clips and padded to INDEX_ROWS,
+    ``train`` for 3 epochs and ``evaluate``, counted on path "train"; the
+    step's retrieval at B = 128 (batch exclusion) and 256 against the f64
+    scan; the update against the CPU's; save, load into a fresh pipeline
+    (equal optimizer state and step) and one more epoch; step timings.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    root = os.path.join(tmp, "train")
+    cfg = Config().replace(
+        data_root=root, vector_db_path=os.path.join(root, "vdb"),
+        train_data_path=os.path.join(root, "clips"), random_seed=SEED,
+        num_epochs=3)
+    os.makedirs(cfg.train_data_path)
+    train_m = _manifest(*_write_clips(cfg.train_data_path, TRAIN_CLIPS,
+                                      SEED + 5, "train"))
+    val_m = _manifest(*_write_clips(cfg.train_data_path, VAL_CLIPS, SEED + 6,
+                                    "val"))
+    pipe = DetectionPipeline(cfg, device=dev)
+    enc = pipe.encoder.arch_cfg
+    print(f"train phase: {pipe.encoder.name} {enc.num_hidden_layers} layers "
+          f"x {enc.hidden_size} wide, pretrained={pipe.encoder.pretrained}, "
+          f"BatchNorm head={cfg.use_batch_norm}, dropout "
+          f"{cfg.projection_dropout}/{cfg.detection_dropout}, batch "
+          f"{cfg.batch_size}, eval batch {cfg.eval_batch_size}, lr "
+          f"{cfg.learning_rate}, wd {cfg.weight_decay}, "
+          f"{len(train_m)} train / {len(val_m)} val clips")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.build_vector_database(train_m, save=False)
+    torch.cuda.synchronize()
+    print(f"train phase: build_vector_database {len(train_m)} clips in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _pad_index(torch, pipe, INDEX_ROWS, SEED + 7)
+    ix = pipe.index
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    torch.cuda.synchronize()
+    _reset(kernels)
+    ix.searches = ix.fallbacks = 0
+    t0 = time.perf_counter()
+    pipe.train(train_m, val_m)
+    result = pipe.evaluate(val_m)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in kernels}
+    secs = time.perf_counter() - t0
+    epochs = [r for r in pipe.writer.rows if r["epoch"] != "eval"]
+    for r in epochs:
+        print(f"train epoch {r['epoch']}: train loss {r['train_loss']:.6f}, "
+              f"val loss {r['val_loss']:.6f}, EER {r['eer_percent']:.4f} %, "
+              f"epoch {r['epoch_time_sec']:.3f} s (validation included)")
+    print(f"train phase: evaluate(val) loss {result['loss']:.6f}, EER "
+          f"{result['eer_percent']:.4f} %, {result['num_samples']} clips; "
+          f"train + evaluate {secs:.2f} s, {pipe.step} steps, "
+          f"{ix.searches} searches, {ix.fallbacks} fallbacks to the full "
+          f"f32 scan; kernel launches {launches}")
+    want_steps = cfg.num_epochs * -(-len(train_m) // cfg.batch_size)
+    if len(epochs) != cfg.num_epochs or pipe.step != want_steps:
+        raise AssertionError(f"train ran {len(epochs)} epochs and "
+                             f"{pipe.step} steps, want {cfg.num_epochs} and "
+                             f"{want_steps}")
+    if not all(np.isfinite([r["train_loss"], r["val_loss"]]).all()
+               for r in epochs) or not np.isfinite(result["loss"]):
+        raise AssertionError("non-finite loss in training")
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"training path")
+    if launches["fused_mha"] or launches["flat_topk"]:
+        raise AssertionError(f"the training path launched an opt-in kernel: "
+                             f"{launches}")
+
+    # the step's own retrieval against the f64 scan: a train batch (batch
+    # exclusion, the last one with its pad rows) and an eval batch
+    steps = pipe._steps()
+    train_batch = list(pipe._query_batches(train_m, cfg.batch_size,
+                                           shuffle=True, seed=SEED))[-1]
+    eval_batch = next(iter(pipe._query_batches(val_m, cfg.eval_batch_size,
+                                               shuffle=False)))
+    for what, (tpp, _, ids, _) in (("train B=128", train_batch),
+                                   ("eval B=256", eval_batch)):
+        _, _, _, idx = pipe._retrieve(tpp, ids, "batch")
+        same, f32_rows = _hold_to_f64(
+            torch, ix, tpp, _exclusion_mask(torch, ix, ids, "batch"), idx,
+            cfg.top_k)
+        print(f"train phase retrieval {what}: neighbors match the f64 full "
+              f"scan on all {tpp.shape[0]} rows, ids identical on {same} "
+              f"(the rest swap neighbors tied within f32 rounding); an f32 "
+              f"GEMM full scan's ids differ from f64 on {f32_rows} rows")
+
+    neighbors, _ = steps.fetch(train_batch[0], train_batch[2])
+    errs = _update_on_cpu(torch, pipe, train_batch, neighbors)
+    print("train phase update, card against CPU (dropout 0): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + " (loss, grad norms: "
+        "relative; logits: of 1 + |logit|; bn_stats: of 1 + |x|; moments: "
+        "of the group's largest; params: largest |diff| / (1e-6 + 1e-5 |p|) "
+        "off the near-zero coordinates; params_near_zero: largest |diff| on "
+        "them; near_zero_share: coordinates beyond 1e-6 + 1e-5 |p|)")
+
+    # resume: the checkpoint into a fresh pipeline, then one more epoch
+    pipe.save_models("final_model")
+    fresh = DetectionPipeline(cfg.replace(num_epochs=1),
+                              encoder=pipe.encoder, device=dev)
+    fresh.index = ix
+    fresh._embedding_cache = pipe._embedding_cache
+    if not fresh.load_models("final_model") or fresh.step != pipe.step:
+        raise AssertionError("resume: checkpoint not loaded at its step")
+    for g, st in pipe.opt.state.items():
+        got = fresh.opt.state[g]
+        same = torch.equal(st["count"], got["count"]) and all(
+            torch.equal(st[k][n], got[k][n])
+            for k in ("mu", "nu") for n in st[k])
+        if not same:
+            raise AssertionError(f"resume: optimizer state of {g} differs")
+    fresh.train(train_m, val_m)
+    row = fresh.writer.rows[-1]
+    if fresh.step != pipe.step + want_steps // cfg.num_epochs or not (
+            np.isfinite(row["train_loss"])):
+        raise AssertionError(f"resume: step {fresh.step} after one more "
+                             f"epoch, row {row}")
+    print(f"train phase resume: optimizer state and step {pipe.step} equal "
+          f"after load_models; one more epoch to step {fresh.step}, train "
+          f"loss {row['train_loss']:.6f}, val loss {row['val_loss']:.6f}")
+
+    medians, steps_per_s, busy, wall_ms = _step_times(torch, fresh, train_m)
+    print(f"train step at B = {cfg.batch_size}: median ms retrieve "
+          f"{medians['retrieve']:.3f}, forward+backward "
+          f"{medians['forward_backward']:.3f}, update "
+          f"{medians['update']:.3f} (CUDA-synchronized, 12 steps); "
+          f"{steps_per_s:.2f} steps/s over an epoch of train_step; device "
+          f"busy {busy:.3f} of one profiled step ({wall_ms:.2f} ms)")
+    del pipe, fresh
+    return {"train": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1227,6 +1591,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(hubert_xlarge_phase(torch, dev, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(train_phase(torch, dev, tmp))
     kernels = []
     for name, r in recs.items():
         per_path = {p: n[name] for p, n in by_path.items() if n[name]}

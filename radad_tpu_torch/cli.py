@@ -1,10 +1,14 @@
-"""Command-line entry point of the port: build_db and predict.
+"""Command-line entry point of the port: train, evaluate, predict and
+build_db.
 
-Counterpart: ``radad_tpu/cli.py`` (same flag names). Modes ``train`` and
-``evaluate`` raise "not yet ported". ``--device`` defaults to ``cuda`` and
-the run fails when no GPU is present unless ``--device cpu`` is given.
+Counterpart: ``radad_tpu/cli.py`` (same flag names; the mesh, Whisper, IVF
+and SQ8 flags wait for their slices, and a configuration the port cannot
+run raises "not yet ported"). ``--device`` defaults to ``cuda`` and the run
+fails when no GPU is present unless ``--device cpu`` is given.
 
-Run: ``python -m radad_tpu_torch.cli --mode build_db --data_path <dir>``.
+Run: ``python -m radad_tpu_torch.cli --mode train --data_path <dir>
+[--resume]``, then ``--mode evaluate`` or ``--mode predict --audio_path
+<wav>``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Directory containing meta.csv + audio files")
     p.add_argument("--data_root", type=str, default=None,
                    help="Output root for models and index")
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--eval_batch_size", type=int, default=256)
     p.add_argument("--db_batch_size", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--index_type", type=str, default=None,
                    help="L2, IP or COSINE")
@@ -46,6 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="store the vector DB in bf16")
     p.add_argument("--rebuild_db", action="store_true",
                    help="build_db: discard any saved index and re-embed")
+    p.add_argument("--wandb", action="store_true",
+                   help="Enable Weights & Biases logging")
+    p.add_argument("--no_cache_embeddings", action="store_true",
+                   help="recompute encoder features every epoch")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="bf16 compute (not yet ported: raises)")
+    p.add_argument("--resume", action="store_true",
+                   help="train: resume from the --model_prefix checkpoint "
+                        "(model, optimizer state and step)")
     return p
 
 
@@ -54,16 +70,23 @@ def config_from_args(args):
 
     over = dict(data_fraction=args.data_fraction,
                 feature_extractor_type=args.feature_extractor.lower(),
+                usewandb=bool(args.wandb),
+                batch_size=args.batch_size,
+                eval_batch_size=args.eval_batch_size,
                 db_batch_size=args.db_batch_size,
                 # reference main.py:65-66 forces LayerNorm over BatchNorm
                 use_batch_norm=False, use_layer_norm=True,
-                use_float16=args.use_float16)
+                cache_embeddings=not args.no_cache_embeddings,
+                use_float16=args.use_float16,
+                use_mixed_precision=args.mixed_precision)
     if args.data_path:
         over.update(train_data_path=args.data_path,
                     test_data_path=args.data_path)
     if args.data_root:
         over.update(data_root=args.data_root,
                     vector_db_path=os.path.join(args.data_root, "vector_db"))
+    if args.epochs is not None:
+        over["num_epochs"] = args.epochs
     if args.top_k is not None:
         over["top_k"] = args.top_k
     if args.model_name is not None:
@@ -72,6 +95,10 @@ def config_from_args(args):
         over["vector_db_index_type"] = args.index_type.upper()
     if args.seed is not None:
         over["random_seed"] = args.seed
+    if args.max_duration is not None and args.mode != "predict":
+        # long-audio mode for train/evaluate; in predict mode the flag
+        # stays a per-call argument
+        over["max_duration"] = args.max_duration
     return Config().replace(**over)
 
 
@@ -80,17 +107,46 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
-    if args.mode in ("train", "evaluate"):
-        raise NotImplementedError(f"--mode {args.mode}: not yet ported")
     cfg = config_from_args(args)
 
     from radad_tpu_torch.data.manifest import load_manifests
     from radad_tpu_torch.models.encoder import build_encoder
-    from radad_tpu_torch.train.pipeline import DetectionPipeline
+    from radad_tpu_torch.train.pipeline import (DetectionPipeline,
+                                                check_ported,
+                                                print_dataset_statistics)
 
+    check_ported(cfg)  # before the encoder is built
     encoder = build_encoder(cfg, weights_dir=args.weights_dir,
                             device=args.device)
     pipeline = DetectionPipeline(cfg, encoder=encoder, device=args.device)
+    if args.mode == "train":
+        splits = load_manifests(
+            cfg.train_data_path, data_fraction=cfg.data_fraction,
+            train_split=cfg.train_split, seed=cfg.random_seed)
+        print_dataset_statistics(splits)
+        if args.resume:
+            if pipeline.load_models(args.model_prefix):
+                pipeline.load_vector_database()
+                logging.info("resumed from %s at step %d",
+                             args.model_prefix, pipeline.step)
+            else:
+                logging.warning("--resume: no checkpoint found, training "
+                                "from scratch")
+        pipeline.train(splits["train"], splits["val"])
+        return 0
+    if args.mode == "evaluate":
+        if not pipeline.load_models(args.model_prefix):
+            return 1
+        if not pipeline.load_vector_database():
+            return 1
+        splits = load_manifests(
+            cfg.test_data_path, data_fraction=cfg.data_fraction,
+            train_split=cfg.train_split, seed=cfg.random_seed)
+        results = pipeline.evaluate(splits["val"])
+        print("Evaluation metrics:")
+        for key, value in results.items():
+            print(f"{key}: {value}")
+        return 0
     if args.mode == "build_db":
         splits = load_manifests(
             cfg.train_data_path, data_fraction=cfg.data_fraction,

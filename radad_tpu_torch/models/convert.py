@@ -82,36 +82,76 @@ def wavlm_from_jax(params: Mapping, cfg: WavLMConfig) -> WavLMModel:
     return model
 
 
+def _fusion_leaves(model: RADADModel):
+    """(flax path, the port's parameter name, transpose) for every
+    parameter of the fusion model: Dense kernels ``[in, out]`` become
+    ``weight [out, in]``; LayerNorm and BatchNorm ``scale`` is ``weight``."""
+    proj = ("attention_score", "attention_final", "cst_hidden", "cst_output",
+            "weight_sum", "unified_embedding")
+    dense = [(("projection_layer", n), f"projection_layer.{n}")
+             for n in proj]
+    dense.append((("fuse",), "fuse"))
+    dense += [(("detection_model", f"linear_{i}"),
+               f"detection_model.linears.{i}")
+              for i in range(len(model.detection_model.linears))]
+    norms = [(("projection_layer", "normalization"),
+              "projection_layer.normalization")]
+    norms += [(("detection_model", f"norm_{i}"),
+               f"detection_model.norms.{i}")
+              for i in range(len(model.detection_model.norms))]
+    for path, name in dense:
+        yield path + ("kernel",), f"{name}.weight", True
+        yield path + ("bias",), f"{name}.bias", False
+    for path, name in norms:
+        yield path + ("scale",), f"{name}.weight", False
+        yield path + ("bias",), f"{name}.bias", False
+
+
+def _at(tree: Mapping, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 @torch.no_grad()
 def fusion_from_flax(model: RADADModel, variables: Mapping) -> RADADModel:
     """Load flax ``RADADModel`` variables (``{"params": ...}`` plus
     ``"batch_stats"`` when the detection head uses BatchNorm) into
     ``model`` in place; returns it."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-
-    def dense(mod, p):
-        mod.weight.copy_(_t(p["kernel"]).T)
-        mod.bias.copy_(_t(p["bias"]))
-
-    def norm(mod, p, s=None):
-        mod.weight.copy_(_t(p["scale"]))
-        mod.bias.copy_(_t(p["bias"]))
-        if s is not None:
-            mod.running_mean.copy_(_t(s["mean"]))
-            mod.running_var.copy_(_t(s["var"]))
-
-    proj = params["projection_layer"]
-    pl = model.projection_layer
-    for name in ("attention_score", "attention_final", "cst_hidden",
-                 "cst_output", "weight_sum", "unified_embedding"):
-        dense(getattr(pl, name), proj[name])
-    norm(pl.normalization, proj["normalization"])
-    dense(model.fuse, params["fuse"])
-    det = params["detection_model"]
-    det_stats = stats.get("detection_model", {})
-    for i, lin in enumerate(model.detection_model.linears):
-        dense(lin, det[f"linear_{i}"])
+    params = dict(model.named_parameters())
+    for path, name, transpose in _fusion_leaves(model):
+        v = _t(_at(variables["params"], path))
+        params[name].copy_(v.T if transpose else v)
+    stats = variables.get("batch_stats", {}).get("detection_model", {})
     for i, nrm in enumerate(model.detection_model.norms):
-        norm(nrm, det[f"norm_{i}"], det_stats.get(f"norm_{i}"))
+        if f"norm_{i}" in stats:
+            nrm.running_mean.copy_(_t(stats[f"norm_{i}"]["mean"]))
+            nrm.running_var.copy_(_t(stats[f"norm_{i}"]["var"]))
     return model
+
+
+def adam_state_from_optax(opt_state, model: RADADModel) -> dict:
+    """The numpy pytree of the JAX optimizer's state
+    (``radad_tpu/train/optim.py::make_optimizer``: an optax
+    ``multi_transform`` whose state holds, per group, the chain's
+    ``ScaleByAdamState(count, mu, nu)`` over the whole parameter tree, with
+    the other groups' leaves masked) → ``GroupAdam.state`` for ``model``:
+    ``{group: {"count", "mu": {name: tensor}, "nu": {name: tensor}}}``, so
+    a run trained with JAX continues in the port."""
+    from radad_tpu_torch.train.optim import GROUPS, group_of
+
+    state = {}
+    for group in GROUPS:
+        chain = opt_state.inner_states[group].inner_state
+        adam = next(s for s in chain if hasattr(s, "nu"))
+        # a tensor of its own: GroupAdam.step adds to the count in place
+        entry = {"count": torch.tensor(np.array(adam.count, np.int32)),
+                 "mu": {}, "nu": {}}
+        for path, name, transpose in _fusion_leaves(model):
+            if group_of(name) != group:
+                continue
+            for key in ("mu", "nu"):
+                v = _t(_at(getattr(adam, key), path))
+                entry[key][name] = (v.T if transpose else v).contiguous()
+        state[group] = entry
+    return state

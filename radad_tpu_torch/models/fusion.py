@@ -1,31 +1,78 @@
-"""RADAD fusion model, eval-mode forward: projection over retrieved
-neighbors, query/neighbor fusion, detection MLP head.
+"""RADAD fusion model: projection over retrieved neighbors, query/neighbor
+fusion, detection MLP head.
 
 Counterpart: ``radad_tpu/models/fusion.py`` (flax ``ProjectionLayer``,
 ``DetectionModel``, ``RADADModel``; reference projection.py:8-117,
 detection_model.py:41-126, radad_model.py:9-41). Submodule names match the
 flax parameter names so ``models/convert.py`` maps them one to one.
 
-Only the serving forward is ported: there is no dropout (it is the
-identity in eval mode) and BatchNorm, when configured, uses its running
-statistics. Training comes in a later slice.
+In eval mode (``build_radad_model`` returns the model so) dropout is the
+identity and BatchNorm uses its running statistics. In training mode
+(``model.train()``):
+
+- dropout follows the projection's LayerNorm and each hidden ReLU of the
+  detection head; it keeps a value with probability ``1 - p`` and scales
+  it by ``1 / (1 - p)``, drawing from the ``generator`` given to
+  ``forward``;
+- BatchNorm normalizes with the batch statistics as flax computes them
+  (mean, and the biased variance ``E[x²] − E[x]²`` clamped at 0) and keeps
+  them in ``last_stats``; ``commit_batch_stats`` then moves the running
+  statistics flax's way, ``running = 0.9 · running + 0.1 · batch``, with the
+  biased variance. ``torch.nn.BatchNorm1d``'s own training update takes the
+  unbiased variance, so it is not used. Committing apart from the forward
+  keeps a rematerialized forward (``torch.utils.checkpoint``) from moving
+  the statistics twice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9), fusion.py:126
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability ``1 - p``, kept values
+    scaled by ``1 / (1 - p)``, the rest 0."""
+    if p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def batch_stats(x: torch.Tensor):
+    """flax ``_compute_stats`` over axis 0 (use_fast_variance): mean and
+    ``max(0, E[x²] − E[x]²)``."""
+    mean = x.mean(0)
+    var = torch.clamp_min(x.square().mean(0) - mean.square(), 0.0)
+    return mean, var
+
+
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` forward: running statistics in eval mode, the
+    batch's in training mode (kept in ``bn.last_stats`` for
+    ``commit_batch_stats``); ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``."""
+    if bn.training:
+        mean, var = batch_stats(x)
+        bn.last_stats = (mean.detach(), var.detach())
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 class ProjectionLayer(nn.Module):
     """Attention aggregation of K neighbor vectors → ``[B, output_dim]``."""
 
     def __init__(self, input_dim: int, hidden_dim: int = 256,
-                 output_dim: int = 128):
+                 output_dim: int = 128, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.attention_score = nn.Linear(input_dim, hidden_dim)
         self.attention_final = nn.Linear(hidden_dim, 1)
         self.cst_hidden = nn.Linear(input_dim, hidden_dim)
@@ -34,7 +81,8 @@ class ProjectionLayer(nn.Module):
         self.normalization = nn.LayerNorm(hidden_dim, eps=1e-6)
         self.unified_embedding = nn.Linear(hidden_dim, output_dim)
 
-    def forward(self, neighbors: torch.Tensor) -> torch.Tensor:
+    def forward(self, neighbors: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # neighbors [B, K, D]; scores path (projection.py:68-71)
         scores = self.attention_final(torch.tanh(
             self.attention_score(neighbors)))  # [B, K, 1]
@@ -43,6 +91,8 @@ class ProjectionLayer(nn.Module):
         weights = torch.softmax(scores.float(), dim=1).to(cst.dtype)
         summed = (weights * cst).sum(1)  # [B, D]
         h = self.normalization(self.weight_sum(summed).float())
+        if self.training:
+            h = dropout(h, self.dropout, generator)
         return self.unified_embedding(h)
 
 
@@ -50,8 +100,11 @@ class DetectionModel(nn.Module):
     """MLP classifier head → spoof logits ``[B]``."""
 
     def __init__(self, input_dim: int, hidden_dims: Sequence[int] = (64, 32),
-                 use_batch_norm: bool = False, use_layer_norm: bool = True):
+                 use_batch_norm: bool = False, use_layer_norm: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
+        self.use_batch_norm = use_batch_norm
         dims = [input_dim] + list(hidden_dims) + [1]
         self.linears = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
@@ -64,15 +117,33 @@ class DetectionModel(nn.Module):
             norms = []
         self.norms = nn.ModuleList(norms)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         last = len(self.linears) - 1
         for i, lin in enumerate(self.linears):
             x = lin(x)
             if i < last:
-                if len(self.norms):
+                if self.use_batch_norm:
+                    x = batch_norm(self.norms[i], x.float())
+                elif len(self.norms):
                     x = self.norms[i](x.float())
                 x = torch.relu(x)
+                if self.training:
+                    x = dropout(x, self.dropout, generator)
         return x.squeeze(-1).float()  # logits [B]
+
+    @torch.no_grad()
+    def commit_batch_stats(self) -> None:
+        """Move each BatchNorm's running statistics toward the batch
+        statistics of the last training forward, flax's way (momentum 0.9,
+        biased variance), once."""
+        for bn in self.norms if self.use_batch_norm else ():
+            mean, var = bn.last_stats
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                                  + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                                 + (1 - BN_MOMENTUM) * var)
+            bn.num_batches_tracked += 1
 
 
 class RADADModel(nn.Module):
@@ -81,23 +152,27 @@ class RADADModel(nn.Module):
     def __init__(self, tpp_dim: int, projection_hidden_dim: int = 256,
                  projection_output_dim: int = 128,
                  detection_hidden_dims: Sequence[int] = (64, 32),
-                 use_batch_norm: bool = False, use_layer_norm: bool = True):
+                 use_batch_norm: bool = False, use_layer_norm: bool = True,
+                 projection_dropout: float = 0.1,
+                 detection_dropout: float = 0.1):
         super().__init__()
         self.projection_layer = ProjectionLayer(
-            tpp_dim, projection_hidden_dim, projection_output_dim)
+            tpp_dim, projection_hidden_dim, projection_output_dim,
+            projection_dropout)
         self.fuse = nn.Linear(tpp_dim + projection_output_dim,
                               projection_output_dim)
         self.detection_model = DetectionModel(
             projection_output_dim, detection_hidden_dims, use_batch_norm,
-            use_layer_norm)
+            use_layer_norm, detection_dropout)
 
-    def forward(self, neighbor_vecs: torch.Tensor,
-                tpp_vecs: torch.Tensor) -> torch.Tensor:
+    def forward(self, neighbor_vecs: torch.Tensor, tpp_vecs: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``neighbor_vecs [B, K, D]``, ``tpp_vecs [B, D]`` → logits ``[B]``
-        (radad_model.py:32-41)."""
-        proj = self.projection_layer(neighbor_vecs)
+        (radad_model.py:32-41). ``generator``: dropout's draws in training
+        mode."""
+        proj = self.projection_layer(neighbor_vecs, generator)
         fused = self.fuse(torch.cat([tpp_vecs, proj], dim=-1))
-        return self.detection_model(fused)
+        return self.detection_model(fused, generator)
 
 
 @torch.no_grad()
@@ -128,15 +203,17 @@ def init_radad_model(model: RADADModel, generator: torch.Generator
 def build_radad_model(config, tpp_dim: int,
                       generator: torch.Generator = None) -> RADADModel:
     """Factory wiring the Config into the model (radad_model.py:17-27),
-    in eval mode, initialized from ``generator`` (seeded from
-    ``config.random_seed`` when not given)."""
+    in eval mode with its parameters frozen (serving), initialized from
+    ``generator`` (seeded from ``config.random_seed`` when not given).
+    Training calls ``.train()`` and ``requires_grad_(True)``."""
     if config.use_mixed_precision:
         raise NotImplementedError("mixed-precision fusion model: not yet "
                                   "ported")
     model = RADADModel(
         tpp_dim, config.projection_hidden_dim, config.projection_output_dim,
         tuple(config.detection_hidden_dims), config.use_batch_norm,
-        config.use_layer_norm)
+        config.use_layer_norm, config.projection_dropout,
+        config.detection_dropout)
     if generator is None:
         generator = torch.Generator().manual_seed(config.random_seed)
     init_radad_model(model, generator)

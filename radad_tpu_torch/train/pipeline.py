@@ -1,10 +1,11 @@
-"""DetectionPipeline, serving subset: DB build, predict, predict_batch.
+"""DetectionPipeline: DB build, training, evaluation, predict.
 
 Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
-``grid_cover_samples``, ``retrieve_on_device``, ``DetectionPipeline``'s
-``build_vector_database``, ``load_vector_database``, ``predict``,
-``predict_batch``, ``save_models``, ``load_models``). Training, evaluation
-and meshes come in later slices.
+``grid_cover_samples``, ``retrieve_on_device``, ``make_step_fns``,
+``DetectionPipeline``'s ``build_vector_database``, ``train``,
+``evaluate_with_scores``, ``evaluate``, ``load_vector_database``,
+``predict``, ``predict_batch``, ``save_models``, ``load_models``,
+``print_dataset_statistics``). SQ8, IVF and meshes come in later slices.
 
 A predict call runs embed (segment → encoder → TPP → mean over windows)
 → flat search → neighbor gather (``ops.gather.gather_rows``) → fusion
@@ -15,9 +16,20 @@ so there only ``FlatIndex.search`` reaches its kernel. JAX compiles that into on
 retry of rows whose neighbors were all excluded; here it runs eagerly and
 the retry is a host branch on one bool.
 
+A train step (``make_step_fns``) retrieves inside the step, as JAX does:
+the same search with one exclusion set per batch, under ``no_grad`` (the
+neighbors are constants of the loss; the encoder is frozen), then the
+fusion model's training forward, the masked pos-weighted BCE, backward,
+and the per-group clip + Adam of ``train/optim.py``. The step runs eagerly;
+JAX jits it. The certificate is a host branch on one bool a step, and
+``FlatIndex.fallbacks`` counts the batches that took the full f32 scan.
+The frozen encoder embeds each manifest once (``_embeddings_any``), and
+batches are row gathers from that device-resident matrix.
+
 Checkpoints are the port's own format, ``<data_root>/models/
-<prefix>_radad.pt`` (a state dict, the step and the config JSON): the JAX
-format pickles a jax treedef. ``models/convert.py`` loads JAX weights.
+<prefix>_radad.pt`` (``train/checkpoint.py``: model, optimizer state,
+step, config JSON): the JAX format pickles a jax treedef.
+``models/convert.py`` loads JAX weights and optimizer state.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +46,21 @@ import torch
 from radad_tpu_torch.config import Config
 from radad_tpu_torch.data.audio import load_audio
 from radad_tpu_torch.data.loader import iterate_batches
-from radad_tpu_torch.data.manifest import Manifest, file_id
+from radad_tpu_torch.data.manifest import (Manifest, file_id,
+                                           validate_no_leakage)
 from radad_tpu_torch.index.flat import FlatIndex, _search_device
 from radad_tpu_torch.models.encoder import FrozenEncoder, build_encoder
 from radad_tpu_torch.models.fusion import build_radad_model
 from radad_tpu_torch.ops.gather import gather_rows
 from radad_tpu_torch.ops.segmenter import segment_audio
 from radad_tpu_torch.ops.tpp import temporal_pyramid_pool, tpp_output_dim
+from radad_tpu_torch.train import metrics as M
+from radad_tpu_torch.train.artifacts import ArtifactWriter, WandbShim
+from radad_tpu_torch.train.checkpoint import (checkpoint_path,
+                                              load_checkpoint,
+                                              save_checkpoint)
+from radad_tpu_torch.train.optim import (GroupAdam, group_of,
+                                         pos_weighted_bce)
 from radad_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -108,8 +128,154 @@ def retrieve_on_device(tpp, vectors, labels, ids, exclude_ids, *, k, metric,
     return neighbors, nlabels, dists, idx, fell_back
 
 
+ACC_KEYS = ("loss_sum", "correct", "count", "nnz_sum", "gn_proj_sum",
+            "gn_fuse_sum", "gn_det_sum", "batches")
+
+
+def new_accumulators(device) -> Dict[str, torch.Tensor]:
+    """An epoch's metric sums, 0-d tensors on ``device`` that the steps add
+    to in place; read once an epoch."""
+    return {k: torch.zeros((), device=device) for k in ACC_KEYS}
+
+
+class StepFns(NamedTuple):
+    """The train/eval step math of ``make_step_fns``. ``fetch`` retrieves,
+    ``update`` (= ``forward_backward`` then ``apply``) trains on given
+    neighbors, ``train_step`` is ``fetch`` then ``update``."""
+    fetch: Callable
+    forward_backward: Callable
+    apply: Callable
+    update: Callable
+    train_step: Callable
+    eval_step: Callable
+
+
+def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
+                  grad_checkpoint=False, ablate_retrieval=False,
+                  ablate_query=False) -> StepFns:
+    """Train and eval steps over an injected ``retrieve(tpp, exclude_ids)``
+    → (neighbors, nlabels, ...) (reference ``make_step_fns``,
+    pipeline.py:215-346). The model's parameters and ``opt``'s state are
+    updated in place; ``model`` is put in training mode for the forward
+    and back in eval mode after it. Makes the parameters trainable."""
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+
+    @torch.no_grad()
+    def fetch(tpp, exclude_ids):
+        neighbors, nlabels = retrieve(tpp, exclude_ids)[:2]
+        if ablate_retrieval:
+            # config.ablate_retrieval: neighbors zeroed, same shapes
+            neighbors = torch.zeros_like(neighbors)
+            nlabels = torch.zeros_like(nlabels)
+        return neighbors.nan_to_num(), nlabels  # pipeline.py:801-803
+
+    def model_tpp(tpp):
+        # config.ablate_query: the model sees a zeroed query vector while
+        # retrieval still uses the real one
+        return torch.zeros_like(tpp) if ablate_query else tpp
+
+    def forward_backward(neighbors, tpp, labels, valid, pos_weight,
+                         generator=None):
+        """Training forward over all B rows (pad rows included, as in JAX:
+        they enter BatchNorm's batch statistics, and only the loss masks
+        them), masked BCE, gradients. → (loss, logits, {name: grad})."""
+        tpp_m = model_tpp(tpp)
+        model.train()
+        try:
+            with torch.enable_grad():
+                if grad_checkpoint:
+                    # the rematerialized forward draws the same dropout
+                    # masks: it starts from the same generator state
+                    start = (None if generator is None
+                             else generator.get_state())
+
+                    def fwd(n, t):
+                        if start is not None:
+                            generator.set_state(start)
+                        return model(n, t, generator)
+
+                    logits = torch.utils.checkpoint.checkpoint(
+                        fwd, neighbors, tpp_m, use_reentrant=False)
+                else:
+                    logits = model(neighbors, tpp_m, generator)
+                loss = pos_weighted_bce(logits, labels, pos_weight, valid)
+                grads = torch.autograd.grad(loss, list(params.values()))
+        finally:
+            model.eval()
+        return loss.detach(), logits.detach(), dict(zip(params, grads))
+
+    def apply(acc, neighbors, labels, valid, loss, logits, grads):
+        """Per-group clip + decay + Adam, BatchNorm running statistics,
+        the epoch sums. → per-batch metrics (device tensors)."""
+        gnorms = opt.step(params, grads)  # the pre-clip group norms
+        model.detection_model.commit_batch_stats()
+        vmask = valid.float()
+        nv = vmask.sum()
+        correct = (((logits > 0).float() == labels).float() * vmask).sum()
+        nnz = (neighbors.abs().sum(-1) > 0).float().mean()
+        for key, val in (("loss_sum", loss * nv), ("correct", correct),
+                         ("count", nv), ("nnz_sum", nnz),
+                         ("gn_proj_sum", gnorms["projection_layer"]),
+                         ("gn_fuse_sum", gnorms["fuse"]),
+                         ("gn_det_sum", gnorms["detection_model"]),
+                         ("batches", 1.0)):
+            acc[key] += val
+        batch_metrics = {"loss": loss, "acc": correct / nv.clamp_min(1.0),
+                         "gn_proj": gnorms["projection_layer"],
+                         "gn_fuse": gnorms["fuse"],
+                         "gn_det": gnorms["detection_model"]}
+        if watch_grads:
+            # wandb.watch-equivalent histograms, 64 bins a group
+            for group, sub in (("projection_layer", "proj"),
+                               ("fuse", "fuse"),
+                               ("detection_model", "det")):
+                flat = torch.cat([g.reshape(-1) for n, g in grads.items()
+                                  if group_of(n) == group])
+                lo, hi = float(flat.min()), float(flat.max())
+                if lo == hi:  # jnp.histogram widens an empty range
+                    lo, hi = lo - 0.5, hi + 0.5
+                batch_metrics[f"hist_counts_{sub}"] = torch.histc(
+                    flat, bins=64, min=lo, max=hi)
+                batch_metrics[f"hist_edges_{sub}"] = torch.linspace(
+                    lo, hi, 65)
+        return batch_metrics
+
+    def update(acc, neighbors, tpp, labels, valid, pos_weight,
+               generator=None):
+        loss, logits, grads = forward_backward(neighbors, tpp, labels,
+                                               valid, pos_weight, generator)
+        return apply(acc, neighbors, labels, valid, loss, logits, grads)
+
+    def train_step(acc, tpp, labels, exclude_ids, valid, pos_weight,
+                   generator=None):
+        neighbors, _ = fetch(tpp, exclude_ids)
+        return update(acc, neighbors, tpp, labels, valid, pos_weight,
+                      generator)
+
+    @torch.no_grad()
+    def eval_step(tpp, exclude_ids):
+        neighbors, nlabels = fetch(tpp, exclude_ids)
+        model.eval()
+        return model(neighbors, model_tpp(tpp)), nlabels
+
+    return StepFns(fetch, forward_backward, apply, update, train_step,
+                   eval_step)
+
+
+def check_ported(config: Config) -> None:
+    """Raise NotImplementedError for a configuration the port cannot run
+    yet (SQ8 and IVF indexes, mixed precision)."""
+    metric = config.vector_db_index_type.upper()
+    if metric in ("SQ8", "IVF"):
+        raise NotImplementedError(f"{metric} index: not yet ported")
+    if config.use_mixed_precision:
+        raise NotImplementedError("mixed precision: not yet ported")
+
+
 class DetectionPipeline:
-    """Encoder → TPP → index → fusion model, for serving."""
+    """Encoder → TPP → index → fusion model: DB build, training,
+    evaluation and serving."""
 
     def __init__(self, config: Config, *,
                  encoder: Optional[FrozenEncoder] = None,
@@ -117,9 +283,7 @@ class DetectionPipeline:
         """``use_pallas``: search with the ``flat_topk`` kernel + exact
         re-rank instead of the certified route (``FlatIndex``)."""
         self.device = resolve_device(device)
-        metric = config.vector_db_index_type.upper()
-        if metric in ("SQ8", "IVF"):
-            raise NotImplementedError(f"{metric} index: not yet ported")
+        check_ported(config)
         self.config = config
         self.use_pallas = use_pallas
         self.encoder = (encoder if encoder is not None
@@ -130,6 +294,16 @@ class DetectionPipeline:
         self.index = self._make_index()
         self.step = 0
         self._embed = make_embed_fn(self.encoder, config)
+        self.writer = ArtifactWriter(config.data_root)
+        self.wandb = WandbShim(config.usewandb)
+        # per-group state made by _ensure_model_state or load_models
+        self.opt = GroupAdam(config.learning_rate, config.weight_decay)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.random_seed)  # dropout's draws
+        self._steps_fns: Optional[StepFns] = None
+        # frozen-encoder embeddings, (hash(paths), len) -> [N, D] on the
+        # device (config.cache_embeddings)
+        self._embedding_cache: Dict[Tuple, torch.Tensor] = {}
 
     def _make_index(self) -> FlatIndex:
         cfg = self.config
@@ -163,12 +337,75 @@ class DetectionPipeline:
             return torch.zeros((0, self.tpp_dim), device=self.device)
         return torch.cat(chunks)
 
+    def _embeddings_any(self, manifest: Manifest) -> torch.Tensor:
+        """``get_embeddings``, cached per manifest when
+        ``config.cache_embeddings`` (the encoder is frozen, so these are
+        constants of the run; JAX ``_embeddings_any``, pipeline.py:879).
+        The train split's matrix is both the DB and the training queries."""
+        key = (hash(manifest.paths), len(manifest))
+        cached = self._embedding_cache.get(key)
+        if cached is not None:
+            return cached
+        emb = self.get_embeddings(manifest)
+        if self.config.cache_embeddings:
+            self._embedding_cache[key] = emb
+        return emb
+
+    def _query_batches(self, manifest: Manifest, batch_size: int, *,
+                       shuffle: bool, seed: int = 0):
+        """Yield fixed-size device batches ``(tpp [B, D], labels [B],
+        ids [B] int32, valid [B] bool)`` over the manifest once, in
+        manifest order or shuffled by ``np.random.default_rng(seed)``; the
+        last batch is padded with rows of id -1 and ``valid=False``.
+
+        Cached mode gathers the rows from the device-resident embedding
+        matrix (``index_select``) and zeroes the pad rows; no-cache mode
+        decodes and embeds every batch (the reference's per-epoch encoder
+        forward, pipeline.py:794-796)."""
+        cfg, dev = self.config, self.device
+        if not cfg.cache_embeddings:
+            for batch in iterate_batches(
+                    manifest, batch_size, sample_rate=cfg.sample_rate,
+                    duration=cfg.analysis_duration, shuffle=shuffle,
+                    seed=seed, prefetch=cfg.host_prefetch,
+                    pad_to=self._grid_pad()):
+                lengths = (torch.as_tensor(batch.lengths, device=dev)
+                           if cfg.max_duration else None)
+                tpp = self._embed(torch.as_tensor(batch.audio, device=dev),
+                                  lengths).clone()  # not an inference tensor
+                yield (tpp, torch.as_tensor(batch.labels, device=dev),
+                       torch.as_tensor(batch.ids, device=dev),
+                       torch.as_tensor(batch.valid, device=dev))
+            return
+        emb = self._embeddings_any(manifest)
+        n = len(manifest)
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        for i in range(0, n, batch_size):
+            chunk = order[i:i + batch_size]
+            rows = np.zeros((batch_size,), np.int64)
+            rows[:len(chunk)] = chunk
+            labels = np.zeros((batch_size,), np.float32)
+            labels[:len(chunk)] = manifest.labels[chunk]
+            ids = np.full((batch_size,), -1, np.int32)
+            ids[:len(chunk)] = manifest.ids[chunk]
+            valid = np.zeros((batch_size,), bool)
+            valid[:len(chunk)] = True
+            valid_t = torch.as_tensor(valid, device=dev)
+            tpp = (emb.index_select(0, torch.as_tensor(rows, device=dev))
+                   * valid_t[:, None].to(emb.dtype))
+            yield (tpp, torch.as_tensor(labels, device=dev),
+                   torch.as_tensor(ids, device=dev), valid_t)
+
     def build_vector_database(self, train_manifest: Manifest,
                               save: bool = True) -> None:
         """Embed the training set and install it as the reference DB
-        (reference pipeline.py:416-447)."""
+        (reference pipeline.py:416-447). The DB is saved synchronously:
+        JAX saves it in a background thread, which only hides its slow
+        device-to-host pull."""
         t0 = time.time()
-        vectors = self.get_embeddings(train_manifest)
+        vectors = self._embeddings_any(train_manifest)
         speakers = [{"speaker_id": s} for s in train_manifest.speakers]
         self.index.add(vectors, train_manifest.labels.tolist(),
                        list(train_manifest.paths), metadata=speakers,
@@ -340,25 +577,287 @@ class DetectionPipeline:
         return out
 
     # ------------------------------------------------------------------
-    def _ckpt_path(self, prefix: str) -> str:
-        return os.path.join(self.config.data_root, "models",
-                            f"{prefix}_radad.pt")
+    def _ensure_model_state(self) -> None:
+        """Fresh optimizer state when none was made or loaded."""
+        if self.opt.state is None:
+            self.opt.init(dict(self.model.named_parameters()))
 
+    def _build_steps(self, ablate_query: Optional[bool] = None) -> None:
+        """Train/eval steps over the pipeline's retrieval with one
+        exclusion set per batch. ``ablate_query`` overrides
+        ``config.ablate_query`` (the freeze_query_epochs curriculum
+        rebuilds the steps at the stage boundary)."""
+        cfg = self.config
+        self._steps_fns = make_step_fns(
+            self.model, self.opt,
+            lambda tpp, exclude: self._retrieve(tpp, exclude, "batch"),
+            # gradient histograms only when wandb is live
+            watch_grads=self.wandb.active,
+            grad_checkpoint=cfg.use_gradient_checkpointing,
+            ablate_retrieval=cfg.ablate_retrieval,
+            ablate_query=(cfg.ablate_query if ablate_query is None
+                          else ablate_query))
+
+    def _steps(self) -> StepFns:
+        if self._steps_fns is None:
+            self._ensure_model_state()
+            self._build_steps()
+        return self._steps_fns
+
+    def train(self, train_manifest: Manifest,
+              val_manifest: Optional[Manifest] = None) -> Dict:
+        """``config.num_epochs`` epochs of shuffled train steps, each
+        followed by validation when ``val_manifest`` is given: metrics.csv,
+        ROC/DET points, summary.json, ``best_model`` on each new best EER,
+        early stopping, ``final_model`` at the end (reference
+        pipeline.py:760-947). Returns the last metrics row."""
+        cfg = self.config
+        if val_manifest is not None and cfg.prevent_data_leakage:
+            validate_no_leakage(train_manifest, val_manifest)
+        if self.index.ntotal == 0:
+            self.build_vector_database(train_manifest)
+        self._ensure_model_state()
+        if cfg.freeze_query_epochs > 0:
+            # curriculum stage 1: neighbors only (query path zeroed)
+            self._build_steps(ablate_query=True)
+        steps = self._steps()
+
+        pos_weight = train_manifest.pos_weight()
+        logger.info("Using pos_weight=%.3f for BCE", pos_weight)
+        self.wandb.log({"config/pos_weight": pos_weight})
+        # early stopping after `patience` validated epochs without a new
+        # best EER (config.early_stopping_patience)
+        epochs_since_best = 0
+
+        for epoch in range(cfg.num_epochs):
+            if (cfg.freeze_query_epochs > 0
+                    and epoch == cfg.freeze_query_epochs):
+                logger.info("Curriculum: unfreezing the query path at "
+                            "epoch %d (joint training)", epoch + 1)
+                self._build_steps()
+                steps = self._steps_fns
+                epochs_since_best = 0
+                # stage-1 bests were measured with the query zeroed and
+                # are not comparable to joint EERs
+                self.writer.best_by_eer = {"epoch": None,
+                                           "eer_percent": float("inf")}
+                self.writer.best_by_val_loss = {"epoch": None,
+                                                "val_loss": float("inf")}
+            t_epoch = time.time()
+            acc = new_accumulators(self.device)
+            for tpp, labels, ids, valid in self._query_batches(
+                    train_manifest, cfg.batch_size, shuffle=True,
+                    seed=cfg.random_seed + epoch):
+                bm = steps.train_step(acc, tpp, labels, ids, valid,
+                                      pos_weight, self.generator)
+                self.step += 1
+                if self.wandb.active:
+                    self._log_batch(bm, epoch)
+            # one device-to-host read of the epoch's sums
+            accs = dict(zip(ACC_KEYS, torch.stack(
+                [acc[k] for k in ACC_KEYS]).tolist()))
+            count = max(accs["count"], 1.0)
+            batches = max(accs["batches"], 1.0)
+            train_loss = accs["loss_sum"] / count
+            train_acc = accs["correct"] / count
+
+            # metrics.csv row with the reference's column set
+            # (pipeline.py:916-941)
+            row = {
+                "epoch": epoch + 1,
+                "train_loss": train_loss, "train_acc": train_acc,
+                "val_loss": None, "val_acc": None, "auc": None,
+                "eer_percent": None, "pooled_eer_percent": None,
+                "macro_eer_percent": None,
+                "eer_threshold": None, "min_tDCF": None,
+                "min_tDCF_threshold": None,
+                "avg_nnz_neighbor_rate": accs["nnz_sum"] / batches,
+                "avg_grad_norm_projection": accs["gn_proj_sum"] / batches,
+                "avg_grad_norm_fuse": accs["gn_fuse_sum"] / batches,
+                "avg_grad_norm_detection": accs["gn_det_sum"] / batches,
+                "lr_projection": cfg.learning_rate,
+                "lr_fuse": cfg.learning_rate,
+                "lr_detection": cfg.learning_rate,
+                "pos_weight": pos_weight,
+                "epoch_time_sec": None,
+                "top_k": cfg.top_k, "batch_size": cfg.batch_size,
+            }
+
+            if val_manifest is not None:
+                val_loss, val_acc, scores, labels, speakers = \
+                    self.evaluate_with_scores(val_manifest)
+                eer, eer_thr = M.compute_eer(scores, labels)
+                macro = M.compute_macro_eer(scores, labels, speakers)
+                tdcf, tdcf_thr = M.compute_min_tdcf(
+                    scores, labels, cfg.asv_params_dict())
+                auc_val = self.writer.save_roc_det(scores, labels,
+                                                   epoch=epoch + 1)
+                is_best = self.writer.track_best(epoch + 1, val_loss, eer)
+                if is_best:
+                    self.save_models("best_model")
+                row.update(val_loss=val_loss, val_acc=val_acc, auc=auc_val,
+                           eer_percent=eer, pooled_eer_percent=eer,
+                           macro_eer_percent=macro,
+                           eer_threshold=eer_thr,
+                           min_tDCF=tdcf if np.isfinite(tdcf) else None,
+                           min_tDCF_threshold=(tdcf_thr if np.isfinite(tdcf)
+                                               else None))
+                print(f"Epoch {epoch + 1}: Train Loss: {train_loss:.4f}, "
+                      f"Train Acc: {train_acc:.4f}, Val Loss: {val_loss:.4f}, "
+                      f"Val Acc: {val_acc:.4f} | AUC: {auc_val:.4f}, "
+                      f"EER: {eer:.2f}% (thr={eer_thr:.4f}), "
+                      f"Macro EER: {macro:.2f}%")
+            else:
+                print(f"Epoch {epoch + 1}: Train {train_loss:.4f}"
+                      f"/{train_acc:.4f}")
+
+            row["epoch_time_sec"] = time.time() - t_epoch
+            self.writer.add_row(row)
+            self.writer.plot_training_curves()
+            self.wandb.log({f"epoch/{k}": v for k, v in row.items()
+                            if v is not None})
+            if val_manifest is not None and cfg.early_stopping_patience > 0:
+                epochs_since_best = 0 if is_best else epochs_since_best + 1
+                if epoch + 1 <= cfg.freeze_query_epochs:
+                    # never early-stop inside curriculum stage 1
+                    epochs_since_best = 0
+                if epochs_since_best >= cfg.early_stopping_patience:
+                    logger.info(
+                        "Early stopping at epoch %d: no EER improvement "
+                        "for %d epochs", epoch + 1,
+                        cfg.early_stopping_patience)
+                    break
+
+        self.save_models("final_model")
+        self.writer.save_summary()
+        # wandb artifacts (reference pipeline.py:884-896)
+        root = cfg.data_root
+        self.wandb.log_artifact(checkpoint_path(root, "final_model"),
+                                "final_model", "model")
+        self.wandb.log_artifact(os.path.join(root, "training_curves.png"),
+                                "training_curves", "plot")
+        self.wandb.log_artifact(os.path.join(root, "metrics.csv"),
+                                "metrics", "metrics")
+        self.wandb.finish()
+        return self.writer.rows[-1] if self.writer.rows else {}
+
+    def _log_batch(self, bm: Dict[str, torch.Tensor], epoch: int) -> None:
+        """Per-batch wandb row (reference pipeline.py:845-855); the only
+        per-step host reads, made only while wandb is active."""
+        log = {"batch/train_loss": float(bm["loss"]),
+               "batch/train_acc": float(bm["acc"]),
+               "batch/grad_norm_projection": float(bm["gn_proj"]),
+               "batch/grad_norm_fuse": float(bm["gn_fuse"]),
+               "batch/grad_norm_detection": float(bm["gn_det"]),
+               "batch/step": self.step, "batch/epoch": epoch + 1}
+        if self.step % 100 == 0:  # wandb.watch log_freq
+            for sub in ("proj", "fuse", "det"):
+                h = self.wandb.histogram(
+                    bm[f"hist_counts_{sub}"].cpu().numpy(),
+                    bm[f"hist_edges_{sub}"].cpu().numpy())
+                if h is not None:
+                    log[f"gradients/{sub}"] = h
+        self.wandb.log(log)
+
+    def evaluate_with_scores(self, manifest: Manifest
+                             ) -> Tuple[float, float, np.ndarray, np.ndarray,
+                                        List[str]]:
+        """→ (val_loss, val_acc, spoof-logit scores, labels, speakers)
+        over the valid rows (reference pipeline.py:691-756)."""
+        cfg = self.config
+        steps = self._steps()
+        pos_weight = manifest.pos_weight()
+        logit_chunks, label_chunks, valid_chunks = [], [], []
+        for tpp, blabels, bids, bvalid in self._query_batches(
+                manifest, cfg.eval_batch_size, shuffle=False):
+            logits, _ = steps.eval_step(tpp, bids)
+            logit_chunks.append(logits)
+            label_chunks.append(blabels)
+            valid_chunks.append(bvalid)
+        valid = torch.cat(valid_chunks).cpu().numpy()
+        logits = torch.cat(logit_chunks).cpu().numpy()[valid]
+        labels = torch.cat(label_chunks).cpu().numpy()[valid]
+        val_loss = float(pos_weighted_bce(torch.as_tensor(logits),
+                                          torch.as_tensor(labels),
+                                          pos_weight))
+        val_acc = float(np.mean((logits > 0) == (labels > 0.5)))
+        return (val_loss, val_acc, logits.astype(np.float64),
+                labels.astype(np.int32), list(manifest.speakers))
+
+    def evaluate(self, manifest: Manifest) -> Dict:
+        """Full evaluation with metrics and artifacts (reference
+        pipeline.py:964-1036)."""
+        val_loss, val_acc, scores, labels, speakers = \
+            self.evaluate_with_scores(manifest)
+        eer, eer_thr = M.compute_eer(scores, labels)
+        macro = M.compute_macro_eer(scores, labels, speakers)
+        tdcf, tdcf_thr = M.compute_min_tdcf(scores, labels,
+                                            self.config.asv_params_dict())
+        auc_val = self.writer.save_roc_det(scores, labels, tag="eval")
+        results = {
+            "loss": val_loss, "accuracy": val_acc, "auc": auc_val,
+            "eer_percent": eer, "eer_threshold": eer_thr,
+            "macro_eer_percent": macro,
+            "min_tDCF": tdcf, "min_tDCF_threshold": tdcf_thr,
+            "num_samples": int(len(labels)),
+        }
+        # the reference's eval-row column set (pipeline.py:1008-1034):
+        # train-only columns present but None, the eval batch size
+        self.writer.add_row({
+            "epoch": "eval", "train_loss": None, "train_acc": None,
+            "val_loss": val_loss, "val_acc": val_acc,
+            "auc": auc_val if np.isfinite(auc_val) else None,
+            "eer_percent": eer if np.isfinite(eer) else None,
+            "pooled_eer_percent": eer if np.isfinite(eer) else None,
+            "macro_eer_percent": macro if np.isfinite(macro) else None,
+            "eer_threshold": eer_thr if np.isfinite(eer) else None,
+            "min_tDCF": tdcf if np.isfinite(tdcf) else None,
+            "min_tDCF_threshold": tdcf_thr if np.isfinite(tdcf) else None,
+            "avg_nnz_neighbor_rate": None,
+            "avg_grad_norm_projection": None, "avg_grad_norm_fuse": None,
+            "avg_grad_norm_detection": None, "lr_projection": None,
+            "lr_fuse": None, "lr_detection": None, "pos_weight": None,
+            "epoch_time_sec": None, "top_k": int(self.config.top_k),
+            "batch_size": int(self.config.eval_batch_size),
+        })
+        self.wandb.log({
+            "eval/loss": val_loss, "eval/acc": val_acc,
+            "eval/auc": auc_val, "eval/eer_percent": eer,
+            "eval/macro_eer_percent": macro, "eval/eer_threshold": eer_thr,
+            "eval/min_tDCF": tdcf if np.isfinite(tdcf) else None,
+            "eval/min_tDCF_threshold":
+                tdcf_thr if np.isfinite(tdcf) else None,
+        })
+        logger.info("Evaluation: %s", results)
+        return results
+
+    # ------------------------------------------------------------------
     def save_models(self, prefix: str) -> str:
-        path = self._ckpt_path(prefix)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        state = {k: v.cpu() for k, v in self.model.state_dict().items()}
-        torch.save({"model": state, "step": self.step,
-                    "config_json": self.config.to_json()}, path)
-        return path
+        """Model, optimizer state, step and config to
+        ``<data_root>/models/<prefix>_radad.pt``. Returns the path."""
+        self._ensure_model_state()
+        return save_checkpoint(self.config.data_root, prefix, {
+            "model": self.model.state_dict(),
+            "optimizer": self.opt.state_dict(),
+            "step": self.step,
+            "config_json": self.config.to_json()})
 
     def load_models(self, prefix: str) -> bool:
-        path = self._ckpt_path(prefix)
-        if not os.path.exists(path):
+        """Load a checkpoint of :meth:`save_models`. One without optimizer
+        state (written before the port saved it) loads for serving, and the
+        optimizer starts fresh."""
+        state = load_checkpoint(self.config.data_root, prefix)
+        path = checkpoint_path(self.config.data_root, prefix)
+        if state is None:
             logger.warning("checkpoint %s not found", path)
             return False
-        state = torch.load(path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(state["model"])
+        if state["optimizer"] is None:
+            logger.warning("checkpoint %s holds no optimizer state; the "
+                           "optimizer starts fresh", path)
+            self.opt.state = None
+        else:
+            self.opt.load_state_dict(state["optimizer"], device=self.device)
         self.step = int(state["step"])
         return True
 
@@ -379,3 +878,15 @@ class DetectionPipeline:
         self.index = FlatIndex.load(path, use_pallas=self.index.use_pallas,
                                     device=self.device)
         return True
+
+
+def print_dataset_statistics(manifests: Dict[str, Manifest]) -> None:
+    """Split-stats printer (reference pipeline.py:1136-1158)."""
+    for name, m in manifests.items():
+        counts = m.class_counts()
+        total = len(m)
+        bona_pct = 100.0 * counts["bonafide"] / max(total, 1)
+        print(f"{name.upper()} set — total {total}, spoof(1) "
+              f"{counts['spoof']}, bona-fide(0) {counts['bonafide']} "
+              f"({bona_pct:.2f}% bona-fide), speakers "
+              f"{len(set(m.speakers))}")

@@ -227,3 +227,79 @@ def test_flat_topk_bf16_body_shapes_on_card(cuda, n, d, b, dtype):
         assert held["ok"], (n, d, b, metric, held)
         agree = compare_topk(q, x, got, want, metric=metric, order=MMA)
         assert agree["ok"], (n, d, b, metric, agree)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step at tiny width (D = 256, 2,048 rows, B = 16 with 3 pad
+    rows, BatchNorm head, dropout 0) on the card against the same step on
+    the CPU: the certified retrieval finds the same neighbors and launches
+    its three kernels; loss within 1e-5 relative, per-group gradient norms
+    within 1e-4 relative, BatchNorm running statistics within 1e-5;
+    parameters within 1e-6 + 1e-5 |p| except at most 0.5 % of coordinates
+    (Adam's input within rounding of 0), each within 2 lr."""
+    import copy
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.index.flat import FlatIndex
+    from radad_tpu_torch.models.fusion import build_radad_model
+    from radad_tpu_torch.train.optim import GroupAdam
+    from radad_tpu_torch.train.pipeline import (make_step_fns,
+                                                new_accumulators,
+                                                retrieve_on_device)
+
+    g = torch.Generator().manual_seed(7)
+    n, d, b = 2048, 256, 16
+    rows = torch.randn((n, d), generator=g)
+    cfg = Config().replace(projection_dropout=0.0, detection_dropout=0.0)
+    base = build_radad_model(cfg, d)
+    take = torch.randperm(n, generator=g)[: b - 3]
+    tpp = torch.zeros((b, d))
+    tpp[: b - 3] = rows[take] + 0.1 * torch.randn((b - 3, d), generator=g)
+    ids = torch.full((b,), -1, dtype=I32)
+    ids[: b - 3] = take.to(I32)
+    labels = (torch.arange(b) % 2).float()
+    valid = torch.arange(b) < b - 3
+    before = (gather_rows.launches, exact_dot.launches,
+              extract_candidates.launches)
+    out = {}
+    for dev in ("cpu", cuda):
+        index = FlatIndex(d, "L2", device=dev)
+        index.add(rows, labels=[0.0] * n, paths=[f"{i}.wav" for i in range(n)],
+                  ids=list(range(n)))
+        model = copy.deepcopy(base).to(dev)
+        opt = GroupAdam(1e-3, 1e-5)
+        opt.init(dict(model.named_parameters()))
+
+        def retrieve(q, ex, index=index):
+            return retrieve_on_device(
+                q, index.vectors, index.labels, index.ids, ex, k=5,
+                metric="L2", n_valid=index.ntotal, xsq=index.norms_sq,
+                scan_bf16=index.scan_bf16, resid_bf16=index.resid_bf16)
+
+        steps = make_step_fns(model, opt, retrieve)
+        neighbors, _ = steps.fetch(tpp.to(dev), ids.to(dev))
+        bm = steps.update(new_accumulators(dev), neighbors, tpp.to(dev),
+                          labels.to(dev), valid.to(dev), 1.3)
+        out[str(dev)] = (neighbors.cpu(), {k: float(v) for k, v in bm.items()},
+                         {k: v.cpu() for k, v in model.state_dict().items()})
+    torch.cuda.synchronize()
+    after = (gather_rows.launches, exact_dot.launches,
+             extract_candidates.launches)
+    assert all(a > bb for a, bb in zip(after, before)), (before, after)
+    (n_cpu, bm_cpu, sd_cpu), (n_gpu, bm_gpu, sd_gpu) = out.values()
+    assert torch.equal(n_cpu, n_gpu)
+    assert abs(bm_gpu["loss"] - bm_cpu["loss"]) <= 1e-5 * abs(bm_cpu["loss"])
+    for key in ("gn_proj", "gn_fuse", "gn_det"):
+        assert abs(bm_gpu[key] - bm_cpu[key]) <= 1e-4 * bm_cpu[key], key
+    off, total = 0, 0
+    for key, want in sd_cpu.items():
+        got = sd_gpu[key]
+        if "running" in key:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        elif want.is_floating_point():
+            diff = (got - want).abs()
+            bad = diff > 1e-6 + 1e-5 * want.abs()
+            assert bool((diff <= 2e-3 + 1e-6).all()), key
+            off += int(bad.sum())
+            total += diff.numel()
+    assert off <= 0.005 * total, (off, total)

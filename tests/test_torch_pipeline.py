@@ -166,7 +166,8 @@ def test_no_jax_import():
 
 def test_entry_points_need_a_gpu_unless_cpu(tmp_path):
     """Without a GPU the pipeline, index, encoder, CLI and server raise
-    unless device='cpu' is passed."""
+    unless device='cpu' is passed. Training on an SQ8 index is not ported
+    yet and raises before the encoder is built."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from radad_tpu_torch import cli
@@ -186,8 +187,9 @@ def test_entry_points_need_a_gpu_unless_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert FlatIndex(16, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        cli.main(["--mode", "train", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="SQ8"):
+        cli.main(["--mode", "train", "--device", "cpu", "--index_type",
+                  "SQ8"])
 
 
 def test_server_predict(pair, synthetic_dataset):
