@@ -18,7 +18,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    exact scores of its bf16 operands within the bound of its tensor-core
    summation order, with a control that an unrounded scan fails;
    ``fused_mha``'s two 3xTF32 bodies at T = 99, 600 and 1,500, and at head
-   width 80; the HMMA
+   width 80, and its two bf16 bodies at the same shapes against their
+   plain version within ``BF16_TOL`` * (1 + |plain|), timed beside SDPA on
+   the same bf16 inputs; the HMMA
    instructions of both kernels counted with ``cuobjdump``) and takes the
    device time
    (``torch.profiler``) of kernel, plain version, and one PyTorch library
@@ -60,7 +62,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    load into a fresh pipeline with equal optimizer state and step and
    train one more epoch; the step's median retrieve / forward+backward /
    update ms, steps/s and the device busy share of a profiled step are
-   printed.
+   printed;
+8. mixed precision (``use_mixed_precision=True``: bf16 encoders and fusion
+   model, f32 parameters and clip embeddings): the wav2vec2 serving phase
+   again in bf16 on its own index (neighbors against the f64 scan of its
+   own embeddings; one ``predict_batch(8)`` with ``RADAD_FUSED_ATTENTION=1``
+   must launch ``fused_mha``'s bias-free bf16 body), printing the stage
+   times beside the f32 phase's, each clip embedding's deviation from the
+   f32 pipeline's and recall@5 of the bf16 neighbors against the f32 ones;
+   the WavLM phase in bf16 (``fused_mha``'s bf16 bias body, ``flat_topk``,
+   ``gather_rows``); the trainer in bf16 (path "train_bf16": the card's
+   first update against the CPU's bf16 update, 1 epoch + ``evaluate``,
+   save -> load, step timings).
 
 Each phase sets the launch counts to 0 just before its counted run and
 reads them just after. The last line is ``{"ok": true, "device": {...}}``;
@@ -378,6 +391,7 @@ def kernel_phase(torch, dev):
         **by_b[256], by_shape=_shape_table(by_b, "B"),
         shape=f"cand [256,{t},128] f32, m={mm} (by_shape: B = 1 .. 256)")
     recs["fused_mha"] = _fused_mha_record(torch, dev, g)
+    recs["fused_mha_bf16"] = _fused_mha_bf16_record(torch, dev, g)
     recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
     for name in ("gather_rows", "exact_dot", "extract_candidates"):
         recs[name]["bound_rate"] = "f32 67 TFLOP/s"
@@ -543,6 +557,132 @@ def _fused_mha_hd80(torch, inputs, worst, counts) -> dict:
               f"{rec['hmma']}")
         out[body] = rec
     return out
+
+
+def _bf16_steps(err, want) -> float:
+    """The largest error in bf16 steps of the output: |err| over the bf16
+    spacing at |plain| (2^(floor(log2 |plain|) - 7)), over entries with
+    |plain| >= 2^-4 (below, a step is smaller than the f32 sums' own
+    spread)."""
+    keep = want.abs() >= 2.0 ** -4
+    step = 2.0 ** (want.abs()[keep].log2().floor() - 7)
+    return float((err[keep] / step).max()) if bool(keep.any()) else 0.0
+
+
+def _fused_mha_bf16_record(torch, dev, g) -> dict:
+    """fused_mha's bf16 bodies (the mixed-precision encoders' attention)
+    against their plain version, ``fused_mha_plain`` (f32 logits from the
+    bf16 operands, normalized weights rounded to bf16, P V in f32, bf16
+    out): at the WavLM serving shape [128, 99, 768] (12 heads), at T = 600
+    and 1,500, and at head width 80 ([16, 99, 1280], 16 heads). Tolerance
+    BF16_TOL * (1 + |plain|) in f32 (a bf16 rounding of the output, ~2
+    steps at |plain| ~ 1; the CPU emulation of the kernel's rounding stays
+    within 2.5e-3 and its faults miss it). Both bodies' HD = 64 and 80
+    instances must hold bf16 HMMA instructions. Timed beside SDPA on the
+    same bf16 inputs (flash without the bias; the bias materialized in
+    bf16, untimed). Bound: q, k, v, out (and gate, pos_bias) in bf16 once
+    at 3.35 TB/s against one Q K^T and one P V at the bf16 rate."""
+    import torch.nn.functional as F
+
+    from radad_tpu_torch.ops.attention import (BF16_TOL, fused_mha,
+                                               fused_mha_plain)
+
+    bf = torch.bfloat16
+
+    def inputs(b, t, d, h):
+        q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
+                   for _ in range(3))
+        q *= (d // h) ** -0.5
+        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=dev)
+        pos = torch.randn((h, t, t), generator=g, device=dev)
+        return ([x.to(bf) for x in (q, k, v)],
+                dict(gate=gate.to(bf), pos_bias=pos.to(bf)))
+
+    def worst(qkv, h, extra):
+        got = fused_mha(*qkv, h, **extra)
+        want = fused_mha_plain(*qkv, h, **extra)
+        torch.cuda.synchronize()
+        if got.dtype != bf:
+            raise AssertionError(f"fused_mha bf16 returned {got.dtype}")
+        err = (got.float() - want.float()).abs()
+        rel = float((err / (1 + want.float().abs())).max())
+        if rel > BF16_TOL:
+            raise AssertionError(
+                f"fused_mha bf16 {'bias' if extra else 'no bias'} "
+                f"T={qkv[0].shape[1]} HD={qkv[0].shape[2] // h} outside "
+                f"{BF16_TOL} * (1 + |plain|): max err {float(err.max())}")
+        return float(err.max()), rel, _bf16_steps(err, want.float())
+
+    counts = _hmma_counts("fused_mha", form="BF16")
+    hmma = {f"{body} HD {hd}": sum(
+        c for f, c in counts.items() if f"mha_bf16_kernelILi{hd}ELb{flag}E" in f)
+        for hd in (64, 80) for body, flag in (("bias", 1), ("no_bias", 0))}
+    if counts:
+        print(f"fused_mha bf16 SASS (cuobjdump): bf16 HMMA instructions "
+              f"{hmma}")
+        if min(hmma.values()) <= 0:
+            raise AssertionError(f"a bf16 fused_mha body has no bf16 HMMA "
+                                 f"instruction: {hmma}")
+    else:
+        print("fused_mha bf16 SASS: cuobjdump not found, HMMA not counted")
+    errs = {}
+    for b, t, d, h in ((4, 600, 768, 12), (2, 1500, 768, 12),
+                       (16, 99, 1280, 16), (128, 99, 768, 12)):
+        qkv, bias = inputs(b, t, d, h)
+        for extra in ({}, bias):
+            errs[(t, d // h, bool(extra))] = worst(qkv, h, extra)
+    print("fused_mha bf16 max |err| (max |err| / (1 + |plain|), largest "
+          "error in bf16 steps of |plain| >= 1/16): " + ", ".join(
+              f"T={tt} HD {hd} {'bias' if bb else 'no bias'} {e:.3e} "
+              f"({r:.3e}, {s:.2f} steps)"
+              for (tt, hd, bb), (e, r, s) in errs.items())
+          + f" (tolerance {BF16_TOL} * (1 + |plain|))")
+
+    recs = {}
+    for (b, t, d, h), tag in (((128, 99, 768, 12), ""),
+                              ((16, 99, 1280, 16), "hd80_")):
+        hd = d // h
+        qkv, bias = inputs(b, t, d, h)
+        qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in qkv)
+        mask = (bias["gate"].float().transpose(1, 2)[..., None]
+                * bias["pos_bias"].float()[None]).to(bf)
+        for body, extra in (("no_bias", {}), ("bias", bias)):
+            rec = timings(
+                torch, lambda extra=extra: fused_mha(*qkv, h, **extra),
+                lambda extra=extra: fused_mha_plain(*qkv, h, **extra),
+                lambda extra=extra: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask if extra else None,
+                    scale=1.0))
+            extra_bytes = (b * t * h + h * t * t) * 2 if extra else 0
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                4 * b * t * d * 2 + extra_bytes, 4.0 * b * h * t * t * hd,
+                rate=BF16_FLOPS)
+            e, r, st = errs[(t, hd, bool(extra))]
+            rec.update(max_abs_err=e, max_rel_err=r, max_bf16_steps=st,
+                       hmma=hmma.get(f"{body} HD {hd}") if counts else None)
+            recs[tag + body] = rec
+            print(f"fused_mha bf16 {body} [{b},{t},{d}] {h} heads: device "
+                  f"{rec['ms']:.4f} ms, SDPA bf16 {rec['library_ms']:.4f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+                  f"{rec['plain_ms']:.4f} ms")
+    rec = dict(recs["bias"])  # the headline body's timings
+    rec.update(
+        route="cuda", source="radad_tpu_torch/csrc/fused_mha.cu",
+        replaces="radad_tpu/ops/attention.py:134",
+        max_abs_err=max(e for e, _, _ in errs.values()),
+        max_rel_err=max(r for _, r, _ in errs.values()),
+        max_bf16_steps=max(s for _, _, s in errs.values()),
+        tolerance=f"{BF16_TOL} * (1 + |plain|) in f32 (normalized weights "
+                  f"rounded to bf16 as the Pallas body; bf16 output)",
+        shape="q,k,v [128,99,768] bf16, 12 heads, gate [128,99,12], pos_bias "
+              "[12,99,99] bf16 (bias body; no_bias: without; hd80: "
+              "[16,99,1280], 16 heads; T = 600 and 1,500 checked too)",
+        bound_rate="bf16 989 TFLOP/s (one Q K^T and one P V)",
+        library_call="F.scaled_dot_product_attention on the bf16 inputs, "
+                     "bias materialized in bf16")
+    rec["no_bias"] = recs["no_bias"]
+    rec["hd80"] = {k[5:]: v for k, v in recs.items() if k.startswith("hd80_")}
+    return rec
 
 
 def _hmma_counts(name: str, form: str = "") -> dict:
@@ -956,6 +1096,19 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
     return pipe, db_paths
 
 
+def _launch_counts(kernels) -> dict:
+    """{kernel name: launches} of ``kernels``; fused_mha's count splits by
+    dtype: "fused_mha" (its f32 bodies), "fused_mha_bf16" (its bf16
+    bodies)."""
+    from radad_tpu_torch.ops.attention import fused_mha
+
+    out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
+    body = fused_mha.body_launches
+    out["fused_mha"] = body["bias"] + body["no_bias"]
+    out["fused_mha_bf16"] = body["bias_bf16"] + body["no_bias_bf16"]
+    return out
+
+
 def _reset(kernels) -> None:
     from radad_tpu_torch.ops.attention import fused_mha, reset_launches
 
@@ -991,7 +1144,7 @@ def _counted_run(torch, pipe, q_paths, batch64, kernels):
             lat[name].append((time.perf_counter() - t) * 1e3)
         stages[name] = outs[name][0]["stage_ms"]
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in kernels}
+    launches = _launch_counts(kernels)
     return lat, stages, outs, launches, dict(fused_mha.body_launches)
 
 
@@ -1094,7 +1247,7 @@ def serving_phase(torch, dev, tmp: str):
         torch.cuda.synchronize()
     finally:
         os.environ.pop("RADAD_FUSED_ATTENTION", None)
-    fused_launches = {w.__name__: w.launches for w in kernels}
+    fused_launches = _launch_counts(kernels)
     body = dict(fused_mha.body_launches)
     if body["no_bias"] <= 0 or body["bias"]:
         raise AssertionError(f"fused attention: bias-free body not launched "
@@ -1106,44 +1259,212 @@ def serving_phase(torch, dev, tmp: str):
           f"neighbors tied within the embedding change (max relative "
           f"{drel:.3e}, limit 1e-4); max |dlogit| {dlogit:.3e} (limit "
           f"1e-4); launches {fused_launches}, fused_mha per body {body}")
+    # the f32 reference of the mixed-precision phase: the same clips'
+    # embeddings, neighbor files and stage times
+    sets = _serving_sets(q_paths, batch64)
+    ref = dict(q_paths=q_paths,
+               emb={n: _embed_paths(torch, pipe, p).cpu()
+                    for n, p in sets.items()},
+               files={n: [o["retrieved_files"] for o in outs[n]]
+                      for n in sets},
+               stages={n: stage_ms(torch, pipe, p) for n, p in sets.items()})
     return pipe, {"wav2vec2": launches,
-                  "wav2vec2_fused_attention": fused_launches}, q_paths
+                  "wav2vec2_fused_attention": fused_launches}, q_paths, ref
 
 
-def wavlm_phase(torch, dev, tmp: str):
-    """The WavLM serving path at full width: use_pallas=True (flat_topk +
-    exact re-rank) and RADAD_FUSED_ATTENTION=1 (fused_mha's bias body).
+def _serving_sets(q_paths, batch64) -> dict:
+    """The clips of each counted call kind of ``_counted_run``."""
+    return {"predict_1": q_paths[1:2], "predict_batch_8": q_paths[8:16],
+            "predict_batch_64": batch64}
+
+
+def stage_ms(torch, pipe, paths, reps=5):
+    """Median milliseconds per stage of one predict_batch's work on
+    ``paths``, each stage ended by a device synchronize: decode, embed
+    (segment + encoder + TPP), search, neighbor gather, fusion model."""
+    import numpy as np
+
+    from radad_tpu_torch.data.audio import load_audio
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.index.flat import _search_device
+    from radad_tpu_torch.ops.gather import gather_rows
+
+    cfg, ix = pipe.config, pipe.index
+    rows = {k: [] for k in ("decode", "embed", "search", "gather", "model")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
+                                     duration=cfg.clip_duration)
+                          for p in paths])
+        excl = torch.as_tensor([file_id(p) for p in paths],
+                               dtype=torch.int32, device=ix.device)
+        audio = torch.as_tensor(waves, device=ix.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tpp = pipe._embed(audio)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            _, idx, _ = _search_device(
+                tpp, ix.vectors, ix.ids, excl, cfg.top_k, metric=ix.metric,
+                n_valid=ix.ntotal, xsq=ix.norms_sq, scan_bf16=ix.scan_bf16,
+                resid_bf16=ix.resid_bf16, exclude_mode="self",
+                use_pallas=ix.use_pallas)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            nb = gather_rows(ix.vectors, idx.clamp_min(0).reshape(-1))
+            nb = nb.reshape(idx.shape + (ix.dimension,))
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            pipe.model(nb, tpp)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+        for k, a, b in (("decode", t0, t1), ("embed", t1, t2),
+                        ("search", t2, t3), ("gather", t3, t4),
+                        ("model", t4, t5)):
+            rows[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in rows.items()}
+
+
+def serving_bf16_phase(torch, dev, tmp: str, ref: dict):
+    """The mixed-precision wav2vec2-base serving path at full width
+    (use_mixed_precision=True: the encoder and the fusion model in bf16),
+    certified search on its own 25,600 x 5,376 index: predict at B = 1,
+    predict_batch at B = 8 and 64. Conditions: neighbors equal the f64 scan
+    of the bf16 pipeline's own embeddings up to near-ties, the certified
+    search's kernels launched, no opt-in kernel; then one predict_batch(8)
+    with RADAD_FUSED_ATTENTION=1 must launch fused_mha's bias-free bf16
+    body and nothing else of it. Printed: fallbacks, stage times beside the
+    f32 phase's, each clip embedding's relative deviation from the f32
+    pipeline's (same seeded weights), recall@5 of the bf16 neighbors
+    against the f32 pipeline's (by file), and fused against default bf16.
     Returns {path: launches}."""
+    import numpy as np
+
     from radad_tpu_torch.ops.attention import fused_mha
     from radad_tpu_torch.ops.gather import gather_rows
     from radad_tpu_torch.ops.rerank import exact_dot
     from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
 
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    pipe, db_paths = _build_pipeline(torch, dev, tmp, "wav2vec2_bf16",
+                                     use_mixed_precision=True)
+    if pipe.encoder.compute_dtype != torch.bfloat16:
+        raise AssertionError("use_mixed_precision did not give a bf16 "
+                             "encoder")
+    q_paths = ref["q_paths"]
+    batch64 = q_paths[:32] + db_paths[:32]
+    sets = _serving_sets(q_paths, batch64)
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    lat, stages, outs, launches, _ = _counted_run(torch, pipe, q_paths,
+                                                  batch64, kernels)
+    if not np.isfinite(outs["predict_1"][0]["logit"]):
+        raise AssertionError("non-finite logit from the bf16 predict")
+    for name in ("predict_batch_8", "predict_batch_64"):
+        same, f32_rows = _check_against_full_scan(torch, pipe, sets[name],
+                                                  outs[name])
+        print(f"wav2vec2 bf16 {name}: neighbors match the f64 full scan of "
+              f"the bf16 embeddings on all {len(sets[name])} rows, ids "
+              f"identical on {same}; an f32 GEMM full scan's ids differ "
+              f"from f64 on {f32_rows} rows")
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"bf16 wav2vec2 serving path")
+    if launches["fused_mha"] or launches["fused_mha_bf16"] or launches[
+            "flat_topk"]:
+        raise AssertionError(f"the default bf16 path launched an opt-in "
+                             f"kernel: {launches}")
+    _report(lat, stages, pipe, launches, "wav2vec2 bf16")
+    for name, paths in sets.items():
+        st = stage_ms(torch, pipe, paths)
+        print(f"wav2vec2 stages {name} (median of 5, ms): bf16 "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + "; f32 " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in ref["stages"][name].items()))
+        emb = _embed_paths(torch, pipe, paths).cpu().double()
+        f32 = ref["emb"][name].double()
+        dev_rel = ((emb - f32).norm(dim=-1) / f32.norm(dim=-1)).numpy()
+        hits = [len(set(a) & set(b)) for a, b in zip(
+            (o["retrieved_files"] for o in outs[name]), ref["files"][name])]
+        print(f"wav2vec2 bf16 against f32, {name}: embedding relative "
+              f"deviation per clip max {dev_rel.max():.3e}, median "
+              f"{float(np.median(dev_rel)):.3e}; recall@{pipe.config.top_k} "
+              f"of the bf16 neighbors against the f32 pipeline's "
+              f"{sum(hits) / (pipe.config.top_k * len(hits)):.4f} "
+              f"({sum(h == pipe.config.top_k for h in hits)} of "
+              f"{len(hits)} rows identical sets)")
+
+    # the fused attention switch: fused_mha's bias-free bf16 body
+    _reset(kernels)
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        fused = pipe.predict_batch(sets["predict_batch_8"])
+        torch.cuda.synchronize()
+        fused_launches = _launch_counts(kernels)
+        body = dict(fused_mha.body_launches)
+        moved = _embed_paths(torch, pipe, sets["predict_batch_8"])
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    if body["no_bias_bf16"] <= 0 or sum(body.values()) != body["no_bias_bf16"]:
+        raise AssertionError(f"bf16 fused attention: the bias-free bf16 body "
+                             f"not launched alone ({body})")
+    base = _embed_paths(torch, pipe, sets["predict_batch_8"]).double()
+    drel = ((moved.double() - base).norm(dim=-1) / base.norm(dim=-1)).max()
+    same = sum(a["retrieved_files"] == b["retrieved_files"]
+               for a, b in zip(fused, outs["predict_batch_8"]))
+    dlogit = max(abs(a["logit"] - b["logit"])
+                 for a, b in zip(fused, outs["predict_batch_8"]))
+    print(f"wav2vec2 bf16 with RADAD_FUSED_ATTENTION=1: predict_batch(8) "
+          f"embeddings within {float(drel):.3e} relative of the default bf16 "
+          f"path, neighbors identical on {same} of 8 rows, max |dlogit| "
+          f"{dlogit:.3e}; launches {fused_launches}, fused_mha per body "
+          f"{body}")
+    del pipe
+    return {"wav2vec2_bf16": launches,
+            "wav2vec2_bf16_fused_attention": fused_launches}
+
+
+def wavlm_phase(torch, dev, tmp: str, mixed: bool = False):
+    """The WavLM serving path at full width: use_pallas=True (flat_topk +
+    exact re-rank) and RADAD_FUSED_ATTENTION=1 (fused_mha's bias body).
+    ``mixed``: with use_mixed_precision=True (path "wavlm_bf16"), which
+    must launch the bias body's bf16 instance. Returns {path: launches}."""
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    label = "wavlm_bf16" if mixed else "wavlm"
+    body_name, mha_name = (("bias_bf16", "fused_mha_bf16") if mixed
+                           else ("bias", "fused_mha"))
     os.environ["RADAD_FUSED_ATTENTION"] = "1"
     try:
         pipe, db_paths = _build_pipeline(
-            torch, dev, tmp, "wavlm", feature_extractor_type="wavlm",
-            use_pallas=True)
-        q_paths, _ = _write_clips(tmp, 64, SEED + 3, "wquery")
+            torch, dev, tmp, label, feature_extractor_type="wavlm",
+            use_pallas=True, use_mixed_precision=mixed)
+        q_paths, _ = _write_clips(tmp, 64, SEED + 3,
+                                  "wquery_bf16" if mixed else "wquery")
         batch64 = q_paths[:32] + db_paths[:32]
         kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                    flat_topk)
         lat, stages, outs, launches, body = _counted_run(
             torch, pipe, q_paths, batch64, kernels)
-        if body["bias"] <= 0 or body["no_bias"]:
-            raise AssertionError(f"WavLM: fused_mha bias body not launched "
-                                 f"alone ({body})")
-        for name in ("fused_mha", "flat_topk", "gather_rows"):
+        if body[body_name] <= 0 or sum(body.values()) != body[body_name]:
+            raise AssertionError(f"{label}: fused_mha {body_name} body not "
+                                 f"launched alone ({body})")
+        for name in (mha_name, "flat_topk", "gather_rows"):
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
-                                     f"WavLM serving path")
-        _report(lat, stages, pipe, launches, "wavlm")
-        print(f"wavlm fused_mha per body {body}")
+                                     f"{label} serving path")
+        _report(lat, stages, pipe, launches, label)
+        print(f"{label} fused_mha per body {body}")
         for name in ("predict_batch_8", "predict_batch_64"):
             paths = q_paths[8:16] if name == "predict_batch_8" else batch64
             differ, sets, recall, held, agree = _check_against_plain_route(
                 torch, pipe, paths, outs[name])
-            print(f"wavlm {name}: candidates within the kernel's rounding "
+            print(f"{label} {name}: candidates within the kernel's rounding "
                   f"bound of the exact scores (max |err| "
                   f"{held['max_abs_err']:.3e}, largest bound "
                   f"{held['max_bound']:.3e}, max(err / bound) "
@@ -1154,9 +1475,15 @@ def wavlm_phase(torch, dev, tmp: str):
                   f"on {differ} of {len(paths)} rows, each by a near-tie; "
                   f"recall@{pipe.config.top_k} against the f64 full scan "
                   f"{recall:.4f}")
+        if mixed:
+            for name, paths in (("predict_batch_8", q_paths[8:16]),
+                                ("predict_batch_64", batch64)):
+                st = stage_ms(torch, pipe, paths)
+                print(f"{label} stages {name} (median of 5, ms): "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
     finally:
         os.environ.pop("RADAD_FUSED_ATTENTION", None)
-    return {"wavlm": launches}
+    return {label: launches}
 
 
 def hubert_xlarge_phase(torch, dev, tmp: str):
@@ -1206,7 +1533,7 @@ def hubert_xlarge_phase(torch, dev, tmp: str):
         torch.cuda.synchronize()
     finally:
         os.environ.pop("RADAD_FUSED_ATTENTION", None)
-    launches = {w.__name__: w.launches for w in kernels}
+    launches = _launch_counts(kernels)
     body = dict(fused_mha.body_launches)
     rel = float(((fused - base).double().flatten(1).norm(dim=1)
                  / base.double().flatten(1).norm(dim=1)).max())
@@ -1214,7 +1541,8 @@ def hubert_xlarge_phase(torch, dev, tmp: str):
           f"{list(fused.shape)}, max relative change per window {rel:.3e} "
           f"(limit 1e-4), max |diff| {float((fused - base).abs().max()):.3e}"
           f"; launches {launches}, fused_mha per body {body}")
-    if body != {"bias": 0, "no_bias": layers}:
+    if body != {"bias": 0, "no_bias": layers, "bias_bf16": 0,
+                "no_bias_bf16": 0}:
         raise AssertionError(f"hubert-xlarge: want {layers} bias-free "
                              f"fused_mha launches, got {body}")
     if not (rel <= 1e-4 and bool(torch.isfinite(fused).all())):
@@ -1272,7 +1600,22 @@ def server_phase(pipe, q_paths) -> None:
         raise AssertionError("server thread did not stop")
 
 
-def _update_on_cpu(torch, pipe, batch, neighbors):
+# the card's bf16 update against the CPU's bf16 update (the first update,
+# from a fresh optimizer state): bf16 activations and gradients whose f32
+# sums round apart (cuBLAS against the CPU's GEMM) move a bf16 rounding here
+# and there, forward and backward. Loss, grad norms and BatchNorm
+# statistics as the port's bf16 steps against JAX's
+# (tests/test_torch_mixed_precision.py); logits within 4 bf16 steps at 1;
+# moments within 0.1 of their group's largest (a chip run read 0.057). The
+# first Adam step moves a coordinate by lr times the sign of its gradient,
+# so where the bf16 gradient is rounding (biases ahead of a norm, exact
+# gradient 0) the two sides step apart by 2 lr: at most 15 % of the
+# coordinates (a chip run read 7.5 %), each within 2 lr.
+BF16_UPDATE_LIMITS = dict(loss=2e-3, logits=2.0 ** -5, grad_norms=1e-2,
+                          bn_stats=1e-2, moments=0.1, near_zero_share=0.15)
+
+
+def _update_on_cpu(torch, pipe, batch, neighbors, limits=None):
     """The card's update against the same update on the CPU, both with the
     port's own code and dropout 0: a copy of the trained model and its
     optimizer state, one batch (B = 128, pad rows included) and the
@@ -1284,7 +1627,8 @@ def _update_on_cpu(torch, pipe, batch, neighbors):
     1e-6 + 1e-5 |p|, except where the two first moments disagree by more
     than 0.1 % (Adam's input within rounding of 0, where its step may go
     up to lr either way): at most 0.5 % of the coordinates, each within
-    2 lr. → the largest errors seen."""
+    2 lr. ``limits`` overrides any of these (BF16_UPDATE_LIMITS for the
+    mixed-precision model). → the largest errors seen."""
     import copy
 
     from radad_tpu_torch.train.optim import GroupAdam
@@ -1346,9 +1690,11 @@ def _update_on_cpu(torch, pipe, batch, neighbors):
     errs["near_zero_share"] = off / total
     # params: |diff| / (1e-6 + 1e-5 |p|); params_near_zero: |diff| on the
     # near-zero coordinates
-    limits = dict(loss=1e-5, logits=1e-4, grad_norms=1e-4, bn_stats=1e-5,
-                  moments=1e-4, params=1.0, near_zero_share=0.005,
-                  params_near_zero=2 * pipe.opt.lr + 1e-6)
+    limits = dict(dict(loss=1e-5, logits=1e-4, grad_norms=1e-4,
+                       bn_stats=1e-5, moments=1e-4, params=1.0,
+                       near_zero_share=0.005,
+                       params_near_zero=2 * pipe.opt.lr + 1e-6),
+                  **(limits or {}))
     over = {k: v for k, v in errs.items() if v > limits[k]}
     if over:
         raise AssertionError(f"update check: the card's update differs from "
@@ -1415,6 +1761,33 @@ def _step_times(torch, pipe, train_m, n_steps: int = 12):
     return medians, steps_per_s, busy_ms / wall_ms, wall_ms
 
 
+def _resumed(torch, pipe, cfg, dev):
+    """A fresh pipeline of ``cfg`` on ``pipe``'s encoder, index and
+    embedding cache that loaded ``pipe``'s saved final checkpoint; raises
+    unless its step, optimizer state (count, both moments) and f32
+    parameters equal ``pipe``'s."""
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    pipe.save_models("final_model")
+    fresh = DetectionPipeline(cfg, encoder=pipe.encoder, device=dev)
+    fresh.index = pipe.index
+    fresh._embedding_cache = pipe._embedding_cache
+    if not fresh.load_models("final_model") or fresh.step != pipe.step:
+        raise AssertionError("resume: checkpoint not loaded at its step")
+    for g, st in pipe.opt.state.items():
+        got = fresh.opt.state[g]
+        same = torch.equal(st["count"], got["count"]) and all(
+            torch.equal(st[k][n], got[k][n])
+            for k in ("mu", "nu") for n in st[k])
+        if not same:
+            raise AssertionError(f"resume: optimizer state of {g} differs")
+    params = dict(pipe.model.named_parameters())
+    for n, p in fresh.model.named_parameters():
+        if p.dtype != torch.float32 or not torch.equal(p, params[n]):
+            raise AssertionError(f"resume: parameter {n} differs")
+    return fresh
+
+
 def train_phase(torch, dev, tmp: str):
     """The trainer at the shipped defaults (wav2vec2-base-960h, f32, seeded
     random weights, TPP (1, 2, 4) max → D = 5,376, L2 top-5, the BatchNorm
@@ -1472,7 +1845,7 @@ def train_phase(torch, dev, tmp: str):
     pipe.train(train_m, val_m)
     result = pipe.evaluate(val_m)
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in kernels}
+    launches = _launch_counts(kernels)
     secs = time.perf_counter() - t0
     epochs = [r for r in pipe.writer.rows if r["epoch"] != "eval"]
     for r in epochs:
@@ -1528,20 +1901,7 @@ def train_phase(torch, dev, tmp: str):
         "them; near_zero_share: coordinates beyond 1e-6 + 1e-5 |p|)")
 
     # resume: the checkpoint into a fresh pipeline, then one more epoch
-    pipe.save_models("final_model")
-    fresh = DetectionPipeline(cfg.replace(num_epochs=1),
-                              encoder=pipe.encoder, device=dev)
-    fresh.index = ix
-    fresh._embedding_cache = pipe._embedding_cache
-    if not fresh.load_models("final_model") or fresh.step != pipe.step:
-        raise AssertionError("resume: checkpoint not loaded at its step")
-    for g, st in pipe.opt.state.items():
-        got = fresh.opt.state[g]
-        same = torch.equal(st["count"], got["count"]) and all(
-            torch.equal(st[k][n], got[k][n])
-            for k in ("mu", "nu") for n in st[k])
-        if not same:
-            raise AssertionError(f"resume: optimizer state of {g} differs")
+    fresh = _resumed(torch, pipe, cfg.replace(num_epochs=1), dev)
     fresh.train(train_m, val_m)
     row = fresh.writer.rows[-1]
     if fresh.step != pipe.step + want_steps // cfg.num_epochs or not (
@@ -1563,6 +1923,111 @@ def train_phase(torch, dev, tmp: str):
     return {"train": launches}
 
 
+def train_bf16_phase(torch, dev, tmp: str):
+    """The trainer in mixed precision at the shipped defaults
+    (use_mixed_precision=True: the fusion model in bf16 with f32
+    parameters, the encoder in bf16) with RADAD_FUSED_ATTENTION=1, on the
+    train phase's clips and DB size: the card's first update (dropout 0,
+    the fresh model and optimizer state) against the CPU's bf16 update on
+    the same inputs (BF16_UPDATE_LIMITS); ``train`` for 1 epoch and
+    ``evaluate``, counted on path "train_bf16" (losses finite, the
+    certified search's kernels launched, and fused_mha's bias-free bf16
+    body: the encoder embeds the validation clips inside ``train``); save
+    -> load keeps the optimizer state and step; step timings. Returns
+    {path: launches}."""
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        return _train_bf16(torch, dev, tmp)
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+
+
+def _train_bf16(torch, dev, tmp: str):
+    import numpy as np
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    root = os.path.join(tmp, "train_bf16")
+    cfg = Config().replace(
+        data_root=root, vector_db_path=os.path.join(root, "vdb"),
+        train_data_path=os.path.join(root, "clips"), random_seed=SEED,
+        num_epochs=1, use_mixed_precision=True)
+    os.makedirs(cfg.train_data_path)
+    train_m = _manifest(*_write_clips(cfg.train_data_path, TRAIN_CLIPS,
+                                      SEED + 5, "train"))
+    val_m = _manifest(*_write_clips(cfg.train_data_path, VAL_CLIPS, SEED + 6,
+                                    "val"))
+    pipe = DetectionPipeline(cfg, device=dev)
+    if pipe.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("use_mixed_precision did not give a bf16 model")
+    t0 = time.perf_counter()
+    pipe.build_vector_database(train_m, save=False)
+    torch.cuda.synchronize()
+    print(f"train bf16 phase: build_vector_database {len(train_m)} clips in "
+          f"{time.perf_counter() - t0:.2f} s (bf16 encoder)")
+    _pad_index(torch, pipe, INDEX_ROWS, SEED + 7)
+    ix = pipe.index
+
+    pipe._ensure_model_state()
+    steps = pipe._steps()
+    batch = list(pipe._query_batches(train_m, cfg.batch_size, shuffle=True,
+                                     seed=SEED))[-1]
+    neighbors, _ = steps.fetch(batch[0], batch[2])
+    errs = _update_on_cpu(torch, pipe, batch, neighbors,
+                          limits=BF16_UPDATE_LIMITS)
+    print("train bf16 first update, card against CPU (dropout 0, bf16 both): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limits {BF16_UPDATE_LIMITS}; the rest as the f32 check)")
+
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    torch.cuda.synchronize()
+    _reset(kernels)
+    ix.searches = ix.fallbacks = 0
+    t0 = time.perf_counter()
+    pipe.train(train_m, val_m)
+    result = pipe.evaluate(val_m)
+    torch.cuda.synchronize()
+    launches = _launch_counts(kernels)
+    secs = time.perf_counter() - t0
+    row = [r for r in pipe.writer.rows if r["epoch"] != "eval"][-1]
+    print(f"train bf16 epoch 1: train loss {row['train_loss']:.6f}, val loss "
+          f"{row['val_loss']:.6f}, EER {row['eer_percent']:.4f} %; evaluate "
+          f"loss {result['loss']:.6f}, EER {result['eer_percent']:.4f} %; "
+          f"train + evaluate {secs:.2f} s, {pipe.step} steps, "
+          f"{ix.searches} searches, {ix.fallbacks} fallbacks; kernel "
+          f"launches {launches}")
+    if not (np.isfinite(row["train_loss"]) and np.isfinite(row["val_loss"])
+            and np.isfinite(result["loss"])):
+        raise AssertionError("non-finite loss in bf16 training")
+    for name in ("gather_rows", "exact_dot", "extract_candidates",
+                 "fused_mha_bf16"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"bf16 training path")
+    if launches["fused_mha"] or launches["flat_topk"]:
+        raise AssertionError(f"the bf16 training path launched an f32 "
+                             f"attention or flat_topk: {launches}")
+
+    fresh = _resumed(torch, pipe, cfg, dev)
+    print(f"train bf16 resume: optimizer state, step {pipe.step} and f32 "
+          f"parameters equal after save -> load_models")
+    medians, steps_per_s, busy, wall_ms = _step_times(torch, fresh, train_m)
+    print(f"train bf16 step at B = {cfg.batch_size}: median ms retrieve "
+          f"{medians['retrieve']:.3f}, forward+backward "
+          f"{medians['forward_backward']:.3f}, update "
+          f"{medians['update']:.3f} (CUDA-synchronized, 12 steps); "
+          f"{steps_per_s:.2f} steps/s over an epoch of train_step; device "
+          f"busy {busy:.3f} of one profiled step ({wall_ms:.2f} ms)")
+    del pipe, fresh
+    return {"train_bf16": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1582,21 +2047,23 @@ def main() -> int:
     card, dev = header(torch)
     recs = kernel_phase(torch, dev)
     with tempfile.TemporaryDirectory(prefix="radad_smoke_") as tmp:
-        pipe, by_path, q_paths = serving_phase(torch, dev, tmp)
+        pipe, by_path, q_paths, ref = serving_phase(torch, dev, tmp)
         server_phase(pipe, q_paths)
         del pipe  # free the first pipeline before building the second
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_path.update(wavlm_phase(torch, dev, tmp))
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_path.update(hubert_xlarge_phase(torch, dev, tmp))
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_path.update(train_phase(torch, dev, tmp))
+        for phase in (lambda: wavlm_phase(torch, dev, tmp),
+                      lambda: hubert_xlarge_phase(torch, dev, tmp),
+                      lambda: train_phase(torch, dev, tmp),
+                      # mixed precision: bf16 encoders and fusion model
+                      lambda: serving_bf16_phase(torch, dev, tmp, ref),
+                      lambda: wavlm_phase(torch, dev, tmp, mixed=True),
+                      lambda: train_bf16_phase(torch, dev, tmp)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            by_path.update(phase())
     kernels = []
     for name, r in recs.items():
-        per_path = {p: n[name] for p, n in by_path.items() if n[name]}
+        per_path = {p: n.get(name, 0) for p, n in by_path.items()
+                    if n.get(name, 0)}
         rec = dict(name=name, route=r["route"], source=r["source"],
                    replaces=r["replaces"], launches=sum(per_path.values()),
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -1615,6 +2082,8 @@ def main() -> int:
                 "max_abs_err", "max_rel_err")}
         if "hmma" in r:
             rec["hmma"] = r["hmma"]
+        if "max_bf16_steps" in r:
+            rec["max_bf16_steps"] = r["max_bf16_steps"]
         for key in ("by_shape", "hd80"):
             if key in r:
                 rec[key] = r[key]

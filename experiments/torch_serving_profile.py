@@ -13,9 +13,10 @@ padded to 25,600 x 5,376), then for ``predict_batch`` at B = 1, 8 and 64:
 
 Run from the root of a checkout on a machine with a GPU:
 ``python3 experiments/torch_serving_profile.py [--path wavlm] [--out
-FILE]``. ``--path`` picks one of ``chip_smoke.py``'s two serving paths:
-``wav2vec2`` (default; certified search, default attention) or ``wavlm``
-(``use_pallas=True``, ``RADAD_FUSED_ATTENTION=1``). Prints text; writes
+FILE] [--mixed_precision]``. ``--path`` picks one of ``chip_smoke.py``'s
+two serving paths: ``wav2vec2`` (default; certified search, default
+attention) or ``wavlm`` (``use_pallas=True``, ``RADAD_FUSED_ATTENTION=1``);
+``--mixed_precision`` runs it with bf16 encoder and fusion model. Prints text; writes
 the per-kernel tables to ``FILE`` (default
 ``runs/torch_serving_profile.txt``).
 """
@@ -31,53 +32,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def _stages(torch, pipe, paths, reps=5):
-    """Median milliseconds per stage of one predict_batch's work, each
-    stage ended by a device synchronize."""
-    import numpy as np
-
-    from radad_tpu_torch.data.audio import load_audio
-    from radad_tpu_torch.data.manifest import file_id
-    from radad_tpu_torch.index.flat import _search_device
-    from radad_tpu_torch.ops.gather import gather_rows
-
-    cfg, ix = pipe.config, pipe.index
-    rows = {k: [] for k in ("decode", "embed", "search", "gather", "model")}
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
-                                     duration=cfg.clip_duration)
-                          for p in paths])
-        excl = torch.as_tensor([file_id(p) for p in paths],
-                               dtype=torch.int32, device=ix.device)
-        audio = torch.as_tensor(waves, device=ix.device)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        tpp = pipe._embed(audio)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        with torch.inference_mode():
-            _, idx, _ = _search_device(
-                tpp, ix.vectors, ix.ids, excl, cfg.top_k, metric=ix.metric,
-                n_valid=ix.ntotal, xsq=ix.norms_sq, scan_bf16=ix.scan_bf16,
-                resid_bf16=ix.resid_bf16, exclude_mode="self",
-                use_pallas=ix.use_pallas)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            nb = gather_rows(ix.vectors, idx.clamp_min(0).reshape(-1))
-            nb = nb.reshape(idx.shape + (ix.dimension,))
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
-            pipe.model(nb, tpp)
-            torch.cuda.synchronize()
-            t5 = time.perf_counter()
-        for k, a, b in (("decode", t0, t1), ("embed", t1, t2),
-                        ("search", t2, t3), ("gather", t3, t4),
-                        ("model", t4, t5)):
-            rows[k].append((b - a) * 1e3)
-    return {k: float(np.median(v)) for k, v in rows.items()}
-
-
 def main() -> int:
     import argparse
 
@@ -86,6 +40,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=("wav2vec2", "wavlm"),
                     default="wav2vec2")
+    ap.add_argument("--mixed_precision", action="store_true",
+                    help="bf16 encoder and fusion model "
+                         "(use_mixed_precision=True)")
     ap.add_argument("--out", default=os.path.join(
         "runs", "torch_serving_profile.txt"))
     args = ap.parse_args()
@@ -99,16 +56,17 @@ def main() -> int:
     wavlm = args.path == "wavlm"
     if wavlm:
         os.environ["RADAD_FUSED_ATTENTION"] = "1"
-    out_lines = [f"card: {card}", f"path {args.path}"]
+    out_lines = [f"card: {card}", f"path {args.path}, mixed precision "
+                                  f"{args.mixed_precision}"]
     with tempfile.TemporaryDirectory(prefix="radad_prof_") as tmp:
         pipe, _ = cs._build_pipeline(
             torch, dev, tmp, "profile", feature_extractor_type=args.path,
-            use_pallas=wavlm)
+            use_pallas=wavlm, use_mixed_precision=args.mixed_precision)
         q_paths, _ = cs._write_clips(tmp, 64, cs.SEED + 2, "query")
         pipe.predict_batch(q_paths[:8])  # warm-up
         for b in (1, 8, 64):
             paths = q_paths[:b]
-            st = _stages(torch, pipe, paths)
+            st = cs.stage_ms(torch, pipe, paths)
             line = (f"B={b} stages (median of 5, ms): "
                     + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
             print(line)
@@ -133,6 +91,7 @@ def main() -> int:
             events.sort(key=lambda e: -e.device_time_total)
             ours = ("gather_rows_kernel", "exact_dot_kernel",
                     "extract_candidates_kernel", "mha_kernel",
+                    "mha_bf16_kernel",
                     "flat_topk")  # its bf16 body, q rounding and f32 body
             for e in events:
                 if events.index(e) < 12 or any(o in e.key for o in ours):

@@ -58,7 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_cache_embeddings", action="store_true",
                    help="recompute encoder features every epoch")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="bf16 compute (not yet ported: raises)")
+                   help="encoder and fusion model compute in bfloat16 "
+                        "(config.compute_dtype); parameters stay f32 and the "
+                        "clip embeddings f32, so the index is the f32 one")
     p.add_argument("--resume", action="store_true",
                    help="train: resume from the --model_prefix checkpoint "
                         "(model, optimizer state and step)")

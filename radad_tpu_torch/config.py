@@ -3,8 +3,8 @@
 Counterpart: ``radad_tpu/config.py``. The port keeps its own copy (it
 imports nothing of ``radad_tpu``) with the same field names and defaults,
 so a config written by either package loads in the other. Fields for
-parts not ported yet (IVF, SQ8, Whisper, WavLM, meshes, training) are kept
-for that reason; the code that reads them raises "not yet ported".
+parts not ported yet (IVF, SQ8, Whisper, meshes) are kept for that reason;
+the code that reads them raises "not yet ported".
 Placement is not a config field: the port's entry points take a
 ``device`` argument.
 """
@@ -196,7 +196,7 @@ class Config:
     # nothing. True/False force either way (tests force True to pin
     # sharded-embed parity).
     shard_db_build: Optional[bool] = None
-    compute_dtype: str = "bfloat16"  # encoder/matmul compute dtype on TPU
+    compute_dtype: str = "bfloat16"  # encoder/fusion compute dtype with use_mixed_precision
     param_dtype: str = "float32"
     index_shards: int = 1  # mesh size along the 'index' axis for the sharded DB
     data_shards: int = 1  # mesh size along the 'data' (batch) axis

@@ -21,7 +21,7 @@ from typing import Optional, Union
 import torch
 
 from radad_tpu_torch.models import hf_convert, wav2vec2, wavlm
-from radad_tpu_torch.utils.device import resolve_device
+from radad_tpu_torch.utils.device import compute_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -38,6 +38,8 @@ class FrozenEncoder:
     layers_to_use: tuple = (-4, -3, -2, -1)
     # HF processor do_normalize: per-segment zero-mean/unit-var input
     input_normalize: bool = False
+    # the forward's dtype (bf16 with use_mixed_precision); parameters f32
+    compute_dtype: torch.dtype = torch.float32
 
     @property
     def feature_dim(self) -> int:
@@ -45,7 +47,8 @@ class FrozenEncoder:
 
     @torch.inference_mode()
     def segment_features(self, segments: torch.Tensor) -> torch.Tensor:
-        """``segments [..., L]`` → per-frame features ``[..., T, D]`` (f32).
+        """``segments [..., L]`` → per-frame features ``[..., T, D]`` (f32,
+        computed in ``compute_dtype`` after the f32 input normalization).
         Leading dims flatten through one encoder call and are restored."""
         lead = segments.shape[:-1]
         flat = segments.reshape(-1, segments.shape[-1]).float()
@@ -56,9 +59,11 @@ class FrozenEncoder:
             flat = (flat - mean) / torch.sqrt(var + 1e-7)
         if self.name in ("wav2vec2", "hubert"):
             feats = wav2vec2.extract_features(self.model, flat,
-                                              self.layers_to_use)
+                                              self.layers_to_use,
+                                              self.compute_dtype)
         elif self.name == "wavlm":
-            feats = wavlm.extract_features(self.model, flat)
+            feats = wavlm.extract_features(self.model, flat,
+                                           self.compute_dtype)
         else:
             raise ValueError(f"unknown encoder: {self.name}")
         return feats.reshape(lead + feats.shape[1:])
@@ -151,15 +156,14 @@ def resolve_arch_config(model_name: str, ckpt_path: Optional[str] = None,
 def build_encoder(config, *, weights_dir: Optional[str] = None,
                   seed: int = 0, device="cuda") -> FrozenEncoder:
     """Factory on ``config.feature_extractor_type`` (reference
-    pipeline.py:54-65), placed on ``device``."""
+    pipeline.py:54-65), placed on ``device``; f32 parameters, the forward
+    in ``compute_dtype(config)``."""
     dev = resolve_device(device)
     kind = config.feature_extractor_type
     if kind == "whisper":
         raise NotImplementedError(f"{kind} encoder: not yet ported")
     if kind not in _CONFIGS:
         raise ValueError(f"Unknown feature extractor type: {kind!r}")
-    if config.use_mixed_precision:
-        raise NotImplementedError("mixed-precision encoder: not yet ported")
     model_name = {"wav2vec2": config.wav2vec2_model_name,
                   "hubert": config.hubert_model_name,
                   "wavlm": config.wavlm_model_name}[kind]
@@ -195,4 +199,4 @@ def build_encoder(config, *, weights_dir: Optional[str] = None,
         name=kind, model_name=model_name, arch_cfg=arch_cfg,
         model=model.to(dev).eval(), pretrained=ckpt is not None,
         layers_to_use=tuple(config.wav2vec2_layers_to_use),
-        input_normalize=bool(normalize))
+        input_normalize=bool(normalize), compute_dtype=compute_dtype(config))

@@ -10,10 +10,21 @@ Attention routes through ``radad_tpu_torch/ops/attention.py``: plain
 matmul plus softmax (``mha_reference``) by default, as in the JAX package,
 and the fused CUDA kernel (``fused_mha``) with ``RADAD_FUSED_ATTENTION=1``
 on CUDA tensors.
+
+Every block computes in its input's dtype: f32, or bf16 with
+``use_mixed_precision`` (parameters stay f32 and are cast where they are
+used). In bf16 each function rounds where its JAX counterpart's ops round
+on the CPU, where XLA rounds every bf16 op's result: a linear or conv
+product comes back in bf16 and its bias is added in bf16, GELU is the tanh
+form written op by op with bf16 constants, the attention scale is rounded
+to bf16, and the per-channel norm takes the JAX package's shifted moments.
+The f32 path keeps its own arithmetic (fused bias adds, exact GELU,
+``F.group_norm``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Mapping, Optional
 
 import torch
@@ -31,16 +42,35 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a constant as the
+    JAX package's ops see it in that dtype (a Python scalar there takes the
+    array's dtype; here it would stay f32 inside the op)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w.T (+ b); ``w`` is ``[out, in]``."""
-    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    """x @ w.T (+ b); ``w`` is ``[out, in]``. Outside f32 the product is
+    rounded to x's dtype before the bias is added in that dtype, as JAX's
+    ``jnp.dot(..., preferred_element_type=x.dtype) + b`` (``F.linear``
+    would add the bias before it rounds)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    out = F.linear(x, w.to(x.dtype))
+    return out if b is None else out + b.to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """GELU with the exact erf, as HF ACT2FN['gelu'] and the JAX package
-    in f32 (its bf16 tanh form comes with the mixed-precision slice)."""
-    return F.gelu(x)
+    """GELU: the exact erf in f32, as HF ACT2FN['gelu'] and the JAX
+    package; in bf16 the JAX package's tanh form (``jax.nn.gelu(x,
+    approximate=True)``), op by op in bf16 with its constants rounded to
+    bf16, x³ as x · (x · x)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    c = rounded(math.sqrt(2 / math.pi), x.dtype)
+    inner = x + rounded(0.044715, x.dtype) * (x * (x * x))
+    return x * (0.5 * (1.0 + torch.tanh(c * inner)))
 
 
 def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
@@ -51,7 +81,9 @@ def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     pos_bias [H, T, T])``, WavLM's gated relative position bias in factored
     form. ``p``: qw, qb, kw, kb, vw, vb, ow, ob."""
     _, t, d = x.shape
-    scaling = (d // num_heads) ** -0.5
+    # the scale in x's dtype (JAX: jnp.asarray(scaling, x.dtype)); in bf16
+    # 80^-0.5 rounds to 0.11181640625
+    scaling = rounded((d // num_heads) ** -0.5, x.dtype)
     q = linear(x, p["qw"], p["qb"]) * scaling
     k = linear(x, p["kw"], p["kb"])
     v = linear(x, p["vw"], p["vb"])
@@ -97,10 +129,24 @@ def pre_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
 def conv1d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor], stride: int, padding: int,
            groups: int = 1) -> torch.Tensor:
-    """1-D convolution: ``x [B, C_in, T]``, ``kernel [C_out, C_in/g, K]``."""
-    return F.conv1d(x, kernel.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype),
-                    stride=stride, padding=padding, groups=groups)
+    """1-D convolution: ``x [B, C_in, T]``, ``kernel [C_out, C_in/g, K]``.
+    Outside f32 the bias is added after the product is rounded, as in
+    ``linear``."""
+    if x.dtype == torch.float32:
+        return F.conv1d(x, kernel.to(x.dtype),
+                        None if bias is None else bias.to(x.dtype),
+                        stride=stride, padding=padding, groups=groups)
+    kernel = kernel.to(x.dtype)
+    if x.device.type == "cpu":
+        # oneDNN's bf16 grouped conv1d returned wrong sums (torch 2.13 CPU,
+        # the 16-group positional conv); the f32 sum of the same bf16
+        # operands, rounded once, is the product every backend means
+        out = F.conv1d(x.float(), kernel.float(), stride=stride,
+                       padding=padding, groups=groups).to(x.dtype)
+    else:
+        out = F.conv1d(x, kernel, stride=stride, padding=padding,
+                       groups=groups)
+    return out if bias is None else out + bias.to(x.dtype)[:, None]
 
 
 def instance_norm_channels(x: torch.Tensor, scale: torch.Tensor,
@@ -108,10 +154,28 @@ def instance_norm_channels(x: torch.Tensor, scale: torch.Tensor,
                            ) -> torch.Tensor:
     """GroupNorm with one group per channel (per-channel norm over time),
     the first conv layer of Wav2Vec2's feature encoder
-    (HF Wav2Vec2GroupNormConvLayer). ``x [B, C, T]``; moments in f32."""
-    out = F.group_norm(x.float(), x.shape[1], scale.float(), bias.float(),
-                       eps)
-    return out.to(x.dtype)
+    (HF Wav2Vec2GroupNormConvLayer). ``x [B, C, T]``; moments in f32.
+
+    In f32, ``F.group_norm``. Outside f32, the JAX package's form: moments
+    shifted by s, the mean of 8 spread frames rounded to x's dtype, taken
+    in f32 from ``x - s`` in x's dtype; then ``x * a + b`` with the affine
+    ``a = rsqrt(var + eps) * scale`` and ``b = bias - mean * a`` rounded to
+    x's dtype."""
+    if x.dtype == torch.float32:
+        return F.group_norm(x, x.shape[1], scale.float(), bias.float(), eps)
+    t = x.shape[-1]
+    probe = x[:, :, ::max(1, t // 8)][:, :, :8].float()
+    s = probe.mean(-1, keepdim=True).to(x.dtype)
+    xs = (x - s).float()
+    m1s = xs.mean(-1, keepdim=True)
+    m2s = xs.square().sum(-1, keepdim=True) / t
+    var = (m2s - m1s.square()).clamp_min(0.0)
+    m1 = m1s + s.float()
+    inv = torch.rsqrt(var + eps)
+    scale, bias = scale.float()[:, None], bias.float()[:, None]
+    a = (inv * scale).to(x.dtype)
+    b = (bias - m1 * inv * scale).to(x.dtype)
+    return x * a + b
 
 
 def conv_output_length(length: int, kernel: int, stride: int,

@@ -22,6 +22,17 @@ identity and BatchNorm uses its running statistics. In training mode
   unbiased variance, so it is not used. Committing apart from the forward
   keeps a rematerialized forward (``torch.utils.checkpoint``) from moving
   the statistics twice.
+
+With ``use_mixed_precision`` the model computes in ``compute_dtype``
+(bf16), as flax's ``Dense(dtype=bf16, param_dtype=f32)``: the parameters
+stay f32, each linear layer casts its input, weight and bias to bf16,
+rounds the product to bf16 and adds the bias in bf16 (``dense``, the
+encoders' ``linear``). The
+neighbor softmax is f32 and its weights go to bf16; the weighted sum over
+the neighbors adds in f32 and rounds to bf16 (``jnp.sum`` of bf16 does).
+The projection's LayerNorm and the head's BatchNorm / LayerNorm take their
+input in f32 (BatchNorm's batch statistics too) and their output goes back
+to bf16; dropout works on the bf16 activations; the logits come back f32.
 """
 
 from __future__ import annotations
@@ -32,17 +43,29 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from radad_tpu_torch.models.encoder_common import linear, rounded
+from radad_tpu_torch.utils.device import compute_dtype
+
 BN_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9), fusion.py:126
+
+
+def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax ``Dense(dtype=x.dtype, param_dtype=f32)`` with ``lin``'s f32
+    parameters (``encoder_common.linear``: outside f32 the product is
+    rounded to x's dtype, then the bias is added in it)."""
+    return linear(x, lin.weight, lin.bias)
 
 
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability ``1 - p``, kept values
-    scaled by ``1 / (1 - p)``, the rest 0."""
+    divided by ``1 - p`` (rounded to x's dtype first, as flax's Python
+    scalar takes the array's dtype), the rest 0."""
     if p <= 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return torch.where(keep, x / rounded(1.0 - p, x.dtype),
+                       torch.zeros_like(x))
 
 
 def batch_stats(x: torch.Tensor):
@@ -70,9 +93,11 @@ class ProjectionLayer(nn.Module):
     """Attention aggregation of K neighbor vectors → ``[B, output_dim]``."""
 
     def __init__(self, input_dim: int, hidden_dim: int = 256,
-                 output_dim: int = 128, dropout: float = 0.1):
+                 output_dim: int = 128, dropout: float = 0.1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
+        self.compute_dtype = compute_dtype
         self.attention_score = nn.Linear(input_dim, hidden_dim)
         self.attention_final = nn.Linear(hidden_dim, 1)
         self.cst_hidden = nn.Linear(input_dim, hidden_dim)
@@ -83,17 +108,20 @@ class ProjectionLayer(nn.Module):
 
     def forward(self, neighbors: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        # neighbors [B, K, D]; scores path (projection.py:68-71)
-        scores = self.attention_final(torch.tanh(
-            self.attention_score(neighbors)))  # [B, K, 1]
+        dt = self.compute_dtype
+        x = neighbors.to(dt)  # [B, K, D]
+        # scores path (projection.py:68-71)
+        scores = dense(self.attention_final, torch.tanh(
+            dense(self.attention_score, x)))  # [B, K, 1]
         # CST channel re-weighting path (projection.py:73-76)
-        cst = self.cst_output(torch.relu(self.cst_hidden(neighbors)))
-        weights = torch.softmax(scores.float(), dim=1).to(cst.dtype)
+        cst = dense(self.cst_output, torch.relu(dense(self.cst_hidden, x)))
+        weights = torch.softmax(scores.float(), dim=1).to(dt)
         summed = (weights * cst).sum(1)  # [B, D]
-        h = self.normalization(self.weight_sum(summed).float())
+        h = self.normalization(dense(self.weight_sum, summed).float())
+        h = h.to(dt)
         if self.training:
             h = dropout(h, self.dropout, generator)
-        return self.unified_embedding(h)
+        return dense(self.unified_embedding, h)
 
 
 class DetectionModel(nn.Module):
@@ -101,9 +129,11 @@ class DetectionModel(nn.Module):
 
     def __init__(self, input_dim: int, hidden_dims: Sequence[int] = (64, 32),
                  use_batch_norm: bool = False, use_layer_norm: bool = True,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
+        self.compute_dtype = compute_dtype
         self.use_batch_norm = use_batch_norm
         dims = [input_dim] + list(hidden_dims) + [1]
         self.linears = nn.ModuleList(
@@ -119,14 +149,16 @@ class DetectionModel(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.compute_dtype
         last = len(self.linears) - 1
+        x = x.to(dt)
         for i, lin in enumerate(self.linears):
-            x = lin(x)
+            x = dense(lin, x)
             if i < last:
                 if self.use_batch_norm:
-                    x = batch_norm(self.norms[i], x.float())
+                    x = batch_norm(self.norms[i], x.float()).to(dt)
                 elif len(self.norms):
-                    x = self.norms[i](x.float())
+                    x = self.norms[i](x.float()).to(dt)
                 x = torch.relu(x)
                 if self.training:
                     x = dropout(x, self.dropout, generator)
@@ -154,24 +186,27 @@ class RADADModel(nn.Module):
                  detection_hidden_dims: Sequence[int] = (64, 32),
                  use_batch_norm: bool = False, use_layer_norm: bool = True,
                  projection_dropout: float = 0.1,
-                 detection_dropout: float = 0.1):
+                 detection_dropout: float = 0.1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.projection_layer = ProjectionLayer(
             tpp_dim, projection_hidden_dim, projection_output_dim,
-            projection_dropout)
+            projection_dropout, compute_dtype)
         self.fuse = nn.Linear(tpp_dim + projection_output_dim,
                               projection_output_dim)
         self.detection_model = DetectionModel(
             projection_output_dim, detection_hidden_dims, use_batch_norm,
-            use_layer_norm, detection_dropout)
+            use_layer_norm, detection_dropout, compute_dtype)
 
     def forward(self, neighbor_vecs: torch.Tensor, tpp_vecs: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``neighbor_vecs [B, K, D]``, ``tpp_vecs [B, D]`` → logits ``[B]``
         (radad_model.py:32-41). ``generator``: dropout's draws in training
         mode."""
+        dt = self.compute_dtype
         proj = self.projection_layer(neighbor_vecs, generator)
-        fused = self.fuse(torch.cat([tpp_vecs, proj], dim=-1))
+        fused = dense(self.fuse, torch.cat([tpp_vecs.to(dt), proj], dim=-1))
         return self.detection_model(fused, generator)
 
 
@@ -205,15 +240,13 @@ def build_radad_model(config, tpp_dim: int,
     """Factory wiring the Config into the model (radad_model.py:17-27),
     in eval mode with its parameters frozen (serving), initialized from
     ``generator`` (seeded from ``config.random_seed`` when not given).
-    Training calls ``.train()`` and ``requires_grad_(True)``."""
-    if config.use_mixed_precision:
-        raise NotImplementedError("mixed-precision fusion model: not yet "
-                                  "ported")
+    Training calls ``.train()`` and ``requires_grad_(True)``. The
+    parameters are f32; the forward runs in ``compute_dtype(config)``."""
     model = RADADModel(
         tpp_dim, config.projection_hidden_dim, config.projection_output_dim,
         tuple(config.detection_hidden_dims), config.use_batch_norm,
         config.use_layer_norm, config.projection_dropout,
-        config.detection_dropout)
+        config.detection_dropout, compute_dtype(config))
     if generator is None:
         generator = torch.Generator().manual_seed(config.random_seed)
     init_radad_model(model, generator)

@@ -143,11 +143,12 @@ def positional_conv(model: Wav2Vec2Model, x: torch.Tensor) -> torch.Tensor:
     return C.gelu(out.transpose(1, 2))
 
 
-def embed_frames(model: Wav2Vec2Model, waveform: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_frames(model: Wav2Vec2Model, waveform: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Conv stack → feature projection (LN → linear) → + positional conv:
-    the transformer's input ``[B, T_frames, D]`` before any encoder LN."""
-    feats = feature_encoder(model, waveform.float())
+    the transformer's input ``[B, T_frames, D]`` before any encoder LN, in
+    ``dtype`` (the waveform is rounded to it first, as JAX's ``encode``)."""
+    feats = feature_encoder(model, waveform.to(dtype))
     fp = model.feat_proj
     x = C.layer_norm(feats, fp["ln_scale"], fp["ln_bias"],
                      model.cfg.layer_norm_eps)
@@ -155,14 +156,15 @@ def embed_frames(model: Wav2Vec2Model, waveform: torch.Tensor
     return x + positional_conv(model, x)
 
 
-def encode(model: Wav2Vec2Model, waveform: torch.Tensor) -> list:
-    """Full forward: ``[B, T_samples]`` → hidden states, a list of L+1
-    ``[B, T_frames, D]`` in HF's ordering: entry i < L is layer i's input
-    (entry 0 after the encoder LN in base models), entry L the last layer's
-    output (after the encoder LN in stable-LN models)."""
+def encode(model: Wav2Vec2Model, waveform: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> list:
+    """Full forward in ``dtype``: ``[B, T_samples]`` → hidden states, a list
+    of L+1 ``[B, T_frames, D]`` in HF's ordering: entry i < L is layer i's
+    input (entry 0 after the encoder LN in base models), entry L the last
+    layer's output (after the encoder LN in stable-LN models)."""
     cfg = model.cfg
     eps, heads = cfg.layer_norm_eps, cfg.num_attention_heads
-    x = embed_frames(model, waveform)
+    x = embed_frames(model, waveform, dtype)
     enc_ln = model.encoder_ln
     if not cfg.do_stable_layer_norm:
         x = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
@@ -177,10 +179,13 @@ def encode(model: Wav2Vec2Model, waveform: torch.Tensor) -> list:
 
 
 def extract_features(model: Wav2Vec2Model, waveform: torch.Tensor,
-                     layers_to_use=(-4, -3, -2, -1)) -> torch.Tensor:
+                     layers_to_use=(-4, -3, -2, -1),
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Mean over the selected hidden-state layers → ``[B, T_frames, D]``
-    f32 (reference feature_extractor.py:32-41)."""
-    hs = encode(model, waveform)
+    f32 (reference feature_extractor.py:32-41). In bf16 the mean sums in
+    f32, rounds to bf16 and then goes to f32, as ``jnp.mean`` of bf16
+    hidden states followed by ``astype(f32)``."""
+    hs = encode(model, waveform, dtype)
     n = len(hs)
     picked = torch.stack([hs[i % n] for i in layers_to_use])
     return picked.mean(0).float()

@@ -101,7 +101,8 @@ class WavLMModel(W.Wav2Vec2Model):
 def gated_bias_factors(x: torch.Tensor, gate_p, num_heads: int
                        ) -> torch.Tensor:
     """Per-layer gate ``[B, T, H]`` for the shared ``[H, T, T]`` position
-    bias, from that layer's attention input ``x [B, T, D]``."""
+    bias, from that layer's attention input ``x [B, T, D]``, in x's dtype
+    (gru_rel_pos_const cast to it, as JAX's ``_gated_bias_factors``)."""
     b, t, d = x.shape
     proj = C.linear(x.reshape(b, t, num_heads, d // num_heads), gate_p["w"],
                     gate_p["b"])  # [B, T, H, 8]
@@ -119,12 +120,14 @@ def position_bias(model: WavLMModel, t: int) -> torch.Tensor:
     return model.rel_attn_embed[buckets].permute(2, 0, 1).contiguous()
 
 
-def encode(model: WavLMModel, waveform: torch.Tensor) -> list:
-    """``[B, T_samples]`` → hidden states, a list of L+1
-    ``[B, T_frames, D]`` (the ordering of ``wav2vec2.encode``)."""
+def encode(model: WavLMModel, waveform: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> list:
+    """``[B, T_samples]`` → hidden states in ``dtype``, a list of L+1
+    ``[B, T_frames, D]`` (the ordering of ``wav2vec2.encode``). pos_bias
+    and every layer's gate are in ``dtype`` too."""
     cfg = model.cfg
     eps, heads = cfg.layer_norm_eps, cfg.num_attention_heads
-    x = W.embed_frames(model, waveform)
+    x = W.embed_frames(model, waveform, dtype)
     enc_ln = model.encoder_ln
     if not cfg.do_stable_layer_norm:
         x = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
@@ -152,11 +155,11 @@ def encode(model: WavLMModel, waveform: torch.Tensor) -> list:
     return hidden
 
 
-def extract_features(model: WavLMModel, waveform: torch.Tensor
-                     ) -> torch.Tensor:
-    """The last hidden state ``[B, T_frames, D]`` f32, as the reference
-    uses WavLM (feature_extractor.py:146-170)."""
-    return encode(model, waveform)[-1].float()
+def extract_features(model: WavLMModel, waveform: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The last hidden state ``[B, T_frames, D]`` as f32, computed in
+    ``dtype``, as the reference uses WavLM (feature_extractor.py:146-170)."""
+    return encode(model, waveform, dtype)[-1].float()
 
 
 @torch.no_grad()

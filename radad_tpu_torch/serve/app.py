@@ -523,8 +523,7 @@ def serve(config, *, host: str = "0.0.0.0", port: int = 5000,
     return httpd
 
 
-def main(argv=None):
-    logging.basicConfig(level=logging.INFO)
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="RADAD demo web app (PyTorch/CUDA port)")
     p.add_argument("--data_path", type=str, required=True)
     p.add_argument("--data_root", type=str, default="data")
@@ -537,24 +536,36 @@ def main(argv=None):
     p.add_argument("--max_duration", type=float, default=None,
                    help="Analyze uploads/recordings up to this many seconds "
                         "(long-audio mode) instead of the 3 s truncation")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="Encoder and fusion model forward in bfloat16; clip "
+                        "embeddings stay f32 after TPP so retrieval "
+                        "semantics are unchanged")
     p.add_argument("--model_name", type=str, default=None,
                    help="HF model id overriding the encoder family's "
                         "default size")
-    args = p.parse_args(argv)
+    return p
 
+
+def config_from_args(args):
     from radad_tpu_torch.config import Config
 
     over = {}
     if args.model_name is not None:
         over[f"{args.feature_extractor.lower()}_model_name"] = args.model_name
-    cfg = Config().replace(
+    return Config().replace(
         train_data_path=args.data_path, test_data_path=args.data_path,
         data_root=args.data_root,
         vector_db_path=os.path.join(args.data_root, "vector_db"),
         feature_extractor_type=args.feature_extractor,
         max_duration=args.max_duration,
+        use_mixed_precision=args.mixed_precision,
         use_batch_norm=False, use_layer_norm=True, **over)
-    httpd = serve(cfg, host=args.host, port=args.port,
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    httpd = serve(config_from_args(args), host=args.host, port=args.port,
                   model_prefix=args.model_prefix, device=args.device)
     httpd.serve_forever()
 

@@ -9,7 +9,9 @@ Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
 
 A predict call runs embed (segment → encoder → TPP → mean over windows)
 → flat search → neighbor gather (``ops.gather.gather_rows``) → fusion
-model. The search is the certified route, or with
+model. With ``use_mixed_precision`` the encoder and the fusion model
+compute in bf16; the clip embeddings leave the encoder as f32, so the
+index, the search and its certificate are the f32 ones. The search is the certified route, or with
 ``DetectionPipeline(use_pallas=True)`` the ``flat_topk`` scan + exact
 re-rank; the JAX package's ``retrieve_on_device`` pins ``use_pallas=False``,
 so there only ``FlatIndex.search`` reaches its kernel. JAX compiles that into one program with ``lax.cond`` for the
@@ -265,12 +267,10 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
 
 def check_ported(config: Config) -> None:
     """Raise NotImplementedError for a configuration the port cannot run
-    yet (SQ8 and IVF indexes, mixed precision)."""
+    yet (SQ8 and IVF indexes)."""
     metric = config.vector_db_index_type.upper()
     if metric in ("SQ8", "IVF"):
         raise NotImplementedError(f"{metric} index: not yet ported")
-    if config.use_mixed_precision:
-        raise NotImplementedError("mixed precision: not yet ported")
 
 
 class DetectionPipeline:

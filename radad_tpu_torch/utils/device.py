@@ -21,6 +21,20 @@ def set_precision_flags() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def compute_dtype(config) -> torch.dtype:
+    """The encoders' and the fusion model's compute dtype:
+    ``config.compute_dtype`` (``"bfloat16"``) with
+    ``config.use_mixed_precision``, else f32 (the JAX package's
+    ``build_encoder`` and ``build_radad_model``). Parameters stay f32."""
+    if not config.use_mixed_precision:
+        return torch.float32
+    dtype = getattr(torch, str(config.compute_dtype), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype {config.compute_dtype!r} is not a "
+                         f"floating dtype")
+    return dtype
+
+
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device`` for ``device``; a CUDA device must exist."""
     dev = torch.device(device)

@@ -156,11 +156,61 @@ def test_fused_mha_kernel_on_card(cuda, t, saturate):
 
 
 def test_fused_mha_rejects_bf16_on_card(cuda):
+    """bf16 mixed with f32 raises (no upcast to reach the f32 body), and so
+    does a head width without a kernel build."""
     x = torch.randn((2, 9, 64), device=cuda).to(torch.bfloat16)
     with pytest.raises(TypeError):
-        fused_mha(x, x, x, 4)
+        fused_mha(x, x, x.float(), 4)
+    with pytest.raises(TypeError):
+        fused_mha(x, x, x, 4, gate=torch.ones((2, 9, 4), device=cuda),
+                  pos_bias=torch.zeros((4, 9, 9), device=cuda,
+                                       dtype=torch.bfloat16))
     with pytest.raises(ValueError):  # head width 24: no kernel build
         fused_mha(*(torch.zeros((1, 5, 48), device=cuda),) * 3, 2)
+
+
+@pytest.mark.parametrize("t,saturate", [
+    (t, False) for t in (1, 7, 8, 15, 16, 17, 63, 64, 65, 99, 128, 129, 600,
+                         1500)
+] + [(130, True)])
+def test_fused_mha_bf16_kernel_on_card(cuda, t, saturate):
+    """Both bf16 bodies against their plain version (f32 logits from the
+    bf16 operands, normalized weights rounded to bf16, p·v in f32, bf16
+    out) within BF16_TOL * (1 + |plain|): T at the edges of the k16 steps,
+    the 16-row warp tiles, the 128-row block and the key tiles, up to 1,500
+    frames; head widths 64, 80 and the other builds (16, 32, 128).
+    ``saturate`` as in the f32 test: the row max grows from tile to tile.
+    One launch per call, counted per body and dtype."""
+    from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for b, h, hd in ((3, 12, 64), (2, 16, 80), (2, 4, 16), (2, 4, 32),
+                     (2, 2, 128)):
+        d = h * hd
+        q, k, v = (torch.randn((b, t, d), generator=g, device=cuda)
+                   for _ in range(3))
+        q *= hd ** -0.5
+        if saturate:
+            kh = k.view(b, t, h, hd)
+            kh = kh * (hd ** 0.5 / kh.norm(dim=-1, keepdim=True))
+            k = kh.reshape(b, t, d).contiguous()
+            q = (80 / hd * kh[:, (37 * torch.arange(t, device=cuda)) % t]
+                 ).reshape(b, t, d).contiguous()
+        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=cuda)
+        pos = torch.randn((h, t, t), generator=g, device=cuda)
+        q, k, v, gate, pos = (x.to(torch.bfloat16) for x in (q, k, v, gate,
+                                                             pos))
+        for extra in ({}, dict(gate=gate, pos_bias=pos)):
+            body = ("bias" if extra else "no_bias") + "_bf16"
+            before = fused_mha.body_launches[body]
+            got = fused_mha(q, k, v, h, **extra)
+            want = fused_mha_plain(q, k, v, h, **extra)
+            torch.cuda.synchronize()
+            assert fused_mha.body_launches[body] == before + 1
+            assert got.dtype == torch.bfloat16
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= BF16_TOL * (1 + want.float().abs())).all()), (
+                t, hd, body, float(err.max()))
 
 
 @pytest.mark.parametrize("metric", ["L2", "IP"])

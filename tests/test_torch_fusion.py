@@ -58,5 +58,12 @@ def test_seeded_init_is_deterministic_and_scaled():
     assert w.abs().max() <= (6.0 / 128) ** 0.5
     assert not any(p.requires_grad for p in a.parameters())
     assert not a.training
-    with pytest.raises(NotImplementedError):
-        tbuild(cfg.replace(use_mixed_precision=True), 224)
+    # mixed precision: the same f32 parameters, a bf16 forward, f32 logits
+    mixed = tbuild(cfg.replace(use_mixed_precision=True), 224)
+    assert mixed.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in mixed.parameters())
+    for (na, pa), (_, pm) in zip(a.state_dict().items(),
+                                 mixed.state_dict().items()):
+        assert torch.equal(pa, pm), na
+    logits = mixed(torch.randn(3, 5, 224), torch.randn(3, 224))
+    assert logits.dtype == torch.float32 and logits.shape == (3,)

@@ -230,7 +230,14 @@ def test_gather_chunks_cover_every_byte_once(dtype, d, m):
 @pytest.mark.parametrize("kind,name", [
     (kind, name) for kind, presets in _PRESETS.items() for name in presets])
 def test_every_preset_head_width_has_a_kernel_build(kind, name):
+    """The preset's head width is in ``_HEAD_DIMS``, and ``fused_mha.cu``
+    dispatches it to an f32 and a bf16 instance (the mixed-precision
+    encoders give the kernel bf16)."""
     cfg = resolve_arch_config(name, None, kind)
     hd, rest = divmod(cfg.hidden_size, cfg.num_attention_heads)
     assert rest == 0 and hd in _HEAD_DIMS, (name, cfg.hidden_size,
                                             cfg.num_attention_heads)
+    src = _source("fused_mha")
+    for launcher in ("launch", "launch_bf16"):
+        assert re.search(rf"case {hd}: return {launcher}<{hd}, BIAS>", src), (
+            name, launcher)
