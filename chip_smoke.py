@@ -20,8 +20,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``fused_mha``'s two 3xTF32 bodies at T = 99, 600 and 1,500, and at head
    width 80, and its two bf16 bodies at the same shapes against their
    plain version within ``BF16_TOL`` * (1 + |plain|), timed beside SDPA on
-   the same bf16 inputs; the HMMA
-   instructions of both kernels counted with ``cuobjdump``) and takes the
+   the same bf16 inputs and beside the streamed two-pass form that the
+   wrapper takes above T = 128; the HMMA
+   instructions of both kernels counted with ``cuobjdump``, per bf16 form,
+   and the resident form's HD 64 and 80 instances required to build
+   without a spill) and takes the
    device time
    (``torch.profiler``) of kernel, plain version, and one PyTorch library
    call computing the same function (``library_ms``, used nowhere in the
@@ -67,11 +70,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    model, f32 parameters and clip embeddings): the wav2vec2 serving phase
    again in bf16 on its own index (neighbors against the f64 scan of its
    own embeddings; one ``predict_batch(8)`` with ``RADAD_FUSED_ATTENTION=1``
-   must launch ``fused_mha``'s bias-free bf16 body), printing the stage
+   must launch ``fused_mha``'s bias-free bf16 body, resident form only),
+   printing the stage
    times beside the f32 phase's, each clip embedding's deviation from the
    f32 pipeline's and recall@5 of the bf16 neighbors against the f32 ones;
-   the WavLM phase in bf16 (``fused_mha``'s bf16 bias body, ``flat_topk``,
-   ``gather_rows``); the trainer in bf16 (path "train_bf16": the card's
+   the WavLM phase in bf16 (``fused_mha``'s bf16 bias body in its resident
+   form only, ``flat_topk``, ``gather_rows``); the trainer in bf16 (path
+   "train_bf16", the resident form only: the card's
    first update against the CPU's bf16 update, 1 epoch + ``evaluate``,
    save -> load, step timings).
 
@@ -99,6 +104,9 @@ SEED = 0
 DB_CLIPS = 256  # synthetic clips embedded through build_vector_database
 INDEX_ROWS = 25_600  # In-the-Wild scale (25,423 clips)
 TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
+# fused_mha's bf16 forms -> the kernel symbol of each (mangled-name prefix)
+BF16_FORMS = {"resident": "mha_bf16_resident_kernel",
+              "streamed": "mha_bf16_kernel"}
 
 
 def _card_line() -> str:
@@ -578,10 +586,13 @@ def _fused_mha_bf16_record(torch, dev, g) -> dict:
     BF16_TOL * (1 + |plain|) in f32 (a bf16 rounding of the output, ~2
     steps at |plain| ~ 1; the CPU emulation of the kernel's rounding stays
     within 2.5e-3 and its faults miss it). Both bodies' HD = 64 and 80
-    instances must hold bf16 HMMA instructions. Timed beside SDPA on the
-    same bf16 inputs (flash without the bias; the bias materialized in
-    bf16, untimed). Bound: q, k, v, out (and gate, pos_bias) in bf16 once
-    at 3.35 TB/s against one Q K^T and one P V at the bf16 rate."""
+    instances must hold bf16 HMMA instructions in both forms (the resident
+    one-pass form that T <= 128 takes, and the streamed two-pass form).
+    Timed beside SDPA on the same bf16 inputs (flash without the bias; the
+    bias materialized in bf16, untimed) and beside the streamed form on
+    the same inputs (``streamed_ms``). Bound: q, k, v, out (and gate,
+    pos_bias) in bf16 once at 3.35 TB/s against one Q K^T and one P V at
+    the bf16 rate."""
     import torch.nn.functional as F
 
     from radad_tpu_torch.ops.attention import (BF16_TOL, fused_mha,
@@ -614,17 +625,19 @@ def _fused_mha_bf16_record(torch, dev, g) -> dict:
         return float(err.max()), rel, _bf16_steps(err, want.float())
 
     counts = _hmma_counts("fused_mha", form="BF16")
-    hmma = {f"{body} HD {hd}": sum(
-        c for f, c in counts.items() if f"mha_bf16_kernelILi{hd}ELb{flag}E" in f)
-        for hd in (64, 80) for body, flag in (("bias", 1), ("no_bias", 0))}
+    hmma = {f"{body} HD {hd} {form}": sum(
+        c for f, c in counts.items() if f"{symbol}ILi{hd}ELb{flag}E" in f)
+        for hd in (64, 80) for body, flag in (("bias", 1), ("no_bias", 0))
+        for form, symbol in BF16_FORMS.items()}
     if counts:
         print(f"fused_mha bf16 SASS (cuobjdump): bf16 HMMA instructions "
               f"{hmma}")
         if min(hmma.values()) <= 0:
-            raise AssertionError(f"a bf16 fused_mha body has no bf16 HMMA "
-                                 f"instruction: {hmma}")
+            raise AssertionError(f"a bf16 fused_mha body (or its symbol) has "
+                                 f"no bf16 HMMA instruction: {hmma}")
     else:
         print("fused_mha bf16 SASS: cuobjdump not found, HMMA not counted")
+    _resident_spills()
     errs = {}
     for b, t, d, h in ((4, 600, 768, 12), (2, 1500, 768, 12),
                        (16, 99, 1280, 16), (128, 99, 768, 12)):
@@ -653,17 +666,23 @@ def _fused_mha_bf16_record(torch, dev, g) -> dict:
                 lambda extra=extra: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask if extra else None,
                     scale=1.0))
+            # the streamed form (taken above T = 128) on the same inputs
+            rec["streamed_ms"] = device_ms(
+                torch, _bf16_form_call(qkv, h, extra, "streamed"))
             extra_bytes = (b * t * h + h * t * t) * 2 if extra else 0
             rec["bound_ms"], rec["bound_by"] = bound_ms(
                 4 * b * t * d * 2 + extra_bytes, 4.0 * b * h * t * t * hd,
                 rate=BF16_FLOPS)
             e, r, st = errs[(t, hd, bool(extra))]
             rec.update(max_abs_err=e, max_rel_err=r, max_bf16_steps=st,
-                       hmma=hmma.get(f"{body} HD {hd}") if counts else None)
+                       hmma=hmma.get(f"{body} HD {hd} resident") if counts
+                       else None)
             recs[tag + body] = rec
             print(f"fused_mha bf16 {body} [{b},{t},{d}] {h} heads: device "
-                  f"{rec['ms']:.4f} ms, SDPA bf16 {rec['library_ms']:.4f} ms, "
-                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+                  f"{rec['ms']:.4f} ms (resident form; the streamed form "
+                  f"{rec['streamed_ms']:.4f} ms), SDPA bf16 "
+                  f"{rec['library_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
                   f"{rec['plain_ms']:.4f} ms")
     rec = dict(recs["bias"])  # the headline body's timings
     rec.update(
@@ -683,6 +702,52 @@ def _fused_mha_bf16_record(torch, dev, g) -> dict:
     rec["no_bias"] = recs["no_bias"]
     rec["hd80"] = {k[5:]: v for k, v in recs.items() if k.startswith("hd80_")}
     return rec
+
+
+def _bf16_form_call(qkv, h, extra, form: str):
+    """A call of fused_mha's C entry in bf16 with the form given (the
+    wrapper picks the form by shape; this times the other one beside it)."""
+    import ctypes
+
+    import torch
+
+    from radad_tpu_torch.ops import _native
+    from radad_tpu_torch.ops.attention import _FORMS
+
+    q, k, v = qkv
+    b, t, d = q.shape
+    out = torch.empty_like(q)
+    fn = _native.library("fused_mha").radad_fused_mha_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    gate, pos = extra.get("gate"), extra.get("pos_bias")
+
+    def call():
+        _native.check_launch("fused_mha", fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if gate is None else gate.data_ptr(),
+            None if pos is None else pos.data_ptr(), out.data_ptr(), b, t, d,
+            h, _FORMS.index(form), _native.stream_of(q)))
+        return out
+    return call
+
+
+def _resident_spills() -> None:
+    """Raises if ptxas reports a spill in a resident bf16 instance at head
+    width 64 or 80 (the shipped encoders; ``header`` prints every line)."""
+    from radad_tpu_torch.ops import _native
+
+    report = _native.build_reports.get("fused_mha", "")
+    lines = [(fn, line) for fn, line in ptxas_lines(report)
+             if BF16_FORMS["resident"] in fn and "spill" in line
+             and ("ILi64E" in fn or "ILi80E" in fn)]
+    if report and not lines:
+        raise AssertionError("no resident bf16 instance in ptxas's report")
+    for fn, line in lines:
+        if not line.startswith("0 bytes stack frame, 0 bytes spill stores"):
+            raise AssertionError(f"resident bf16 instance spills: {fn}: "
+                                 f"{line}")
 
 
 def _hmma_counts(name: str, form: str = "") -> dict:
@@ -1106,7 +1171,17 @@ def _launch_counts(kernels) -> dict:
     body = fused_mha.body_launches
     out["fused_mha"] = body["bias"] + body["no_bias"]
     out["fused_mha_bf16"] = body["bias_bf16"] + body["no_bias_bf16"]
+    for form, n in fused_mha.form_launches.items():
+        out[f"fused_mha_bf16_{form}"] = n
     return out
+
+
+def _resident_only(launches, label: str) -> None:
+    """The path's bf16 attention ran the resident form alone (T = 99)."""
+    if (launches["fused_mha_bf16_resident"] <= 0
+            or launches["fused_mha_bf16_streamed"]):
+        raise AssertionError(f"{label}: fused_mha bf16 launched other than "
+                             f"the resident form alone: {launches}")
 
 
 def _reset(kernels) -> None:
@@ -1410,6 +1485,7 @@ def serving_bf16_phase(torch, dev, tmp: str, ref: dict):
     if body["no_bias_bf16"] <= 0 or sum(body.values()) != body["no_bias_bf16"]:
         raise AssertionError(f"bf16 fused attention: the bias-free bf16 body "
                              f"not launched alone ({body})")
+    _resident_only(fused_launches, "wav2vec2 bf16 fused attention")
     base = _embed_paths(torch, pipe, sets["predict_batch_8"]).double()
     drel = ((moved.double() - base).norm(dim=-1) / base.norm(dim=-1)).max()
     same = sum(a["retrieved_files"] == b["retrieved_files"]
@@ -1458,6 +1534,8 @@ def wavlm_phase(torch, dev, tmp: str, mixed: bool = False):
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      f"{label} serving path")
+        if mixed:
+            _resident_only(launches, label)
         _report(lat, stages, pipe, launches, label)
         print(f"{label} fused_mha per body {body}")
         for name in ("predict_batch_8", "predict_batch_64"):
@@ -2013,6 +2091,7 @@ def _train_bf16(torch, dev, tmp: str):
     if launches["fused_mha"] or launches["flat_topk"]:
         raise AssertionError(f"the bf16 training path launched an f32 "
                              f"attention or flat_topk: {launches}")
+    _resident_only(launches, "train_bf16")
 
     fresh = _resumed(torch, pipe, cfg, dev)
     print(f"train bf16 resume: optimizer state, step {pipe.step} and f32 "
@@ -2079,7 +2158,13 @@ def main() -> int:
             rec["max_rel_err"] = r["max_rel_err"]
             rec["no_bias"] = {key: r["no_bias"][key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "max_rel_err")}
+                "max_abs_err", "max_rel_err") + (
+                    ("streamed_ms",) if "streamed_ms" in r else ())}
+        if "streamed_ms" in r:
+            rec["streamed_ms"] = r["streamed_ms"]
+            rec["launches_by_form"] = {
+                form: sum(n.get(f"fused_mha_bf16_{form}", 0)
+                          for n in by_path.values()) for form in BF16_FORMS}
         if "hmma" in r:
             rec["hmma"] = r["hmma"]
         if "max_bf16_steps" in r:

@@ -1,0 +1,288 @@
+#!/usr/bin/env python3
+"""Device time of ``csrc/fused_mha.cu``'s bf16 bodies and of variants of
+them, on one GPU, at the WavLM serving shape (q, k, v [128, 99, 768] bf16,
+12 heads of 64; gate [128, 99, 12], pos_bias [12, 99, 99]) and at head
+width 80 ([16, 99, 1280], 16 heads).
+
+Each variant is the committed source with a few lines replaced, built by
+its own ``nvcc`` (the port's flags) into
+``radad_tpu_torch/build/variants/`` and called through its C entry
+``radad_fused_mha_bf16`` with the form it names:
+
+* ``as_built``: the resident form as it is (one pass at T <= 128: Q, K
+  and V of a (batch row, head) in shared memory, S in registers, the exact
+  row max and sum, ``ldmatrix`` fragments, ex2 and one reciprocal a row;
+  grid (heads, row groups) sized to one wave, each block walking its batch
+  rows with the next row's copies in flight, pos_bias staged once a block
+  in ``ldmatrix`` rows; at most 128 registers, 2 blocks of 7 warps an SM;
+  O stored from the accumulator fragments);
+* ``streamed``: the same library's streamed two-pass form (taken above
+  T = 128);
+* ``rows1``: one (batch row, head) a block, one row buffer;
+* ``regs255``: no register cap (one block an SM);
+* ``warps8``: 8 warps a block at every T (at T = 99 one has no rows; the
+  8-warp instance, one block an SM);
+* ``scalar_reads``: Q, K fragments by 32-bit and V's by 16-bit shared
+  reads instead of ``ldmatrix``;
+* ``expf_div``: e = expf(s - m) and p = e / l, as the streamed form;
+* ``staged_store``: O staged in bf16 through the warp's own Q rows, then
+  16-byte stores of whole rows.
+
+Every variant must stay within ``BF16_TOL`` * (1 + |plain|) of
+``fused_mha_plain`` (else the script raises). Times are CUDA-event means
+over back-to-back launches, taken in turns (as_built, variant, variant,
+as_built), beside SDPA on the same bf16 inputs and the plain version in
+the same call; one line times ``as_built`` at B = 12 ... 128 (rows a block
+1 ... 11). Run from the root of a checkout:
+``python3 experiments/fused_mha_bf16_variants.py [--out FILE]``; it prints
+a table and writes it to ``FILE`` (default
+``runs/fused_mha_bf16_variants.txt``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+RESIDENT, STREAMED = 1, 0  # the C entry's form codes
+
+# one (batch row, head) a block: a block never prefetches, one buffer
+ROWS1 = (("constexpr int kResBuffers = 2;", "constexpr int kResBuffers = 1;"),
+         ("  int64_t groups = (static_cast<int64_t>(sms) * per_sm + heads - 1)"
+          " / heads;\n", "  int64_t groups = b;\n"))
+# 8 warps at every T: the 8-warp instance
+WARPS8 = (("  const int threads = 32 * ((t + 15) / 16);",
+           "  const int threads = 32 * 8;"),
+          ("  if (t <= 112)\n    return launch_resident_nk<HD, BIAS, 7>",
+           "  if (false)\n    return launch_resident_nk<HD, BIAS, 7>"))
+SCALAR_READS = (
+    ("  ldsm_x4(a, q0 + (lane % 16) * RS + 16 * kk + 8 * (lane / 16));\n",
+     "  const bf16* p = q0 + (lane / 4) * RS + 16 * kk + 2 * (lane % 4);\n"
+     "  a[0] = *reinterpret_cast<const uint32_t*>(p);\n"
+     "  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * RS);\n"
+     "  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);\n"
+     "  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * RS + 8);\n"),
+    ("  ldsm_x4(b, kt + (16 * p + lane % 8 + 8 * (lane / 16)) * RS + 16 * kk"
+     " + 8 * (lane / 8 % 2));\n",
+     "  const bf16* r = kt + (16 * p + lane / 4) * RS + 16 * kk"
+     " + 2 * (lane % 4);\n"
+     "  b[0] = *reinterpret_cast<const uint32_t*>(r);\n"
+     "  b[1] = *reinterpret_cast<const uint32_t*>(r + 8);\n"
+     "  b[2] = *reinterpret_cast<const uint32_t*>(r + 8 * RS);\n"
+     "  b[3] = *reinterpret_cast<const uint32_t*>(r + 8 * RS + 8);\n"),
+    ("  ldsm_x4_trans(b, vt + (16 * kk + lane % 16) * RS + 16 * n"
+     " + 8 * (lane / 16));\n",
+     "  const bf16* r = vt + (16 * kk + 2 * (lane % 4)) * RS + 16 * n"
+     " + lane / 4;\n"
+     "  b[0] = pair_u32(r[0], r[RS]);\n"
+     "  b[1] = pair_u32(r[8 * RS], r[9 * RS]);\n"
+     "  b[2] = pair_u32(r[8], r[RS + 8]);\n"
+     "  b[3] = pair_u32(r[8 * RS + 8], r[9 * RS + 8]);\n"),
+)
+EXPF_DIV = (
+    ("float res_scale_max(float m) { return m * kLog2e; }",
+     "float res_scale_max(float m) { return m; }"),
+    ("float res_exp(float s, float ms) { return ex2(fmaf(s, kLog2e, -ms)); }",
+     "float res_exp(float s, float ms) { return expf(s - ms); }"),
+    ("float res_norm(float l) { return __frcp_rn(l); }",
+     "float res_norm(float l) { return l; }"),
+    ("float res_weight(float e, float n) { return e * n; }",
+     "float res_weight(float e, float n) { return e / n; }"),
+)
+# O staged in bf16 through the warp's own Q rows (read only by this warp,
+# in its Q K^T), then 16-byte stores of whole rows
+STAGED_STORE = (
+    ("          bf16* row = out + row_base(b) + static_cast<int64_t>(t_lo) * d_model"
+     " + 16 * n + 2 * c;\n",
+     "          bf16* row = const_cast<bf16*>(qw) + g * RS + 16 * n + 2 * c;\n"),
+    ("          bf16* row = out + row_base(b) + static_cast<int64_t>(t_hi) * d_model"
+     " + 16 * n + 2 * c;\n",
+     "          bf16* row = const_cast<bf16*>(qw) + (g + 8) * RS + 16 * n + 2 * c;\n"),
+    ("      }\n    }\n    // the next row's gate; its slot was last read before this"
+     " row's barrier\n",
+     """      }
+      __syncwarp();
+      bf16* orow = out + row_base(b);
+#pragma unroll
+      for (int j = lane; j < 16 * kCopies; j += 32) {
+        const int r = j / kCopies, col = (j % kCopies) * 8;
+        if (r0 + r < t_len)
+          *reinterpret_cast<uint4*>(orow + static_cast<int64_t>(r0 + r) * d_model + col) =
+              *reinterpret_cast<const uint4*>(qw + r * RS + col);
+      }
+    }
+    // the next row's gate; its slot was last read before this row's barrier
+"""),
+)
+VARIANTS = {  # name -> (form, (old text, new text) swaps)
+    "as_built": (RESIDENT, ()),
+    "streamed": (STREAMED, ()),  # the as_built library's streamed form
+    "rows1": (RESIDENT, ROWS1),
+    "regs255": (RESIDENT, (("constexpr int kResMinBlocks = 2;",
+                            "constexpr int kResMinBlocks = 1;"),)),
+    "warps8": (RESIDENT, WARPS8),
+    "scalar_reads": (RESIDENT, SCALAR_READS),
+    "expf_div": (RESIDENT, EXPF_DIV),
+    "staged_store": (RESIDENT, STAGED_STORE),
+}
+
+
+def build_variants() -> dict:
+    """name -> (form, loaded library) of every variant, built in
+    parallel; prints ptxas's registers and spills of the HD 64 and 80
+    instances of the body each variant runs."""
+    from radad_tpu_torch.ops import _native
+
+    src = open(os.path.join(_native.CSRC_DIR, "fused_mha.cu")).read()
+    out_dir = os.path.join(_native.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, (form, swaps) in VARIANTS.items():
+        if name == "streamed":
+            continue
+        text = src
+        for old, new in swaps:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: '{old}' not found once")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"fused_mha_bf16_{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        lib = os.path.join(out_dir, f"libfused_mha_bf16_{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_native._nvcc(), *_native.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{err}")
+        report = (out + err).splitlines()
+        for i, line in enumerate(report):
+            for hd in (64, 80):
+                for flag, body in ((0, "no bias"), (1, "bias")):
+                    tag = f"mha_bf16_resident_kernelILi{hd}ELb{flag}E"
+                    if tag in line and "Function properties" in line:
+                        print(f"ptxas[{name}, HD {hd} {body}]: " + " | ".join(
+                            x.strip() for x in report[i + 1: i + 3]))
+        libs[name] = (VARIANTS[name][0], ctypes.CDLL(lib))
+    libs["streamed"] = (STREAMED, libs["as_built"][1])
+    return libs
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=os.path.join(
+        "runs", "fused_mha_bf16_variants.txt"))
+    ap.add_argument("--iters", type=int, default=200)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from radad_tpu_torch.ops import _native
+    from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
+
+    card, dev = cs.header(torch)
+    libs = build_variants()
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    lines = [f"card: {card}",
+             f"CUDA-event ms per launch, {args.iters} launches; err = max "
+             f"|kernel - plain| / (1 + |plain|), tolerance {BF16_TOL}"]
+    faults = []
+
+    def emit(line):
+        print(line)
+        lines.append(line)
+
+    for b, t, d, h in ((128, 99, 768, 12), (16, 99, 1280, 16)):
+        hd = d // h
+        q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
+                   for _ in range(3))
+        q *= hd ** -0.5
+        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=dev)
+        pos = torch.randn((h, t, t), generator=g, device=dev)
+        q, k, v, gate, pos = (x.to(bf) for x in (q, k, v, gate, pos))
+        out = torch.empty_like(q)
+
+        def call(form, lib, bias, rows=b):
+            fn = lib.radad_fused_mha_bf16
+            fn.argtypes = [ctypes.c_void_p] * 6 + [
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+            def go():
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        gate.data_ptr() if bias else None,
+                        pos.data_ptr() if bias else None, out.data_ptr(),
+                        rows, t, d, h, form, _native.stream_of(q))
+                _native.check_launch("fused_mha bf16 variant", rc)
+            return go
+
+        qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in (q, k, v))
+        mask = (gate.float().transpose(1, 2)[..., None]
+                * pos.float()[None]).to(bf)
+        for bias in (False, True):
+            extra = dict(gate=gate, pos_bias=pos) if bias else {}
+            want = fused_mha_plain(q, k, v, h, **extra).float()
+            errs = {}
+            for name, (form, lib) in libs.items():
+                call(form, lib, bias)()
+                torch.cuda.synchronize()
+                errs[name] = float(((out.float() - want).abs()
+                                    / (1 + want.abs())).max())
+                if not errs[name] <= BF16_TOL:
+                    faults.append(f"{name} [{b},{t},{d}] bias={bias}: err "
+                                  f"{errs[name]:.3e} outside {BF16_TOL}")
+            base = call(*libs["as_built"], bias)
+            row = {}
+            for name, (form, lib) in libs.items():
+                if name == "as_built":
+                    continue
+                var = call(form, lib, bias)
+                ts = [cs.time_ms(torch, f, iters=args.iters)
+                      for f in (base, var, var, base)]
+                row["as_built"] = row.get("as_built", []) + [ts[0], ts[3]]
+                row[name] = [ts[1], ts[2]]
+            row["sdpa"] = [cs.time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask if bias else None, scale=1.0),
+                iters=args.iters)]
+            row["plain"] = [cs.time_ms(
+                torch, lambda: fused_mha_plain(q, k, v, h, **extra),
+                iters=20)]
+            emit(f"[{b},{t},{d}] {h} heads {'bias' if bias else 'no bias'}: "
+                 + ", ".join(
+                     f"{n} {sum(x) / len(x):.4f} ms "
+                     f"{[round(y, 4) for y in x]}"
+                     + (f" err {errs[n]:.3e}" if n in errs else "")
+                     for n, x in row.items()))
+            if b == 128:
+                sweep = {rows: cs.time_ms(torch, call(*libs["as_built"], bias,
+                                                      rows),
+                                          iters=args.iters)
+                         for rows in (12, 24, 48, 96, 128)}
+                emit(f"  as_built by B ({'bias' if bias else 'no bias'}): "
+                     + ", ".join(f"B={r} {ms:.4f} ms"
+                                 for r, ms in sweep.items()))
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines + faults) + "\n")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -74,40 +74,55 @@
 //   cudaFuncSetAttribute.
 // No wgmma or TMA yet.
 //
-// bf16 bodies (mha_bf16_kernel; the mixed-precision encoders give q, k, v,
-// gate and pos_bias all in bf16): the Pallas bodies form the logits in f32
-// from the bf16 operands, take the softmax in f32, cast the NORMALIZED
-// weights to v's dtype, accumulate P V in f32 and store the output in bf16.
-// - Arithmetic: one mma.sync m16n8k16 bf16 -> f32 for each k16 step of
-//   S = Q K^T and of O = P V: the operands are bf16 already and their
-//   products are exact in f32, so no split. Softmax, the gate x pos_bias
-//   product and its add stay f32 on the CUDA cores, as in the f32 body.
-//   P goes to bf16 (RN) in place in registers: the S accumulator holds keys
-//   2c, 2c + 1 (and 2c + 8, 2c + 9 in the next n8 fragment) of rows g and
-//   g + 8, which is the k16 A operand's layout, so a pair of S values packs
-//   into one A register. V's B fragment (keys 2c, 2c + 1, dim g) is two
-//   16-bit reads of a row-major V tile. Each P V block goes into a zero
-//   accumulator and is added to O with RN f32 adds, as in the f32 body (the
-//   tensor core truncates when it adds; O sums over all T keys).
-// - Softmax: two passes over the key tiles, not the online softmax. Pass 1
-//   streams K only and takes each row's max m and sum l (online over the
-//   tiles, in f32); pass 2 streams K and V again, recomputes the same S (the
-//   same instructions, so the same values), forms p = exp(s - m) / l, the
-//   normalized weight, and rounds it to bf16 before the P V product. That
-//   is where the Pallas body rounds (w.astype(v.dtype) after the softmax);
-//   the online softmax would round unnormalized weights exp(s - m_j) and
-//   divide at the end, another rounding of every weight. The price is Q K^T
-//   twice and K read twice, from the L2 (it is the [T, HD] slice of one
-//   head); the bf16 products take a small part of the time.
-// - Tiling, rings and edges as in the f32 body: 8 warps of 16 query rows a
-//   block, 32-key tiles of K (and V in pass 2) double-buffered by 16-byte
-//   cp.async with zero-fill past T; rows keep a stride of HD + 8 bf16 (16
-//   bytes of pad), so the A and B fragment reads (row = lane / 4, 32-bit
-//   word = lane % 4) and V's 16-bit reads (key = 2 (lane % 4), dim = lane /
-//   4) fall on distinct banks. Every HD in _HEAD_DIMS is a multiple of k16.
-// Bound at the WavLM serving shape in bf16: 78.4 MB of q, k, v, out, gate
-// and pos_bias, 0.0234 ms at 3.35 TB/s, against 3.85 GFLOP (5.8 with pass
-// 1's second Q K^T) at 989 TFLOP/s: bound by bytes.
+// bf16 bodies (the mixed-precision encoders give q, k, v, gate and pos_bias
+// all in bf16): the Pallas bodies form the logits in f32 from the bf16
+// operands, take the softmax in f32, cast the NORMALIZED weights to v's
+// dtype, accumulate P V in f32 and store the output in bf16. Both forms
+// below run one mma.sync m16n8k16 bf16 -> f32 for each k16 step of S = Q K^T
+// and of O = P V (bf16 products are exact in f32, so no split); the gate x
+// pos_bias product and its add, the softmax and the RN f32 adds of each
+// P V block into O (the tensor core truncates when it adds) are f32 on the
+// CUDA cores. P goes to bf16 (RN) in place in registers: the S accumulator
+// holds keys 2c, 2c + 1 (and 2c + 8, 2c + 9 in the next n8 fragment) of rows
+// g and g + 8, the k16 A operand's layout. The wrapper picks the form by
+// shape (ops/attention.py::bf16_form) and passes it to the C entry, which
+// refuses a form it cannot take.
+// - Resident form (mha_bf16_resident_kernel; T <= 128, HD <= 80: every
+//   shipped encoder's 2 s window, T = 99). A block walks batch rows of one
+//   head, ceil(T / 16) warps of 16 query rows; its grid (heads, row groups)
+//   is one wave at the occupancy the runtime reports. Each row's Q, K and V
+//   slices of the head land in shared memory by 16-byte cp.async, the next
+//   row's while this one computes (two buffers; K and Q rows past T are not
+//   stored, reads past them fall into finite data of rows and keys that are
+//   dropped, V's are zero). pos_bias[h] is staged once a block, flat by
+//   16-byte copies and laid out in rows of a stride = 8 (mod 16), so that
+//   one ldmatrix.x4 gives the bias of two key fragments in the S
+//   accumulator's layout; the gate column of the next row (strided) is
+//   loaded into a register before the row's copies and staged at its end.
+//   A warp holds its whole row of S in registers (2 NK n8 fragments,
+//   NK = 7 at T <= 112, else 8), takes the exact row max and sum in one
+//   pass (the lane's fragments, then the quad; no online rescale),
+//   e = ex2(s log2(e) - m log2(e)) with one FMA and p = e * (1 / l) with one
+//   reciprocal a row, so Q K^T runs once and exp once a logit. Fragments
+//   come from ldmatrix.x4 (.trans for V); rows of HD + 8 keep the eight
+//   16-byte row addresses of each 8 x 8 matrix on distinct banks. At
+//   T <= 112, at most 128 registers, so 2 blocks of 7 warps an SM (8 warps
+//   at T > 112: one block, no register cap). What bounds it: the issue of
+//   its instructions and the latency of each warp's dependent chains at 14
+//   warps an SM, more than the byte rate (PERF.md).
+// - Streamed form (mha_bf16_kernel; T > 128, and HD 128 at any T, whose
+//   resident form would not fit in shared memory): two passes over 32-key
+//   tiles of K (and V in pass 2) double-buffered by 16-byte cp.async with
+//   zero-fill past T, 8 warps of 16 query rows a block. Pass 1 takes each
+//   row's max m and sum l (online over the tiles); pass 2 recomputes the same
+//   S, forms p = exp(s - m) / l and rounds it. The online softmax would
+//   round unnormalized weights, another rounding of every weight. Rows keep
+//   a stride of HD + 8 bf16, so the A and B fragment reads (row = lane / 4,
+//   32-bit word = lane % 4) and V's 16-bit reads (key = 2 (lane % 4), dim =
+//   lane / 4) fall on distinct banks.
+// Every HD in _HEAD_DIMS is a multiple of k16. Bound at the WavLM serving
+// shape in bf16: 78.4 MB of q, k, v, out, gate and pos_bias, 0.0234 ms at
+// 3.35 TB/s, against 3.85 GFLOP at 989 TFLOP/s: bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -696,10 +711,413 @@ mha_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------ bf16 resident body (T <= kResMaxT)
+
+constexpr int kFormStreamed = 0;  // the C entry's `form`: mha_bf16_kernel
+constexpr int kFormResident = 1;  // mha_bf16_resident_kernel
+constexpr int kResMaxT = 128;     // the resident body's largest T (16 n8 key fragments)
+constexpr int kResMaxHD = 80;     // and head width (HD 128 takes the streamed body)
+constexpr int kResMinBlocks = 2;  // blocks an SM at T <= 112 (7 warps): 128 registers
+constexpr int kResBuffers = 2;    // row buffers: the next batch row lands during this one
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys (and query rows) padded to whole k16 steps
+__host__ __device__ constexpr int res_keys(int t) { return (t + 15) / 16 * 16; }
+
+// pos_bias[h] in shared memory: rows of res_bias_stride(T) >= T bf16, the
+// smallest = 8 (mod 16), so that ldmatrix's row addresses are 16-byte
+// aligned and the eight rows of a matrix fall on distinct banks; tp rows
+// (zero past T), 16 elements of slack for the last row's padded keys
+__host__ __device__ constexpr int res_bias_stride(int t) { return (t + 7) / 16 * 16 + 8; }
+__host__ __device__ constexpr int res_bias(int t) { return res_keys(t) * res_bias_stride(t) + 16; }
+
+// bf16 elements of one row buffer: Q and K of T rows, V of tp rows (HD + 8
+// wide). Reads of the last warp's Q rows past T fall into K, and of K's keys
+// past T into V (whose rows past T are zero): finite values of rows that are
+// not stored and of keys that are masked.
+template <int HD>
+__host__ __device__ constexpr int res_buffer(int t) {
+  return (2 * t + res_keys(t)) * (HD + 8);
+}
+
+// the row buffers, then for the bias body pos_bias[h] and the gate column of
+// this and the next batch row ([2][tp])
+template <int HD, bool BIAS>
+constexpr size_t res_smem_bytes(int t) {
+  return sizeof(bf16) *
+         (kResBuffers * res_buffer<HD>(t) + (BIAS ? res_bias(t) + 2 * res_keys(t) : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// 16-byte asynchronous copy of the first `bytes` (1 .. 16), zero-filling the rest
+__device__ __forceinline__ void cp_async16_part(bf16* dst, const bf16* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// Q's A fragment of k16 step kk for the 16 rows at q0 (row stride RS): rows
+// g, g + 8 and columns 2c, 2c + 8 of the step; lane l names row l % 16 of
+// column half l / 16
+template <int RS>
+__device__ __forceinline__ void frag_q(uint32_t (&a)[4], const bf16* q0, int kk, int lane) {
+  ldsm_x4(a, q0 + (lane % 16) * RS + 16 * kk + 8 * (lane / 16));
+}
+
+// K's B fragments of k16 step kk for key fragments 2p (b[0], b[1]) and
+// 2p + 1 (b[2], b[3]): key g, dims 2c and 2c + 8 of the step
+template <int RS>
+__device__ __forceinline__ void frag_k(uint32_t (&b)[4], const bf16* kt, int p, int kk,
+                                       int lane) {
+  ldsm_x4(b, kt + (16 * p + lane % 8 + 8 * (lane / 16)) * RS + 16 * kk + 8 * (lane / 8 % 2));
+}
+
+// V's B fragments of keys 16 kk .. 16 kk + 15 for the n8 fragments 2n (b[0],
+// b[1]) and 2n + 1 (b[2], b[3]): keys 2c, 2c + 1 (+ 8) of dim g, transposed
+// out of the row-major V rows
+template <int RS>
+__device__ __forceinline__ void frag_v(uint32_t (&b)[4], const bf16* vt, int kk, int n,
+                                       int lane) {
+  ldsm_x4_trans(b, vt + (16 * kk + lane % 16) * RS + 16 * n + 8 * (lane / 16));
+}
+
+// pos_bias of key fragments 2p (b[0]: rows g, b[1]: rows g + 8) and 2p + 1
+// (b[2], b[3]) for the 16 rows at b0 (row stride BS): keys 2c, 2c + 1 of the
+// fragment, the S accumulator's own layout
+__device__ __forceinline__ void frag_bias(uint32_t (&b)[4], const bf16* b0, int bs, int p,
+                                          int lane) {
+  ldsm_x4(b, b0 + (lane % 16) * bs + 16 * p + 8 * (lane / 16));
+}
+
+// the two bf16 of a pair as f32 (the lower key in the low half)
+__device__ __forceinline__ float lo_f32(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f32(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The softmax's arithmetic: e = 2^(s log2(e) - m log2(e)) (one FMA and ex2),
+// then p = e * (1 / l) with the reciprocal once a row
+__device__ __forceinline__ float res_scale_max(float m) { return m * kLog2e; }
+__device__ __forceinline__ float res_exp(float s, float ms) { return ex2(fmaf(s, kLog2e, -ms)); }
+__device__ __forceinline__ float res_norm(float l) { return __frcp_rn(l); }
+__device__ __forceinline__ float res_weight(float e, float n) { return e * n; }
+
+// grid (heads, row groups): block (h, y) takes batch rows y, y + gridDim.y, ...
+// of head h, ceil(T / 16) warps of 16 query rows; NK: the most k16 key steps
+// (T <= 16 NK), which sizes S in registers and the block
+template <int HD, bool BIAS, int NK>
+__global__ void __launch_bounds__(NK * 32, NK <= 7 ? kResMinBlocks : 1)
+mha_bf16_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ gate,
+                         const bf16* __restrict__ pos, bf16* __restrict__ out, int64_t n_rows,
+                         int t_len, int d_model, int heads) {
+  constexpr int RS = HD + 8;            // padded row stride (bf16): 16 bytes of pad
+  constexpr int K16 = HD / 16;          // k16 steps of Q K^T
+  constexpr int NF = HD / 8;            // n8 fragments of O
+  constexpr int kCopies = HD / 8;       // 16-byte copies a row
+  constexpr int kMaxKF = 2 * NK;        // n8 key fragments of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tp = res_keys(t_len);
+  const int nks = tp / 16;              // k16 key steps
+  bf16* bufs = reinterpret_cast<bf16*>(smem_raw);  // [kResBuffers][Q, K, V]
+  bf16* bias_s = bufs + kResBuffers * res_buffer<HD>(t_len);  // [tp][bs] + slack
+  bf16* gate_s = bias_s + res_bias(t_len);                     // [2][tp], 0 past T
+
+  const int h = blockIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r0 = warp * 16;
+  const int t_lo = r0 + g, t_hi = t_lo + 8;  // the lane's query rows, < tp
+  const bool active = r0 < t_len;            // warp-uniform
+
+  auto row_base = [&](int64_t b) { return b * t_len * static_cast<int64_t>(d_model) + h * HD; };
+  // batch row b's Q, K and V slices of head h into buffer `slot`; V zero past T
+  auto fetch = [&](int64_t b, int slot) {
+    bf16* qd = bufs + slot * res_buffer<HD>(t_len);
+    bf16* kd = qd + t_len * RS;
+    bf16* vd = kd + t_len * RS;
+    const int64_t base = row_base(b);
+    for (int i = tid; i < tp * kCopies; i += nthreads) {
+      const int r = i / kCopies, col = (i % kCopies) * 8;
+      const bool ok = r < t_len;
+      const int64_t src = ok ? base + static_cast<int64_t>(r) * d_model + col : 0;
+      if (ok) {
+        cp_async16(qd + r * RS + col, q + src, true);
+        cp_async16(kd + r * RS + col, k + src, true);
+      }
+      cp_async16(vd + r * RS + col, v + src, ok);
+    }
+  };
+
+  int b = blockIdx.y;  // batch rows <= 65,535 (the wrapper checks)
+  const int stride = gridDim.y;
+  // gate[b, t, h] of a batch row, thread t's element (0 past T): a strided
+  // column, loaded a row ahead into a register and staged at the row's end
+  auto gate_of = [&](int64_t row) {
+    return BIAS && tid < t_len ? gate[(row * t_len + tid) * heads + h] : bf16(0);
+  };
+  if (BIAS && tid < tp) gate_s[tid] = gate_of(b);
+  fetch(b, 0);
+  // pos_bias[h] once a block: 16-byte copies of the flat [T, T] slice from
+  // the aligned element e0 - a into the end of its region, then (after
+  // every copy has landed) into rows of stride bs through registers: each
+  // thread reads its 8-key chunks of the padded layout, the block waits,
+  // each writes them (zero past T)
+  const int bs = res_bias_stride(t_len);
+  if constexpr (BIAS) {
+    const int64_t e0 = static_cast<int64_t>(h) * t_len * t_len;
+    const int a = static_cast<int>(e0 % 8);
+    const int have = a + t_len * t_len;        // elements of the flat copy
+    const int fo = res_bias(t_len) - (have + 7) / 8 * 8;  // its place, >= 0
+    for (int j = tid; 8 * j < have; j += nthreads)
+      cp_async16_part(bias_s + fo + 8 * j, pos + (e0 - a) + 8 * j, 2 * min(8, have - 8 * j));
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int per_row = bs / 8, n_chunks = tp * per_row;  // <= (NK + 1) nthreads
+    uint4 chunk[NK + 1];
+    int r = tid / per_row, k0 = (tid % per_row) * 8;
+#pragma unroll
+    for (int u = 0; u <= NK; ++u) {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (r < t_len) {
+        const bf16* src = bias_s + fo + a + r * t_len;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (k0 + e < t_len) w[e / 2] |= static_cast<uint32_t>(src[k0 + e]) << (16 * (e % 2));
+      }
+      chunk[u] = make_uint4(w[0], w[1], w[2], w[3]);
+      k0 += (nthreads % per_row) * 8;  // the next chunk: nthreads further on
+      r += nthreads / per_row + (k0 >= bs ? 1 : 0);
+      if (k0 >= bs) k0 -= bs;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u <= NK; ++u) {
+      const int it = tid + u * nthreads;
+      if (it < n_chunks)
+        *reinterpret_cast<uint4*>(bias_s + (it / per_row) * bs + (it % per_row) * 8) = chunk[u];
+    }
+  }
+  cp_async_commit();
+
+  for (int i = 0; b < n_rows; ++i, b += stride) {
+    const int slot = i % kResBuffers;
+    cp_async_wait_all();  // row b has landed (this thread's copies)
+    __syncthreads();      // ... everyone's; the slot of row b - stride is consumed
+    const int next = b + stride;
+    const bf16 gate_next = next < n_rows ? gate_of(next) : bf16(0);  // before the copies
+    if (next < n_rows) {
+      fetch(next, (i + 1) % kResBuffers);
+      cp_async_commit();
+    }
+    if (active) {
+      const bf16* qw = bufs + slot * res_buffer<HD>(t_len) + r0 * RS;  // the warp's 16 Q rows
+      const bf16* kt = bufs + slot * res_buffer<HD>(t_len) + t_len * RS;
+      const bf16* vt = kt + t_len * RS;
+      // S = Q K^T over every key at once: s[f] = {(g, 8f + 2c), (g, 8f + 2c + 1),
+      // (g + 8, ..), (g + 8, ..)}
+      float s[kMaxKF][4];
+#pragma unroll
+      for (int f = 0; f < kMaxKF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[f][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < K16; ++kk) {
+        uint32_t qa[4];
+        frag_q<RS>(qa, qw, kk, lane);
+#pragma unroll
+        for (int p = 0; p < NK; ++p) {
+          if (p < nks) {
+            uint32_t kb[4];
+            frag_k<RS>(kb, kt, p, kk, lane);
+            mma_bf16(s[2 * p], qa, kb[0], kb[1]);
+            mma_bf16(s[2 * p + 1], qa, kb[2], kb[3]);
+          }
+        }
+      }
+
+      // gate x pos_bias in f32 (product rounded, then added: the product of
+      // two bf16 values is exact in f32, so one FMA rounds as the two do),
+      // keys >= T to -inf, the exact row max: the lane's fragments, then the
+      // quad
+      float g_lo = 0.f, g_hi = 0.f;
+      if constexpr (BIAS) {
+        g_lo = bf16_to_f32(gate_s[(i % 2) * tp + t_lo]);
+        g_hi = bf16_to_f32(gate_s[(i % 2) * tp + t_hi]);
+      }
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int p = 0; p < NK; ++p) {
+        if (p < nks) {
+          uint32_t pb[4];  // pos_bias of key fragments 2p and 2p + 1
+          if constexpr (BIAS) frag_bias(pb, bias_s + r0 * bs, bs, p, lane);
+#pragma unroll
+          for (int f = 2 * p; f < 2 * p + 2; ++f) {
+            const int key = 8 * f + 2 * c;
+            if constexpr (BIAS) {
+              const uint32_t wl = pb[2 * (f % 2)], wh = pb[2 * (f % 2) + 1];
+              s[f][0] = __fmaf_rn(g_lo, lo_f32(wl), s[f][0]);
+              s[f][1] = __fmaf_rn(g_lo, hi_f32(wl), s[f][1]);
+              s[f][2] = __fmaf_rn(g_hi, lo_f32(wh), s[f][2]);
+              s[f][3] = __fmaf_rn(g_hi, hi_f32(wh), s[f][3]);
+            }
+            if (8 * f + 8 > t_len) {  // the fragment holds keys >= T (warp-uniform)
+              if (key >= t_len) s[f][0] = s[f][2] = -INFINITY;
+              if (key + 1 >= t_len) s[f][1] = s[f][3] = -INFINITY;
+            }
+            mx_lo = fmaxf(mx_lo, fmaxf(s[f][0], s[f][1]));
+            mx_hi = fmaxf(mx_hi, fmaxf(s[f][2], s[f][3]));
+          }
+        }
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 2));
+
+      // e = exp(s - m) in place and the row sum l: the lane's fragments in
+      // order (a pair, then added), then the quad
+      const float ms_lo = res_scale_max(mx_lo), ms_hi = res_scale_max(mx_hi);
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int f = 0; f < kMaxKF; ++f) {
+        if (f / 2 < nks) {
+          s[f][0] = res_exp(s[f][0], ms_lo);
+          s[f][1] = res_exp(s[f][1], ms_lo);
+          s[f][2] = res_exp(s[f][2], ms_hi);
+          s[f][3] = res_exp(s[f][3], ms_hi);
+          sum_lo += s[f][0] + s[f][1];
+          sum_hi += s[f][2] + s[f][3];
+        }
+      }
+      sum_lo += __shfl_xor_sync(kFull, sum_lo, 1);
+      sum_lo += __shfl_xor_sync(kFull, sum_lo, 2);
+      sum_hi += __shfl_xor_sync(kFull, sum_hi, 1);
+      sum_hi += __shfl_xor_sync(kFull, sum_hi, 2);
+      const float n_lo = res_norm(sum_lo), n_hi = res_norm(sum_hi);
+
+      // the normalized weights rounded to bf16, packed in place into the k16
+      // A operands of P V (fragments 2 kk and 2 kk + 1)
+      uint32_t pa[NK][4];
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        if (kk < nks) {
+          pa[kk][0] = pack_bf16(res_weight(s[2 * kk][0], n_lo), res_weight(s[2 * kk][1], n_lo));
+          pa[kk][1] = pack_bf16(res_weight(s[2 * kk][2], n_hi), res_weight(s[2 * kk][3], n_hi));
+          pa[kk][2] = pack_bf16(res_weight(s[2 * kk + 1][0], n_lo),
+                                res_weight(s[2 * kk + 1][1], n_lo));
+          pa[kk][3] = pack_bf16(res_weight(s[2 * kk + 1][2], n_hi),
+                                res_weight(s[2 * kk + 1][3], n_hi));
+        }
+      }
+
+      // O = P V, two n8 fragments (16 dims) at a time: each k16 block into a
+      // zero accumulator, added with RN f32 adds; the pair stored in bf16
+#pragma unroll
+      for (int n = 0; n < NF / 2; ++n) {
+        float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          if (kk < nks) {
+            uint32_t vb[4];
+            frag_v<RS>(vb, vt, kk, n, lane);
+            float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(acc0, pa[kk], vb[0], vb[1]);
+            mma_bf16(acc1, pa[kk], vb[2], vb[3]);
+            add4(o0, acc0);
+            add4(o1, acc1);
+          }
+        }
+        if (t_lo < t_len) {
+          bf16* row = out + row_base(b) + static_cast<int64_t>(t_lo) * d_model + 16 * n + 2 * c;
+          *reinterpret_cast<uint32_t*>(row) = pack_bf16(o0[0], o0[1]);
+          *reinterpret_cast<uint32_t*>(row + 8) = pack_bf16(o1[0], o1[1]);
+        }
+        if (t_hi < t_len) {
+          bf16* row = out + row_base(b) + static_cast<int64_t>(t_hi) * d_model + 16 * n + 2 * c;
+          *reinterpret_cast<uint32_t*>(row) = pack_bf16(o0[2], o0[3]);
+          *reinterpret_cast<uint32_t*>(row + 8) = pack_bf16(o1[2], o1[3]);
+        }
+      }
+    }
+    // the next row's gate; its slot was last read before this row's barrier
+    if (BIAS && tid < tp) gate_s[((i + 1) % 2) * tp + tid] = gate_next;
+  }
+}
+
+// Shared memory above 48 KB for the largest T; the grid:
+// one wave of blocks (the SM count times the blocks an SM holds at this T),
+// spread over the heads, each walking its share of the batch rows
+template <int HD, bool BIAS, int NK>
+int launch_resident_nk(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
+                       const bf16* pos, bf16* out, int64_t b, int t, int d, int heads,
+                       cudaStream_t stream) {
+  constexpr size_t most = res_smem_bytes<HD, BIAS>(16 * NK);
+  if (most > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(mha_bf16_resident_kernel<HD, BIAS, NK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(most));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mha_bf16_resident_kernel<HD, BIAS, NK>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const size_t smem = res_smem_bytes<HD, BIAS>(t);
+  const int threads = 32 * ((t + 15) / 16);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mha_bf16_resident_kernel<HD, BIAS, NK>, threads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int64_t groups = (static_cast<int64_t>(sms) * per_sm + heads - 1) / heads;
+  if (groups > b) groups = b;
+  const dim3 grid(heads, static_cast<unsigned>(groups));
+  mha_bf16_resident_kernel<HD, BIAS, NK><<<grid, threads, smem, stream>>>(
+      q, k, v, gate, pos, out, b, t, d, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 7 k16 key steps (T <= 112, every shipped encoder) or 8
+template <int HD, bool BIAS>
+int launch_resident(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
+                    const bf16* pos, bf16* out, int64_t b, int t, int d, int heads,
+                    cudaStream_t stream) {
+  if (t <= 112)
+    return launch_resident_nk<HD, BIAS, 7>(q, k, v, gate, pos, out, b, t, d, heads, stream);
+  return launch_resident_nk<HD, BIAS, 8>(q, k, v, gate, pos, out, b, t, d, heads, stream);
+}
+
 template <int HD, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
-                const bf16* pos, bf16* out, int64_t b, int t, int d, int heads,
+                const bf16* pos, bf16* out, int64_t b, int t, int d, int heads, int form,
                 cudaStream_t stream) {
+  if (form == kFormResident) {
+    if constexpr (HD <= kResMaxHD) {
+      if (t <= kResMaxT)
+        return launch_resident<HD, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (form != kFormStreamed) return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = smem_bytes_bf16<HD>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -719,14 +1137,14 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
 
 template <bool BIAS>
 int dispatch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
-                  const bf16* pos, bf16* out, int64_t b, int t, int d, int heads,
+                  const bf16* pos, bf16* out, int64_t b, int t, int d, int heads, int form,
                   cudaStream_t s) {
   switch (d / heads) {
-    case 16: return launch_bf16<16, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, s);
-    case 32: return launch_bf16<32, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, s);
-    case 64: return launch_bf16<64, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, s);
-    case 80: return launch_bf16<80, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, s);
-    case 128: return launch_bf16<128, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, s);
+    case 16: return launch_bf16<16, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, form, s);
+    case 32: return launch_bf16<32, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, form, s);
+    case 64: return launch_bf16<64, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, form, s);
+    case 80: return launch_bf16<80, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, form, s);
+    case 128: return launch_bf16<128, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, form, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -749,15 +1167,20 @@ extern "C" int radad_fused_mha(const float* q, const float* k, const float* v,
 
 // The same contract in bf16: q, k, v, out [B, T, D], gate [B, T, heads] and
 // pos [heads, T, T] all bf16 (raw 16-bit values), q, k, v 16-byte aligned.
+// `form` picks the body: 0 the streamed two-pass body (any T), 1 the
+// resident one-pass body (T <= 128 and HD <= 80; cudaErrorInvalidValue
+// elsewhere, as for any other form).
 extern "C" int radad_fused_mha_bf16(const void* q, const void* k, const void* v,
                                     const void* gate, const void* pos, void* out,
-                                    int64_t b, int t, int d, int heads, void* stream) {
+                                    int64_t b, int t, int d, int heads, int form,
+                                    void* stream) {
   if (b == 0 || t == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
              *vb = static_cast<const bf16*>(v), *gb = static_cast<const bf16*>(gate),
              *pb = static_cast<const bf16*>(pos);
   bf16* ob = static_cast<bf16*>(out);
-  if (gate != nullptr) return dispatch_bf16<true>(qb, kb, vb, gb, pb, ob, b, t, d, heads, s);
-  return dispatch_bf16<false>(qb, kb, vb, gb, pb, ob, b, t, d, heads, s);
+  if (gate != nullptr)
+    return dispatch_bf16<true>(qb, kb, vb, gb, pb, ob, b, t, d, heads, form, s);
+  return dispatch_bf16<false>(qb, kb, vb, gb, pb, ob, b, t, d, heads, form, s);
 }

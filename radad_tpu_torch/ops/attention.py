@@ -29,12 +29,18 @@ f32-grade, and it is held to ``fused_mha_plain`` within
 tiles and the ~2⁻²² relative split all sit well inside it, while one TF32
 product alone (hi·hi) misses it by 20–100×
 (``tests/test_torch_attention_tf32.py`` emulates both on the CPU). bf16
-inputs run one bf16 product each (exact in f32) and a two-pass softmax that
-rounds the normalized weights to bf16 where the Pallas body does; the
-output is rounded to bf16, so kernel and plain version differ by a bf16
-rounding of the output at most, held within ``BF16_TOL`` · (1 + |plain|)
-(``tests/test_torch_attention_bf16.py`` emulates it, with controls that
-fail). ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel
+inputs run one bf16 product each (exact in f32) and round the normalized
+weights to bf16 where the Pallas body does, in one of two forms that the
+wrapper picks by shape (``bf16_form``) and passes to the C entry: at
+T <= 128 and head width <= 80 (every shipped encoder's 2 s window, T = 99)
+the resident form holds a row's whole key range in shared memory and its
+logits in registers, and takes the exact row max and sum in one pass
+(e = exp(s − m) by ex2, p = e · (1/l)); above, the streamed form takes two
+passes over 32-key tiles (max and sum, then the weights). The output is
+rounded to bf16, so kernel and plain version differ by a bf16 rounding of
+the output at most, held within ``BF16_TOL`` · (1 + |plain|)
+(``tests/test_torch_attention_bf16.py`` emulates both forms, with controls
+that fail). ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel
 to both tolerances on the card.
 """
 
@@ -51,6 +57,10 @@ from radad_tpu_torch.ops import _native
 _HEAD_DIMS = (16, 32, 64, 80, 128)  # head widths the kernel is built for
 BF16_TOL = 1e-2  # bf16 kernel: |kernel - plain| <= BF16_TOL * (1 + |plain|)
 _BODIES = ("bias", "no_bias", "bias_bf16", "no_bias_bf16")
+# the bf16 bodies' two forms, by their code in radad_fused_mha_bf16
+_FORMS = ("streamed", "resident")
+_RESIDENT_MAX_T = 128  # the resident form holds every key of a row at once
+_RESIDENT_HEAD_DIMS = (16, 32, 64, 80)  # HD 128 takes the streamed form
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -107,6 +117,15 @@ def fused_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.transpose(1, 2).reshape(b, t, d)
 
 
+def bf16_form(t: int, head_dim: int) -> str:
+    """The bf16 body's form for ``T`` and the head width: "resident" (one
+    pass, every key of a row in registers) at T <= 128 and HD <= 80, else
+    "streamed" (two passes over 32-key tiles)."""
+    if t <= _RESIDENT_MAX_T and head_dim in _RESIDENT_HEAD_DIMS:
+        return "resident"
+    return "streamed"
+
+
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               num_heads: int, *, gate: Optional[torch.Tensor] = None,
               pos_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -144,6 +163,8 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{_HEAD_DIMS}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("fused_mha: q, k, v must be 16-byte aligned")
+    if pos_bias is not None and pos_bias.data_ptr() % 16:
+        raise ValueError("fused_mha: pos_bias must be 16-byte aligned")
     if b > 65_535:
         raise ValueError(f"fused_mha: B={b} exceeds the grid's 65,535")
     out = torch.empty_like(q)
@@ -151,30 +172,37 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     bf16 = q.dtype == torch.bfloat16
     lib = _native.library("fused_mha")
-    fn = lib.radad_fused_mha_bf16 if bf16 else lib.radad_fused_mha
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    if bf16:  # the form goes to the C entry, which refuses one it cannot take
+        form = bf16_form(t, d // num_heads)
+        fn, extra = lib.radad_fused_mha_bf16, [_FORMS.index(form)]
+    else:
+        fn, extra = lib.radad_fused_mha, []
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
+                   + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if gate is None else gate.data_ptr(),
             None if gate is None else pos_bias.data_ptr(), out.data_ptr(),
-            b, t, d, num_heads, _native.stream_of(q))
+            b, t, d, num_heads, *extra, _native.stream_of(q))
     _native.check_launch("fused_mha", rc)
     fused_mha.launches += 1
     body = "bias" if gate is not None else "no_bias"
     fused_mha.body_launches[body + ("_bf16" if bf16 else "")] += 1
+    if bf16:
+        fused_mha.form_launches[form] += 1
     return out
 
 
 fused_mha.launches = 0  # kernel launches (never the CPU plain version)
 fused_mha.body_launches = dict.fromkeys(_BODIES, 0)  # the same, per body
+fused_mha.form_launches = dict.fromkeys(_FORMS, 0)  # bf16 launches, per form
 
 
 def reset_launches() -> None:
-    """Set ``fused_mha``'s counts to 0 (every body)."""
+    """Set ``fused_mha``'s counts to 0 (every body and form)."""
     fused_mha.launches = 0
     fused_mha.body_launches = dict.fromkeys(_BODIES, 0)
+    fused_mha.form_launches = dict.fromkeys(_FORMS, 0)
 
 
 def use_fused_attention(t: int, d: int, device) -> bool:

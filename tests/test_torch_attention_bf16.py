@@ -2,19 +2,27 @@
 the CPU.
 
 The bf16 bodies take bf16 q, k, v (gate, pos_bias), form S = Q Kᵀ in f32
-on the tensor cores (one m16n8k16 product a step, exact bf16 products), add
-gate × pos_bias in f32, and take a two-pass softmax over tiles of 32 keys:
-pass 1 finds each row's max m and sum l (online over the tiles), pass 2
-forms the normalized weights p = exp(s − m) / l, rounds them to bf16, and
-adds each k16 step's P·V block sum (f32) to O with round-to-nearest f32
-adds; O is stored in bf16. ``emulate_bf16`` repeats that in plain torch,
-and the tests hold it to the kernel's plain version (``fused_mha_plain``)
-and to JAX's Pallas ``fused_mha`` in interpret mode within the card tests'
-tolerance, BF16_TOL · (1 + |plain|). Faulty emulations must fail it: P·V
-accumulated in bf16, the online softmax without the rescale of O when the
-row max grows, and a second pass that normalizes by a stale max.
-The online softmax as such (unnormalized weights rounded, one division at
-the end: the design the kernel did not take) stays within it too.
+on the tensor cores (one m16n8k16 product a step, exact bf16 products) and
+add gate × pos_bias in f32. Then, in one of two forms (the wrapper's
+``bf16_form`` picks by shape):
+- resident (T <= 128, head width <= 80): the whole row of S in registers,
+  the exact row max m, e = 2^(s·log2(e) − m·log2(e)) (one FMA, ex2, results
+  below 2⁻¹²⁶ flushed to 0), the row sum l in the kernel's order (each lane
+  adds its key pairs 8f + 2c, 8f + 2c + 1 over the fragments f, then the
+  four lanes of the quad pairwise), and p = e · (1/l);
+- streamed (otherwise): a two-pass softmax over tiles of 32 keys, pass 1
+  the max m and sum l (online over the tiles), pass 2 p = exp(s − m) / l.
+Both round p to bf16 and add each k16 step's P·V block sum (f32) to O with
+round-to-nearest f32 adds; O is stored in bf16. ``emulate_bf16`` repeats
+that in plain torch, and the tests hold it to the kernel's plain version
+(``fused_mha_plain``) and to JAX's Pallas ``fused_mha`` in interpret mode
+within the card tests' tolerance, BF16_TOL · (1 + |plain|). Faulty
+emulations must fail it: P·V accumulated in bf16, the online softmax
+without the rescale of O when the row max grows, a second pass that
+normalizes by a stale max, and a resident form whose row max and sum cover
+only the first 64 keys. The online softmax as such (unnormalized weights
+rounded, one division at the end: the design the kernel did not take)
+stays within it too.
 """
 
 import jax.numpy as jnp
@@ -23,10 +31,11 @@ import pytest
 import torch
 
 from radad_tpu.ops.attention import fused_mha as jfused_mha
-from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
+from radad_tpu_torch.ops.attention import BF16_TOL, bf16_form, fused_mha_plain
 
-KEYS = 32  # keys per shared-memory tile (fused_mha.cu kKeys)
+KEYS = 32  # keys per shared-memory tile of the streamed form (kKeys)
 K16 = 16   # keys per P·V product (mma.sync m16n8k16)
+LOG2E = np.float32(1.4426950408889634)
 BF = torch.bfloat16
 
 
@@ -35,16 +44,48 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(BF).float()
 
 
+def _row_sum_quad(e):
+    """The resident form's row sum of ``e [..., T]`` (f32): lane c adds
+    e[8f + 2c] + e[8f + 2c + 1] to its partial over the fragments f in
+    order, then the quad adds (l0 + l1) + (l2 + l3)."""
+    t = e.shape[-1]
+    nf = -(-t // 8)
+    pad = torch.zeros(e.shape[:-1] + (8 * nf - t,))
+    pairs = torch.cat([e, pad], -1).reshape(e.shape[:-1] + (nf, 4, 2))
+    pairs = pairs[..., 0] + pairs[..., 1]  # [..., nf, 4], f32
+    part = torch.zeros(e.shape[:-1] + (4,))
+    for f in range(nf):
+        part = part + pairs[..., f, :]
+    return ((part[..., 0] + part[..., 1]) + (part[..., 2] + part[..., 3]))[
+        ..., None]
+
+
+def _exp_shifted(s, m):
+    """e = 2^(s·log2(e) − m·log2(e)) as the resident form: m·log2(e) in
+    f32, one FMA (an f64 product of two f32 values is exact), ex2 with
+    results below 2⁻¹²⁶ flushed to 0."""
+    ms = (m * LOG2E).double()
+    e = torch.exp2((s.double() * float(LOG2E) - ms).float())
+    return torch.where(e < 2.0 ** -126, torch.zeros_like(e), e)
+
+
 def emulate_bf16(q, k, v, num_heads, gate=None, pos_bias=None, *,
-                 softmax="two_pass", pv="rn_blocks"):
+                 softmax=None, pv="rn_blocks"):
     """The bf16 kernel's arithmetic on bf16 ``[B, T, D]`` tensors (q
-    pre-scaled) → bf16 ``[B, T, D]``. ``softmax``: "two_pass" (as built),
-    "online" (unnormalized weights rounded, O rescaled, divided at the
-    end), "online_no_rescale" (a fault), "stale_max" (a fault: pass 2
-    normalizes by the first tile's max). ``pv``: "rn_blocks" (as built) or
-    "bf16" (a fault: O rounded to bf16 after every block)."""
+    pre-scaled) → bf16 ``[B, T, D]``. ``softmax``: None (the form the
+    kernel takes at this shape: "one_pass" at T <= 128 and head width <=
+    80, else "two_pass"), "one_pass" (the resident form), "two_pass" (the
+    streamed form), "online" (unnormalized weights rounded, O rescaled,
+    divided at the end), "online_no_rescale" (a fault), "stale_max" (a
+    fault: pass 2 normalizes by the first tile's max), "first64" (a fault:
+    the resident form with the row max and sum over the first 64 keys
+    only). ``pv``: "rn_blocks" (as built) or "bf16" (a fault: O rounded to
+    bf16 after every block)."""
     b, t, d = q.shape
     hd = d // num_heads
+    if softmax is None:
+        softmax = {"resident": "one_pass",
+                   "streamed": "two_pass"}[bf16_form(t, hd)]
 
     def heads(x):
         return x.float().reshape(b, t, num_heads, hd).transpose(1, 2)
@@ -73,6 +114,15 @@ def emulate_bf16(q, k, v, num_heads, gate=None, pos_bias=None, *,
     m = torch.full((b, num_heads, t, 1), float("-inf"))
     l = torch.zeros((b, num_heads, t, 1))
     o = torch.zeros((b, num_heads, t, hd))
+    if softmax in ("one_pass", "first64"):
+        s = scores(0, t)
+        span = s if softmax == "one_pass" else s[..., :64]
+        m = span.amax(-1, keepdim=True)
+        e = _exp_shifted(s, m)
+        l = _row_sum_quad(e if softmax == "one_pass" else e[..., :64])
+        p = _bf(e * (1.0 / l))
+        o = add_pv(o, p, 0, t)
+        return o.transpose(1, 2).reshape(b, t, d).to(BF)
     if softmax in ("two_pass", "stale_max"):
         first = None
         for s0, s1 in tiles:  # pass 1
@@ -127,22 +177,24 @@ GRID = [(99, 64), (600, 64), (1500, 64), (99, 80), (130, 16)]
 
 
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("t,hd", GRID)
+@pytest.mark.parametrize("t,hd", GRID + [(128, 64), (129, 64), (99, 128)])
 def test_bf16_emulation_within_tolerance(t, hd, bias, rng):
-    """The two-pass emulation against the plain version, BF16_TOL · (1 +
-    |plain|), at the serving T = 99, T = 600 and 1,500, head width 80 and
-    a 16-wide head at T = 130 (five key tiles, the last with 2 keys); at
-    T = 99 also against JAX's Pallas kernel in interpret mode. Measured:
-    at most 2.5e-3 (1 + |plain|), where the f32 sums of kernel and plain
-    version put a weight or an output on the other side of a bf16
-    rounding tie (the kernel on the card: 5.0e-3, its tensor cores'
-    truncating sums included)."""
+    """The emulation of the form the kernel takes at each shape against
+    the plain version, BF16_TOL · (1 + |plain|): the resident one-pass form
+    at the serving T = 99 (head widths 64 and 80) and at T = 128, its
+    largest; the streamed two-pass form at T = 129, 600 and 1,500, at head
+    width 128 (T = 99), and for a 16-wide head at T = 130 (five key tiles,
+    the last with 2 keys); at T <= 130 also against JAX's Pallas kernel in
+    interpret mode. Measured: at most 2.5e-3 (1 + |plain|), where the f32
+    sums of kernel and plain version put a weight or an output on the other
+    side of a bf16 rounding tie (the kernel on the card: 5.0e-3, its tensor
+    cores' truncating sums included)."""
     (q, k, v), extra = _inputs(rng, 2, t, 2, hd, bias)
     got = emulate_bf16(q, k, v, 2, **extra)
     want = fused_mha_plain(q, k, v, 2, **extra)
     assert got.dtype == want.dtype == BF
     assert _worst(got, want) <= BF16_TOL, (t, hd, bias, _worst(got, want))
-    if t == 99:
+    if t <= 130:
         jax_out = jfused_mha(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
                                for x in (q, k, v)), 2, interpret=True,
                              **{n: jnp.asarray(x.float().numpy(),
@@ -166,18 +218,22 @@ def test_online_softmax_also_within_tolerance(rng):
 
 
 @pytest.mark.parametrize("fault", ["pv_bf16", "online_no_rescale",
-                                   "stale_max"])
+                                   "stale_max", "first64"])
 def test_faulty_emulations_fail(fault, rng):
-    """The tolerance bites: each fault misses it at T = 1,500 (47 key tiles;
-    the row max grows across them), both bodies. P·V accumulated in bf16
+    """The tolerance bites: each fault misses it, both bodies. At T = 1,500
+    (47 key tiles; the row max grows across them): P·V accumulated in bf16
     loses a term whenever it falls below half a step of the running sum
     (measured 3.5e-2 with |O| ~ 3); without the rescale 1.07, with a stale
-    max 6.96."""
+    max 6.96. At T = 128, the resident form with the row max and sum over
+    the first 64 keys only: its weights do not sum to 1 (measured 0.7-35 ·
+    (1 + |plain|) at T = 99 and 128)."""
     kw = {"pv_bf16": dict(pv="bf16"),
           "online_no_rescale": dict(softmax="online_no_rescale"),
-          "stale_max": dict(softmax="stale_max")}[fault]
+          "stale_max": dict(softmax="stale_max"),
+          "first64": dict(softmax="first64")}[fault]
+    t = 128 if fault == "first64" else 1500
     for bias in (False, True):
-        (q, k, v), extra = _inputs(rng, 2, 1500, 2, 64, bias)
+        (q, k, v), extra = _inputs(rng, 2, t, 2, 64, bias)
         if fault == "pv_bf16":
             v = (v.float() + 3.0).to(BF)  # an offset: |O| ~ 3
         got = emulate_bf16(q, k, v, 2, **kw, **extra)

@@ -172,15 +172,19 @@ def test_fused_mha_rejects_bf16_on_card(cuda):
 @pytest.mark.parametrize("t,saturate", [
     (t, False) for t in (1, 7, 8, 15, 16, 17, 63, 64, 65, 99, 128, 129, 600,
                          1500)
-] + [(130, True)])
+] + [(130, True), (99, "last"), (128, "last")])
 def test_fused_mha_bf16_kernel_on_card(cuda, t, saturate):
     """Both bf16 bodies against their plain version (f32 logits from the
     bf16 operands, normalized weights rounded to bf16, p·v in f32, bf16
     out) within BF16_TOL * (1 + |plain|): T at the edges of the k16 steps,
     the 16-row warp tiles, the 128-row block and the key tiles, up to 1,500
     frames; head widths 64, 80 and the other builds (16, 32, 128).
-    ``saturate`` as in the f32 test: the row max grows from tile to tile.
-    One launch per call, counted per body and dtype."""
+    ``saturate``: True as in the f32 test (the row max grows from tile to
+    tile); "last": every row's dominant key in the last key fragment (the
+    resident form's last fragment at T = 99 holds 3 keys, at T = 128 8).
+    One launch per call, counted per body and dtype, and per form: the
+    resident one-pass form at T <= 128 and head width <= 80, the streamed
+    two-pass form elsewhere."""
     from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
 
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -194,19 +198,26 @@ def test_fused_mha_bf16_kernel_on_card(cuda, t, saturate):
             kh = k.view(b, t, h, hd)
             kh = kh * (hd ** 0.5 / kh.norm(dim=-1, keepdim=True))
             k = kh.reshape(b, t, d).contiguous()
-            q = (80 / hd * kh[:, (37 * torch.arange(t, device=cuda)) % t]
-                 ).reshape(b, t, d).contiguous()
+            rows = torch.arange(t, device=cuda)
+            last = 8 * ((t - 1) // 8)  # the last key fragment's first key
+            top = ((37 * rows) % t if saturate is True
+                   else last + rows % (t - last))
+            q = (80 / hd * kh[:, top]).reshape(b, t, d).contiguous()
         gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=cuda)
         pos = torch.randn((h, t, t), generator=g, device=cuda)
         q, k, v, gate, pos = (x.to(torch.bfloat16) for x in (q, k, v, gate,
                                                              pos))
+        form = "resident" if t <= 128 and hd <= 80 else "streamed"
         for extra in ({}, dict(gate=gate, pos_bias=pos)):
             body = ("bias" if extra else "no_bias") + "_bf16"
             before = fused_mha.body_launches[body]
+            forms = dict(fused_mha.form_launches)
             got = fused_mha(q, k, v, h, **extra)
             want = fused_mha_plain(q, k, v, h, **extra)
             torch.cuda.synchronize()
             assert fused_mha.body_launches[body] == before + 1
+            forms[form] += 1
+            assert fused_mha.form_launches == forms, (t, hd, form)
             assert got.dtype == torch.bfloat16
             err = (got.float() - want.float()).abs()
             assert bool((err <= BF16_TOL * (1 + want.float().abs())).all()), (
