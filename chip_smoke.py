@@ -28,17 +28,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    device time
    (``torch.profiler``) of kernel, plain version, and one PyTorch library
    call computing the same function (``library_ms``, used nowhere in the
-   port);
+   port); at whisper-base's shapes too: ``fused_mha``'s bias-free f32 body
+   and its streamed bf16 form at [16, 1500, 512] and [128, 1500, 512]
+   (8 heads of 64) beside SDPA, ``gather_rows`` and ``exact_dot`` on a
+   [25,600, 3,584] table;
 3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
    wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
    synthetic clips, the index is padded with seeded rows to 25,600 x 5,376
    (In-the-Wild scale), then ``predict`` on 1 clip and ``predict_batch``
    on 8 and 64 clips through the certified search; neighbors must agree
-   with an f64 full scan up to ties within f32 rounding, and
+   with an f64 full scan up to ties within the f32 score's rounding, a
+   bound computed from the inputs alone (``_hold_to_f64``), and
    ``gather_rows``, ``exact_dot`` and ``extract_candidates`` must have
-   launched. One more ``predict_batch(8)`` with ``RADAD_FUSED_ATTENTION=1``
-   must launch ``fused_mha``'s bias-free body and give the same neighbors
-   and logits within 1e-4;
+   launched; the searches and the certificate's fallbacks are counted per
+   path, and the certified attempt is timed beside the full f32 scan. One
+   more ``predict_batch(8)`` with ``RADAD_FUSED_ATTENTION=1`` must launch
+   ``fused_mha``'s bias-free body, move the embeddings by less than 1e-4
+   relative, hold its neighbors to the f64 scan, return distances within
+   what the embedding change and f32 rounding explain at every rank, and
+   give on every row a logit within 1e-4 of the fusion model's on the
+   default embedding with the same neighbors (``_compare_fused``);
 4. starts the port's HTTP server on localhost and posts 3 WAV uploads to
    ``/api/predict``;
 5. WavLM serving phase: a seeded random wavlm-base pipeline with
@@ -50,7 +59,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    row must equal those of the same search run through ``flat_topk_plain``
    up to near-ties, and recall@5 against the f64 full scan is printed (the
    ``use_pallas`` route is not certified, so recall is not a condition);
-6. hubert-xlarge phase: a seeded random ``hubert-xlarge-ls960-ft`` encoder
+6. hubert-xlarge phase (``fused_forward_phase``): a seeded random
+   ``hubert-xlarge-ls960-ft`` encoder
    (48 layers, 1,280 wide, 16 heads of 80) embeds 8 two-second windows with
    ``RADAD_FUSED_ATTENTION=1``; ``fused_mha`` must launch once a layer and
    the features stay within 1e-4 relative of the same forward without it;
@@ -78,12 +88,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    form only, ``flat_topk``, ``gather_rows``); the trainer in bf16 (path
    "train_bf16", the resident form only: the card's
    first update against the CPU's bf16 update, 1 epoch + ``evaluate``,
-   save -> load, step timings).
+   save -> load, step timings);
+9. Whisper serving (``whisper_phase``): a seeded random whisper-base
+   pipeline (6 layers, 512 wide, 8 heads of 64; f32) on a 25,600 x 3,584
+   index, every 2 s window padded to 30 s (T = 1,500) as the reference
+   does: the serving calls of phase 3 with the certified search, held to
+   the f64 scan, stage times and peak device memory; then predict_batch(8)
+   and (64) with ``RADAD_FUSED_ATTENTION=1`` must launch ``fused_mha``'s
+   bias-free f32 body 6 times a call and pass ``_compare_fused``; then the
+   same serving calls with
+   ``whisper_pad_seconds=None`` (``--whisper_fast``, T = 100) on its own
+   index;
+10. Whisper in mixed precision (``whisper_bf16_phase``) with
+   ``RADAD_FUSED_ATTENTION=1``, each pad mode on its own index: the same
+   calls and checks, ``fused_mha``'s bias-free bf16 body in the streamed
+   form only at T = 1,500 and the resident form only at T = 100; stage
+   times, embedding deviation and recall@5 against the f32 pipeline of
+   the same pad mode printed;
+11. whisper-large-v3 (``fused_forward_phase``: 32 layers, 1,280 wide, 20
+   heads of 64, 128 mel bins): one forward of 2 padded windows with
+   ``RADAD_FUSED_ATTENTION=1`` against the default attention, within 1e-4
+   relative, 32 bias-free launches.
 
 Each phase sets the launch counts to 0 just before its counted run and
 reads them just after. The last line is ``{"ok": true, "device": {...}}``;
-the line before it is the kernel table. Any failure exits non-zero and
-prints no result. It imports nothing of JAX.
+the line before it is the kernel table: for ``exact_dot`` and
+``extract_candidates`` also each path's searches and fallbacks and the
+launches whose search was certified (``launches_answering``); a time that
+the profiler could not take is marked ``<key>_source: "cuda_events"``.
+Any failure exits non-zero and prints no result. It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -104,6 +138,9 @@ SEED = 0
 DB_CLIPS = 256  # synthetic clips embedded through build_vector_database
 INDEX_ROWS = 25_600  # In-the-Wild scale (25,423 clips)
 TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
+# whisper-base's attention on the serving path padded to 30 s: (rows, T) of
+# predict_batch at B = 8 and 64 (two windows a clip)
+WHISPER_ATTN = ((16, 1500), (128, 1500))
 # fused_mha's bf16 forms -> the kernel symbol of each (mangled-name prefix)
 BF16_FORMS = {"resident": "mha_bf16_resident_kernel",
               "streamed": "mha_bf16_kernel"}
@@ -133,6 +170,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+class NoDeviceEvents(RuntimeError):
+    """``device_ms`` found no device time of a call in 3 profiler
+    sessions."""
+
+
 def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
     """Mean device milliseconds per call: the time of every kernel and
     copy ``fn`` runs on the card whose name holds ``name``, summed by
@@ -143,7 +185,7 @@ def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
     is run again, up to 3 sessions in all. Where all 3 lost events (one
     kernel of 20 calls counted 19 times in 3 sessions in a row), each
     kernel's mean over the events kept, times its launches a call, is the
-    time."""
+    time. Raises ``NoDeviceEvents`` where all 3 kept no device event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -168,18 +210,31 @@ def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
               f"from the mean of the events kept")
         return sum(e.device_time_total / e.count * k
                    for e, k in zip(seen, per_call)) / 1e3
-    raise RuntimeError(f"the profiler lost device events of *{name}* in 3 "
-                       f"sessions: {[(e.key, e.count) for e in seen]}")
+    raise NoDeviceEvents(f"the profiler kept no device event of *{name}* in "
+                         f"3 sessions: {[(e.key, e.count) for e in seen]}")
 
 
 def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
     """Device ms per call of the kernel, its plain version and the library
-    call, plus the kernel wrapper's per-call time on the CUDA-event clock
-    (``call_ms``: back-to-back calls, host launch overhead included)."""
-    return dict(ms=device_ms(torch, kernel, iters),
-                plain_ms=device_ms(torch, plain, iters),
-                library_ms=device_ms(torch, library, iters),
-                call_ms=time_ms(torch, kernel, iters))
+    call (``device_ms``), plus the kernel wrapper's per-call time on the
+    CUDA-event clock (``call_ms``: back-to-back calls, host launch overhead
+    included). Where the profiler kept no device event of one of the three
+    (flash SDPA at [16, 1500, 512] and ``index_select`` at M = 320 each
+    once in a run, never in the next), that number is the CUDA-event time
+    of back-to-back calls instead, host launch gaps included, and the
+    record says so: ``<key>_source: "cuda_events"``; such a number is no
+    device time to hold a kernel against."""
+    rec = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain),
+                    ("library_ms", library)):
+        try:
+            rec[key] = device_ms(torch, fn, iters)
+        except NoDeviceEvents as e:
+            print(f"timings: {e}; {key} timed on CUDA events")
+            rec[key] = time_ms(torch, fn, iters)
+            rec[f"{key}_source"] = "cuda_events"
+    rec["call_ms"] = time_ms(torch, kernel, iters)
+    return rec
 
 
 class ColdRows:
@@ -256,8 +311,7 @@ def ptxas_lines(report: str):
 def kernel_phase(torch, dev):
     """Each kernel against its plain version at the serving path's shapes.
     Returns {name: record} without the launch counts."""
-    from radad_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-    from radad_tpu_torch.ops.rerank import exact_dot, exact_dot_plain
+    from radad_tpu_torch.ops.rerank import exact_dot
     from radad_tpu_torch.ops.topk import (extract_candidates,
                                           extract_candidates_plain)
 
@@ -273,25 +327,7 @@ def kernel_phase(torch, dev):
     # every row from device memory
     by_m = {}
     for m in (5, 32, 40, 256, 320, 640, 1_280, 2_048):
-        idx = torch.randint(0, n, (m,), generator=g, device=dev,
-                            dtype=torch.int32)
-        idx[:3] = torch.tensor([-1, n, n + 7], device=dev, dtype=torch.int32)
-        got = gather_rows(table, idx)
-        want = gather_rows_plain(table, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"gather_rows M={m} differs from its plain "
-                                 f"version")
-        cold = ColdRows(torch, n, m, m * d * 4, g)
-        rec = timings(
-            torch, lambda c=cold: c.keep(gather_rows(table, c.next())),
-            lambda c=cold: c.keep(gather_rows_plain(table, c.next())),
-            lambda c=cold: c.keep(torch.index_select(table, 0,
-                                                     c.next(wide=True))))
-        # bytes the timed ids need: each of the m distinct source rows read
-        # once, every output row written once, the ids read once
-        rec["bound_ms"], rec["bound_by"] = bound_ms(2 * m * d * 4 + m * 4)
-        by_m[m] = rec
+        by_m[m] = rec = _gather_record(torch, table, m, g)
         print(f"gather_rows M={m}: device {rec['ms']:.4f} ms, index_select "
               f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms")
@@ -312,26 +348,8 @@ def kernel_phase(torch, dev):
         cidx = torch.randint(0, n, (b, r), generator=g, device=dev,
                              dtype=torch.int32)
         for name, x in (("f32", table), ("bf16", table_bf16)):
-            got = exact_dot(q, x, cidx)
-            want = exact_dot_plain(q, x, cidx)
-            scale = (x[cidx.long()].float().abs()
-                     * q.abs()[:, None, :]).sum(-1)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            if not bool((err <= 1e-5 * scale).all()):
-                raise AssertionError(f"exact_dot[{name}] B={b} outside "
-                                     f"tolerance: max err {float(err.max())}")
-            errs[(b, name)] = float(err.max())
-        rec = timings(torch, lambda q=q, c=cidx: exact_dot(q, table, c),
-                      lambda q=q, c=cidx: exact_dot_plain(q, table, c),
-                      lambda q=q, c=cidx: torch.bmm(table[c.long()],
-                                                    q[:, :, None]))
-        # each distinct candidate row read once, q and the ids read, out
-        # written
-        rows_read = int(torch.unique(cidx).numel())
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
-        by_b[b] = rec
+            errs[(b, name)] = _exact_dot_err(torch, q, x, cidx)
+        by_b[b] = rec = _exact_dot_record(torch, q, table, cidx)
         print(f"exact_dot B={b}: device {rec['ms']:.4f} ms, gather + bmm "
               f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms; max_abs_err f32 "
@@ -340,6 +358,7 @@ def kernel_phase(torch, dev):
         if b == 256:
             bf16_ms = device_ms(torch, lambda: exact_dot(q, table_bf16,
                                                          cidx))
+            rows_read = int(torch.unique(cidx).numel())
             bf16_bound = bound_ms(rows_read * d * 2 + b * d * 4
                                   + 2 * b * r * 4, 2.0 * b * r * d)[0]
             print(f"exact_dot bf16 rows: {bf16_ms:.4f} ms on the device, "
@@ -398,9 +417,11 @@ def kernel_phase(torch, dev):
                   "leftover exact",
         **by_b[256], by_shape=_shape_table(by_b, "B"),
         shape=f"cand [256,{t},128] f32, m={mm} (by_shape: B = 1 .. 256)")
-    recs["fused_mha"] = _fused_mha_record(torch, dev, g)
-    recs["fused_mha_bf16"] = _fused_mha_bf16_record(torch, dev, g)
+    recs["fused_mha"] = _fused_mha_record(torch, g)
+    recs["fused_mha_bf16"] = _fused_mha_bf16_record(torch, g)
     recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
+    for name, by_shape in _whisper_kernel_records(torch, dev, g).items():
+        recs[name]["whisper"] = by_shape
     for name in ("gather_rows", "exact_dot", "extract_candidates"):
         recs[name]["bound_rate"] = "f32 67 TFLOP/s"
     for name, rec in recs.items():
@@ -415,156 +436,216 @@ def kernel_phase(torch, dev):
     return recs
 
 
+def _gather_record(torch, table, m: int, g) -> dict:
+    """``gather_rows`` of ``m`` rows of ``table [n, d]``: bit-equal to its
+    plain version on ids with out-of-range entries that both clamp; timed
+    beside the plain version and ``index_select`` on ids that read every
+    row from device memory (``ColdRows``); bound: the m distinct source
+    rows read once, every output row written once, the ids read once."""
+    from radad_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    n, d = table.shape
+    idx = torch.randint(0, n, (m,), generator=g, device=table.device,
+                        dtype=torch.int32)
+    idx[:3] = torch.tensor([-1, n, n + 7], device=table.device,
+                           dtype=torch.int32)
+    got = gather_rows(table, idx)
+    want = gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather_rows D={d} M={m} differs from its "
+                             f"plain version")
+    cold = ColdRows(torch, n, m, m * d * 4, g)
+    rec = timings(
+        torch, lambda: cold.keep(gather_rows(table, cold.next())),
+        lambda: cold.keep(gather_rows_plain(table, cold.next())),
+        lambda: cold.keep(torch.index_select(table, 0, cold.next(wide=True))))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(2 * m * d * 4 + m * 4)
+    return rec
+
+
+def _exact_dot_err(torch, q, x, cidx) -> float:
+    """Max |exact_dot - exact_dot_plain| of ``q`` against rows ``cidx`` of
+    ``x``; raises outside the f32 summation-order tolerance
+    1e-5 * sum_d |q_d x_d|."""
+    from radad_tpu_torch.ops.rerank import exact_dot, exact_dot_plain
+
+    got = exact_dot(q, x, cidx)
+    want = exact_dot_plain(q, x, cidx)
+    scale = (x[cidx.long()].float().abs() * q.abs()[:, None, :]).sum(-1)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 1e-5 * scale).all()):
+        raise AssertionError(f"exact_dot[{x.dtype}] B={q.shape[0]} "
+                             f"D={q.shape[1]} outside tolerance: max err "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def _exact_dot_record(torch, q, table, cidx) -> dict:
+    """``exact_dot`` of ``q [b, d]`` against rows ``cidx [b, r]`` of
+    ``table``, timed beside its plain version and gather + ``bmm``; bound:
+    each distinct candidate row read once, q and the ids read, the output
+    written, against 2 b r d operations at the f32 rate."""
+    from radad_tpu_torch.ops.rerank import exact_dot, exact_dot_plain
+
+    (b, d), r = q.shape, cidx.shape[1]
+    rec = timings(torch, lambda: exact_dot(q, table, cidx),
+                  lambda: exact_dot_plain(q, table, cidx),
+                  lambda: torch.bmm(table[cidx.long()], q[:, :, None]))
+    rows_read = int(torch.unique(cidx).numel())
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
+    return rec
+
+
+def _pick(rec: dict, keys) -> dict:
+    """``keys`` of ``rec``, each with its ``<key>_source`` where
+    ``timings`` left one."""
+    return {k: rec[k] for key in keys
+            for k in (key, f"{key}_source") if k in rec}
+
+
 def _shape_table(by_shape: dict, key: str) -> dict:
     """{"<key>=<n>": the timings and bound at that shape}."""
     keep = ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
             "bound_by")
-    return {f"{key}={n}": {k: r[k] for k in keep}
-            for n, r in by_shape.items()}
+    return {f"{key}={n}": _pick(r, keep) for n, r in by_shape.items()}
 
 
-def _fused_mha_record(torch, dev, g) -> dict:
-    """fused_mha at the WavLM serving shape (64 clips x two 2 s windows =
-    128 rows of 99 frames, 768 wide, 12 heads), both bodies, plus T = 600
-    and 1500 correctness points. Tolerance 1e-5 * (1 + |plain|): 3xTF32
-    products (f32-grade: 1xTF32 is 20-100x outside it) and the online
-    softmax. Both bodies' HD = 64 instances must hold TF32 HMMA
-    instructions. Bound: the bytes against the 3 x products at the TF32
-    tensor-core rate."""
+def _fused_mha_at(torch, g, shape, dtype, bias: bool, timed: bool = True,
+                  iters: int = 20, streamed: bool = False) -> dict:
+    """``fused_mha`` at ``shape`` (b, t, d, heads) in ``dtype``, with the
+    position bias or without, on seeded inputs (q scaled by hd^-0.5; gate
+    in [1, 3), pos_bias ~ N(0, 1)). Held to its plain version: f32 to
+    ``mha_reference`` within 1e-5 (1 + |plain|) (3xTF32 products, f32
+    summation order, online softmax; 1xTF32 is 20-100x outside it); bf16
+    to ``fused_mha_plain`` within BF16_TOL (1 + |plain|) in f32 (weights
+    rounded to bf16 as the Pallas body; bf16 output), with the largest
+    error in bf16 steps. ``timed``: device ms beside the plain version and
+    SDPA on the same inputs (the bias materialized as a [B, H, T, T] mask,
+    untimed; bf16 without bias: flash), and the bound: q, k, v, out (and
+    gate, pos_bias) read or written once at 3.35 TB/s against one Q K^T
+    and one P V, three times at the TF32 rate (3xTF32) or once at the
+    bf16 rate. ``streamed``: the bf16 streamed form's ms on the same
+    inputs too. → record."""
     import torch.nn.functional as F
 
-    from radad_tpu_torch.ops.attention import fused_mha, mha_reference
+    from radad_tpu_torch.ops.attention import (BF16_TOL, bf16_form,
+                                               fused_mha, fused_mha_plain,
+                                               mha_reference)
 
-    def inputs(b, t, d, h):
-        q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
-                   for _ in range(3))
-        q *= (d // h) ** -0.5
-        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=dev)
-        pos = torch.randn((h, t, t), generator=g, device=dev)
-        return q, k, v, dict(gate=gate, pos_bias=pos)
+    b, t, d, h = shape
+    hd, dev, f32 = d // h, g.device, dtype == torch.float32
+    q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
+               for _ in range(3))
+    q *= hd ** -0.5
+    extra = {}
+    if bias:
+        extra = dict(gate=1.0 + 2.0 * torch.rand((b, t, h), generator=g,
+                                                 device=dev),
+                     pos_bias=torch.randn((h, t, t), generator=g, device=dev))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    extra = {n: x.to(dtype) for n, x in extra.items()}
+    plain, tol = ((mha_reference, 1e-5) if f32
+                  else (fused_mha_plain, BF16_TOL))
+    name = (f"fused_mha {'f32' if f32 else 'bf16'} "
+            f"{'bias' if bias else 'no bias'} [{b},{t},{d}] {h} heads"
+            + ("" if f32 else f" ({bf16_form(t, hd)} form)"))
+    got = fused_mha(q, k, v, h, **extra)
+    want = plain(q, k, v, h, **extra)
+    torch.cuda.synchronize()
+    if got.dtype != dtype:
+        raise AssertionError(f"{name} returned {got.dtype}")
+    err = (got.float() - want.float()).abs()
+    rec = dict(max_abs_err=float(err.max()),
+               max_rel_err=float((err / (1 + want.float().abs())).max()))
+    if not f32:
+        rec["max_bf16_steps"] = _bf16_steps(err, want.float())
+    del got, want, err
+    text = (f"max |err| {rec['max_abs_err']:.3e} ({rec['max_rel_err']:.3e} "
+            f"of 1 + |plain|, tolerance {tol})")
+    if not rec["max_rel_err"] <= tol:  # a NaN fails too
+        raise AssertionError(f"{name} outside its tolerance: {text}")
+    if not timed:
+        print(f"{name}: {text}")
+        return rec
+    qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if bias:
+        mask = (extra["gate"].float().transpose(1, 2)[..., None]
+                * extra["pos_bias"].float()[None]).to(dtype)
+    rec.update(timings(
+        torch, lambda: fused_mha(q, k, v, h, **extra),
+        lambda: plain(q, k, v, h, **extra),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                               scale=1.0), iters))
+    if streamed:
+        rec["streamed_ms"] = device_ms(
+            torch, _bf16_form_call((q, k, v), h, extra, "streamed"), iters)
+    size = 4 if f32 else 2
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        4 * b * t * d * size + ((b * t * h + h * t * t) * size if bias else 0),
+        (3.0 if f32 else 1.0) * 4.0 * b * h * t * t * hd,
+        rate=TF32_FLOPS if f32 else BF16_FLOPS)
+    print(f"{name}: device {rec['ms']:.4f} ms"
+          + (f" (streamed form {rec['streamed_ms']:.4f})" if streamed else "")
+          + f", SDPA {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
+          f" ms ({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms; {text}")
+    return rec
 
-    def worst(q, k, v, h, extra):
-        """(max |err|, max |err| / (1 + |plain|))"""
-        got = fused_mha(q, k, v, h, **extra)
-        want = mha_reference(q, k, v, h, **extra)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        rel = float((err / (1 + want.abs())).max())
-        if rel > 1e-5:
-            raise AssertionError(
-                f"fused_mha {'bias' if extra else 'no bias'} T={q.shape[1]} "
-                f"outside 1e-5 * (1 + |plain|): max err {float(err.max())}")
-        return float(err.max()), rel
 
-    errs = {}
-    for b, t in ((4, 600), (2, 1500)):
-        q, k, v, bias = inputs(b, t, 768, 12)
-        for extra in ({}, bias):
-            errs[(t, bool(extra))] = worst(q, k, v, 12, extra)
-    b, t, d, h = 128, 99, 768, 12
-    hd = d // h
-    q, k, v, bias = inputs(b, t, d, h)
-    for extra in ({}, bias):
-        errs[(t, bool(extra))] = worst(q, k, v, h, extra)
-    print("fused_mha max |err| (max |err| / (1 + |plain|)): " + ", ".join(
-        f"T={tt} {'bias' if bb else 'no bias'} {e:.3e} ({r:.3e})"
-        for (tt, bb), (e, r) in errs.items())
-        + " (tolerance 1e-5 * (1 + |plain|))")
+def _hmma(counts: dict, symbol: str, hds=(64, 80)) -> dict:
+    """{"<body> HD <hd>": HMMA instructions of that instance of
+    ``symbol``} from ``_hmma_counts``."""
+    return {f"{body} HD {hd}": sum(
+        c for f, c in counts.items() if f"{symbol}ILi{hd}ELb{flag}E" in f)
+        for hd in hds for body, flag in (("bias", 1), ("no_bias", 0))}
 
-    def split(x):
-        return x.view(b, t, h, hd).transpose(1, 2)
 
-    # SDPA takes the [B, H, T, T] bias materialized (not timed); q is
-    # pre-scaled, so scale=1
-    mask = bias["gate"].transpose(1, 2)[..., None] * bias["pos_bias"][None]
-    qh, kh, vh = split(q), split(k), split(v)
-    io_bytes = 4 * b * t * d * 4
-    bias_bytes = (b * t * h + h * t * t) * 4
-    prod_flops = 4.0 * b * h * t * t * hd
+def _fused_mha_record(torch, g) -> dict:
+    """fused_mha's f32 bodies (``_fused_mha_at``) at the WavLM serving shape
+    (64 clips x two 2 s windows = 128 rows of 99 frames, 768 wide, 12
+    heads) and at head width 80 (hubert-xlarge's: 16 windows, 1,280 wide,
+    16 heads), timed, plus T = 600 and 1,500 correctness points. Each
+    body's HD = 64 and 80 instances must hold TF32 HMMA instructions."""
+    f32 = torch.float32
     counts = _hmma_counts("fused_mha", form="TF32")
-    hmma = {body: sum(c for f, c in counts.items()
-                      if f"mha_kernelILi64ELb{flag}E" in f)
-            for body, flag in (("bias", 1), ("no_bias", 0))}
+    hmma = _hmma(counts, "mha_kernel")
     if counts:
-        print(f"fused_mha SASS (cuobjdump): TF32 HMMA instructions in the "
-              f"HD = 64 bodies {hmma}")
+        print(f"fused_mha SASS (cuobjdump): TF32 HMMA instructions {hmma}")
         if min(hmma.values()) <= 0:
             raise AssertionError(f"a fused_mha body has no TF32 HMMA "
                                  f"instruction: {hmma}")
     else:
         print("fused_mha SASS: cuobjdump not found, HMMA not counted")
-    no_bias = dict(**timings(
-        torch, lambda: fused_mha(q, k, v, h),
-        lambda: mha_reference(q, k, v, h),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)))
-    no_bias["bound_ms"], no_bias["bound_by"] = bound_ms(
-        io_bytes, 3.0 * prod_flops, rate=TF32_FLOPS)
-    no_bias["max_abs_err"], no_bias["max_rel_err"] = errs[(t, False)]
-    hd80 = _fused_mha_hd80(torch, inputs, worst, counts)
-    rec = dict(
+    checks = [_fused_mha_at(torch, g, shape, f32, bias, timed=False)
+              for shape in ((4, 600, 768, 12), (2, 1500, 768, 12))
+              for bias in (False, True)]
+    recs = {(shape, body): _fused_mha_at(torch, g, shape, f32,
+                                         body == "bias")
+            for shape in ((128, 99, 768, 12), (16, 99, 1280, 16))
+            for body in ("no_bias", "bias")}
+    every = checks + list(recs.values())
+    rec = dict(recs[((128, 99, 768, 12), "bias")])
+    rec.update(
         route="cuda", source="radad_tpu_torch/csrc/fused_mha.cu",
         replaces="radad_tpu/ops/attention.py:134",
-        max_abs_err=max(e for e, _ in errs.values()),
-        max_rel_err=max(r for _, r in errs.values()),
+        max_abs_err=max(r["max_abs_err"] for r in every),
+        max_rel_err=max(r["max_rel_err"] for r in every),
         tolerance="1e-5 * (1 + |plain|) (3xTF32 products, f32 summation "
                   "order, online softmax)",
-        **timings(torch, lambda: fused_mha(q, k, v, h, **bias),
-                  lambda: mha_reference(q, k, v, h, **bias),
-                  lambda: F.scaled_dot_product_attention(
-                      qh, kh, vh, attn_mask=mask, scale=1.0)),
-        shape=f"q,k,v [{b},{t},{d}] f32, {h} heads, gate [{b},{t},{h}], "
-              f"pos_bias [{h},{t},{t}] (bias body; no_bias: the same "
-              f"without)",
+        shape="q,k,v [128,99,768] f32, 12 heads, gate [128,99,12], pos_bias "
+              "[12,99,99] (bias body; no_bias: the same without; hd80: "
+              "[16,99,1280], 16 heads; T = 600 and 1,500 checked too)",
         bound_rate="3xTF32: 3 x products at the TF32 tensor-core rate, "
-                   "495 TFLOP/s", no_bias=no_bias,
+                   "495 TFLOP/s",
+        no_bias=recs[((128, 99, 768, 12), "no_bias")],
         library_call="F.scaled_dot_product_attention, bias materialized",
-        hmma=hmma if counts else None, hd80=hd80)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        io_bytes + bias_bytes, 3.0 * prod_flops, rate=TF32_FLOPS)
-    print(f"fused_mha no-bias body: device {no_bias['ms']:.4f} ms, plain "
-          f"{no_bias['plain_ms']:.4f} ms, SDPA {no_bias['library_ms']:.4f} "
-          f"ms, bound {no_bias['bound_ms']:.4f} ms ({no_bias['bound_by']})")
+        hmma=hmma if counts else None,
+        hd80={body: r for (shape, body), r in recs.items()
+              if shape[3] == 16})
     return rec
-
-
-def _fused_mha_hd80(torch, inputs, worst, counts) -> dict:
-    """Both bodies at head width 80, hubert-xlarge's attention shape (16
-    two-second windows, T = 99, D = 1,280, 16 heads), within 1e-5 * (1 +
-    |plain|), timed beside SDPA; the TF32 HMMA instructions of the HD = 80
-    instances. → {body: record}."""
-    import torch.nn.functional as F
-
-    from radad_tpu_torch.ops.attention import fused_mha, mha_reference
-
-    b, t, d, h = 16, 99, 1_280, 16
-    hd = d // h
-    q, k, v, bias = inputs(b, t, d, h)
-    qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in (q, k, v))
-    mask = bias["gate"].transpose(1, 2)[..., None] * bias["pos_bias"][None]
-    out = {}
-    for body, extra, flag in (("no_bias", {}, 0), ("bias", bias, 1)):
-        err, rel = worst(q, k, v, h, extra)
-        rec = timings(
-            torch, lambda extra=extra: fused_mha(q, k, v, h, **extra),
-            lambda extra=extra: mha_reference(q, k, v, h, **extra),
-            lambda extra=extra: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask if extra else None, scale=1.0))
-        bias_bytes = (b * t * h + h * t * t) * 4 if extra else 0
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            4 * b * t * d * 4 + bias_bytes, 3.0 * 4.0 * b * h * t * t * hd,
-            rate=TF32_FLOPS)
-        rec.update(max_abs_err=err, max_rel_err=rel, hmma=sum(
-            c for f, c in counts.items() if f"mha_kernelILi80ELb{flag}E" in f)
-            if counts else None)
-        if counts and rec["hmma"] <= 0:
-            raise AssertionError(f"fused_mha HD 80 {body}: no TF32 HMMA")
-        print(f"fused_mha HD 80 {body} [{b},{t},{d}] {h} heads: device "
-              f"{rec['ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              f"max |err| {err:.3e} ({rel:.3e} of 1 + |plain|), TF32 HMMA "
-              f"{rec['hmma']}")
-        out[body] = rec
-    return out
 
 
 def _bf16_steps(err, want) -> float:
@@ -577,58 +658,22 @@ def _bf16_steps(err, want) -> float:
     return float((err[keep] / step).max()) if bool(keep.any()) else 0.0
 
 
-def _fused_mha_bf16_record(torch, dev, g) -> dict:
-    """fused_mha's bf16 bodies (the mixed-precision encoders' attention)
-    against their plain version, ``fused_mha_plain`` (f32 logits from the
-    bf16 operands, normalized weights rounded to bf16, P V in f32, bf16
-    out): at the WavLM serving shape [128, 99, 768] (12 heads), at T = 600
-    and 1,500, and at head width 80 ([16, 99, 1280], 16 heads). Tolerance
-    BF16_TOL * (1 + |plain|) in f32 (a bf16 rounding of the output, ~2
-    steps at |plain| ~ 1; the CPU emulation of the kernel's rounding stays
-    within 2.5e-3 and its faults miss it). Both bodies' HD = 64 and 80
-    instances must hold bf16 HMMA instructions in both forms (the resident
-    one-pass form that T <= 128 takes, and the streamed two-pass form).
-    Timed beside SDPA on the same bf16 inputs (flash without the bias; the
-    bias materialized in bf16, untimed) and beside the streamed form on
-    the same inputs (``streamed_ms``). Bound: q, k, v, out (and gate,
-    pos_bias) in bf16 once at 3.35 TB/s against one Q K^T and one P V at
-    the bf16 rate."""
-    import torch.nn.functional as F
-
-    from radad_tpu_torch.ops.attention import (BF16_TOL, fused_mha,
-                                               fused_mha_plain)
+def _fused_mha_bf16_record(torch, g) -> dict:
+    """fused_mha's bf16 bodies (the mixed-precision encoders' attention,
+    ``_fused_mha_at``) at the WavLM serving shape [128, 99, 768] (12 heads)
+    and at head width 80 ([16, 99, 1280], 16 heads), timed beside the
+    streamed form on the same inputs, plus T = 600 and 1,500 correctness
+    points. BF16_TOL is a bf16 rounding of the output, ~2 steps at |plain|
+    ~ 1; the CPU emulation of the kernel's rounding stays within 2.5e-3
+    and its faults miss it. Both bodies' HD = 64 and 80 instances must
+    hold bf16 HMMA instructions in both forms (the resident one-pass form
+    that T <= 128 takes, and the streamed two-pass form)."""
+    from radad_tpu_torch.ops.attention import BF16_TOL
 
     bf = torch.bfloat16
-
-    def inputs(b, t, d, h):
-        q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
-                   for _ in range(3))
-        q *= (d // h) ** -0.5
-        gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=dev)
-        pos = torch.randn((h, t, t), generator=g, device=dev)
-        return ([x.to(bf) for x in (q, k, v)],
-                dict(gate=gate.to(bf), pos_bias=pos.to(bf)))
-
-    def worst(qkv, h, extra):
-        got = fused_mha(*qkv, h, **extra)
-        want = fused_mha_plain(*qkv, h, **extra)
-        torch.cuda.synchronize()
-        if got.dtype != bf:
-            raise AssertionError(f"fused_mha bf16 returned {got.dtype}")
-        err = (got.float() - want.float()).abs()
-        rel = float((err / (1 + want.float().abs())).max())
-        if rel > BF16_TOL:
-            raise AssertionError(
-                f"fused_mha bf16 {'bias' if extra else 'no bias'} "
-                f"T={qkv[0].shape[1]} HD={qkv[0].shape[2] // h} outside "
-                f"{BF16_TOL} * (1 + |plain|): max err {float(err.max())}")
-        return float(err.max()), rel, _bf16_steps(err, want.float())
-
     counts = _hmma_counts("fused_mha", form="BF16")
-    hmma = {f"{body} HD {hd} {form}": sum(
-        c for f, c in counts.items() if f"{symbol}ILi{hd}ELb{flag}E" in f)
-        for hd in (64, 80) for body, flag in (("bias", 1), ("no_bias", 0))
-        for form, symbol in BF16_FORMS.items()}
+    hmma = {f"{key} {form}": n for form, symbol in BF16_FORMS.items()
+            for key, n in _hmma(counts, symbol).items()}
     if counts:
         print(f"fused_mha bf16 SASS (cuobjdump): bf16 HMMA instructions "
               f"{hmma}")
@@ -638,59 +683,24 @@ def _fused_mha_bf16_record(torch, dev, g) -> dict:
     else:
         print("fused_mha bf16 SASS: cuobjdump not found, HMMA not counted")
     _resident_spills()
-    errs = {}
-    for b, t, d, h in ((4, 600, 768, 12), (2, 1500, 768, 12),
-                       (16, 99, 1280, 16), (128, 99, 768, 12)):
-        qkv, bias = inputs(b, t, d, h)
-        for extra in ({}, bias):
-            errs[(t, d // h, bool(extra))] = worst(qkv, h, extra)
-    print("fused_mha bf16 max |err| (max |err| / (1 + |plain|), largest "
-          "error in bf16 steps of |plain| >= 1/16): " + ", ".join(
-              f"T={tt} HD {hd} {'bias' if bb else 'no bias'} {e:.3e} "
-              f"({r:.3e}, {s:.2f} steps)"
-              for (tt, hd, bb), (e, r, s) in errs.items())
-          + f" (tolerance {BF16_TOL} * (1 + |plain|))")
-
+    checks = [_fused_mha_at(torch, g, shape, bf, bias, timed=False)
+              for shape in ((4, 600, 768, 12), (2, 1500, 768, 12))
+              for bias in (False, True)]
     recs = {}
-    for (b, t, d, h), tag in (((128, 99, 768, 12), ""),
-                              ((16, 99, 1280, 16), "hd80_")):
-        hd = d // h
-        qkv, bias = inputs(b, t, d, h)
-        qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in qkv)
-        mask = (bias["gate"].float().transpose(1, 2)[..., None]
-                * bias["pos_bias"].float()[None]).to(bf)
-        for body, extra in (("no_bias", {}), ("bias", bias)):
-            rec = timings(
-                torch, lambda extra=extra: fused_mha(*qkv, h, **extra),
-                lambda extra=extra: fused_mha_plain(*qkv, h, **extra),
-                lambda extra=extra: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask if extra else None,
-                    scale=1.0))
-            # the streamed form (taken above T = 128) on the same inputs
-            rec["streamed_ms"] = device_ms(
-                torch, _bf16_form_call(qkv, h, extra, "streamed"))
-            extra_bytes = (b * t * h + h * t * t) * 2 if extra else 0
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                4 * b * t * d * 2 + extra_bytes, 4.0 * b * h * t * t * hd,
-                rate=BF16_FLOPS)
-            e, r, st = errs[(t, hd, bool(extra))]
-            rec.update(max_abs_err=e, max_rel_err=r, max_bf16_steps=st,
-                       hmma=hmma.get(f"{body} HD {hd} resident") if counts
-                       else None)
-            recs[tag + body] = rec
-            print(f"fused_mha bf16 {body} [{b},{t},{d}] {h} heads: device "
-                  f"{rec['ms']:.4f} ms (resident form; the streamed form "
-                  f"{rec['streamed_ms']:.4f} ms), SDPA bf16 "
-                  f"{rec['library_ms']:.4f} ms, bound "
-                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
-                  f"{rec['plain_ms']:.4f} ms")
-    rec = dict(recs["bias"])  # the headline body's timings
+    for shape in ((128, 99, 768, 12), (16, 99, 1280, 16)):
+        for body in ("no_bias", "bias"):
+            recs[shape, body] = r = _fused_mha_at(
+                torch, g, shape, bf, body == "bias", streamed=True)
+            r["hmma"] = (hmma[f"{body} HD {shape[2] // shape[3]} resident"]
+                         if counts else None)
+    every = checks + list(recs.values())
+    rec = dict(recs[(128, 99, 768, 12), "bias"])  # the headline body
     rec.update(
         route="cuda", source="radad_tpu_torch/csrc/fused_mha.cu",
         replaces="radad_tpu/ops/attention.py:134",
-        max_abs_err=max(e for e, _, _ in errs.values()),
-        max_rel_err=max(r for _, r, _ in errs.values()),
-        max_bf16_steps=max(s for _, _, s in errs.values()),
+        max_abs_err=max(r["max_abs_err"] for r in every),
+        max_rel_err=max(r["max_rel_err"] for r in every),
+        max_bf16_steps=max(r["max_bf16_steps"] for r in every),
         tolerance=f"{BF16_TOL} * (1 + |plain|) in f32 (normalized weights "
                   f"rounded to bf16 as the Pallas body; bf16 output)",
         shape="q,k,v [128,99,768] bf16, 12 heads, gate [128,99,12], pos_bias "
@@ -698,10 +708,61 @@ def _fused_mha_bf16_record(torch, dev, g) -> dict:
               "[16,99,1280], 16 heads; T = 600 and 1,500 checked too)",
         bound_rate="bf16 989 TFLOP/s (one Q K^T and one P V)",
         library_call="F.scaled_dot_product_attention on the bf16 inputs, "
-                     "bias materialized in bf16")
-    rec["no_bias"] = recs["no_bias"]
-    rec["hd80"] = {k[5:]: v for k, v in recs.items() if k.startswith("hd80_")}
+                     "bias materialized in bf16",
+        no_bias=recs[(128, 99, 768, 12), "no_bias"],
+        hd80={body: r for (shape, body), r in recs.items()
+              if shape[3] == 16})
     return rec
+
+
+def _whisper_kernel_records(torch, dev, g) -> dict:
+    """The kernels at whisper-base's serving shapes: ``fused_mha``'s
+    bias-free f32 body and its bf16 body (the streamed form, which
+    T = 1,500 takes) at [16, 1500, 512] and [128, 1500, 512], 8 heads of
+    64 (B = 8 and 64 clips of two windows padded to 30 s), by
+    ``_fused_mha_at`` (there the bound is the operations; the streamed
+    form computes Q K^T twice, the bound counts the function's once);
+    ``gather_rows`` at M = 5, 40, 320 and ``exact_dot`` at B = 1, 8, 64
+    (R = 32) on a [25,600, 3,584] f32 table (TPP of 512-wide features), as
+    the serving path gives them. → {kernel: {shape: record}}."""
+    from radad_tpu_torch.ops.attention import bf16_form
+
+    out = {"fused_mha": {}, "fused_mha_bf16": {}, "gather_rows": {},
+           "exact_dot": {}}
+    d, h = 512, 8
+    if any(bf16_form(t, d // h) != "streamed" for _, t in WHISPER_ATTN):
+        raise AssertionError("fused_mha bf16 at T = 1,500 is not the "
+                             "streamed form")
+    for b, t in WHISPER_ATTN:
+        for name, dt in (("fused_mha", torch.float32),
+                         ("fused_mha_bf16", torch.bfloat16)):
+            out[name][f"[{b},{t},{d}]"] = _fused_mha_at(
+                torch, g, (b, t, d, h), dt, False, iters=10)
+            torch.cuda.empty_cache()
+
+    n, dw, r = INDEX_ROWS, 3_584, 32
+    table = torch.randn((n, dw), generator=g, device=dev)
+    for bb in (1, 8, 64):
+        m = 5 * bb
+        out["gather_rows"][f"M={m}"] = rec = _gather_record(torch, table, m,
+                                                            g)
+        rec["max_abs_err"] = 0.0
+        q = torch.randn((bb, dw), generator=g, device=dev)
+        cidx = torch.randint(0, n, (bb, r), generator=g, device=dev,
+                             dtype=torch.int32)
+        err = _exact_dot_err(torch, q, table, cidx)
+        out["exact_dot"][f"B={bb}"] = rec2 = _exact_dot_record(
+            torch, q, table, cidx)
+        rec2["max_abs_err"] = err
+        print(f"D={dw}: gather_rows M={m} device {rec['ms']:.4f} ms "
+              f"(index_select {rec['library_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}, plain {rec['plain_ms']:.4f}); "
+              f"exact_dot B={bb} R={r} device {rec2['ms']:.4f} ms (gather + "
+              f"bmm {rec2['library_ms']:.4f}, bound {rec2['bound_ms']:.4f}, "
+              f"plain {rec2['plain_ms']:.4f}, max err {err:.3e})")
+    del table
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bf16_form_call(qkv, h, extra, form: str):
@@ -1019,28 +1080,59 @@ def _rows_of(torch, pipe, outs):
                             for o in outs], device=ix.device)
 
 
+def _dot_rounding(torch, ix, q, rows):
+    """Per query, the largest f32 rounding error that the search's L2 score
+    ``|q|^2 - 2 q.x + |x|^2`` can carry from its two sums over D terms that
+    differ between the index rows ``rows [B, r]``: |x|^2 and q.x, in any
+    summation order, in Higham and Mary's probabilistic form sqrt(D) u
+    sum_d |term_d| (u = 2^-24), i.e. sqrt(D) 2^-24 (|x|^2 + 2 sum_d |q_d
+    x_d|), in f64 from the inputs alone. |q|^2, one sum for all of a
+    query's rows, leaves their order as it is. → [B] f64."""
+    x = ix.vectors[rows.long()].double()  # [B, r, D]
+    terms = x.square().sum(-1) + 2.0 * (x.abs() * q.double().abs()[:, None]
+                                        ).sum(-1)
+    return (q.shape[-1] ** 0.5 * 2.0 ** -24 * terms).amax(-1)
+
+
 def _hold_to_f64(torch, ix, tpp, mask, got, k):
     """Neighbor rows ``got [B, k]`` of queries ``tpp`` against a full scan
     on the card in f64 with the same ``mask``. Ids must be identical,
     except that neighbors whose f64 squared distances differ by less than
-    f32 rounding, 2^-21 * (|q|^2 + max |x|^2) (the certified search scores
-    ``|q|^2 - 2 q.x + |x|^2`` in f32), may swap: there the returned
-    distances must equal the f64 top-k within that bound. Returns (rows
-    with identical ids, rows where an f32 GEMM full scan's ids differ from
-    the f64 ones)."""
+    the search's f32 score resolves may swap: there the returned
+    neighbors' f64 distances must equal the f64 top-k's at every rank
+    within that bound. The search ranks by ``|q|^2 - 2 q.x + |x|^2`` in f32
+    (q.x from ``exact_dot``, or from the f32 GEMM of the fallback scan);
+    the bound, from the inputs alone, is 2^-21 (|q|^2 + max |x|^2) for the
+    rounding of the three terms' sum, plus twice ``_dot_rounding`` over the
+    returned and the f64 top-k rows (two rows trade places only within the
+    sum of their errors). Returns (rows with identical ids, rows where an
+    f32 GEMM full scan's ids differ from the f64 ones, the largest f64 gap
+    at a rank, the largest share of its bound that a gap took)."""
     from radad_tpu_torch.index.flat import _full_scan
 
     d64, ref, neg_ref, qsq, xsq = _f64_distances(torch, ix, tpp, mask, k)
     _, ref32 = _full_scan(tpp, ix.vectors, ix.norms_sq, mask, k,
                           larger_better=False)
-    d_got = d64.gather(1, got.long()).sort(-1).values
-    tol = 2.0 ** -21 * (qsq + xsq[: ix.n].max())
-    worst = float(((d_got + neg_ref).abs() - tol[:, None]).max())
-    if worst > 0:
+    got = got.long()
+    tol = (2.0 ** -21 * (qsq + xsq[: ix.n].max())
+           + 2.0 * _dot_rounding(torch, ix, tpp, torch.cat([got, ref], 1)))
+    gap = (d64.gather(1, got).sort(-1).values + neg_ref).abs().amax(-1)
+    if not bool((gap <= tol).all()):  # a NaN fails too
         raise AssertionError(f"neighbors beyond f32 rounding of the f64 "
-                             f"top-{k} (excess {worst:.3e})")
-    same = int((got.long() == ref).all(-1).sum())
-    return same, int((ref32.long() != ref).any(-1).sum())
+                             f"top-{k} (excess {float((gap - tol).max()):.3e}"
+                             f")")
+    same = int((got == ref).all(-1).sum())
+    return (same, int((ref32.long() != ref).any(-1).sum()),
+            float(gap.max()), float((gap / tol).max()))
+
+
+def _held_text(held) -> str:
+    """``_hold_to_f64``'s counts in words."""
+    same, f32_rows, gap, share = held
+    return (f"ids identical on {same} (the rest swap neighbors tied within "
+            f"f32 rounding); an f32 GEMM full scan's ids differ from f64 on "
+            f"{f32_rows} rows; largest f64 gap at a rank {gap:.3e}, "
+            f"{share:.3f} of its bound")
 
 
 def _check_against_full_scan(torch, pipe, paths, outs):
@@ -1141,7 +1233,8 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
     pipe = DetectionPipeline(cfg, use_pallas=use_pallas, device=dev)
     enc = pipe.encoder.arch_cfg
     print(f"pipeline: {pipe.encoder.name} {enc.num_hidden_layers} layers x "
-          f"{enc.hidden_size} wide, pretrained={pipe.encoder.pretrained}, "
+          f"{pipe.encoder.feature_dim} wide, pretrained="
+          f"{pipe.encoder.pretrained}, "
           f"use_pallas={pipe.index.use_pallas}, tpp dim {pipe.tpp_dim}, "
           f"built in {time.perf_counter() - t0:.2f} s")
     db_paths, db_labels = _write_clips(cfg.train_data_path, DB_CLIPS, SEED,
@@ -1161,10 +1254,13 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
     return pipe, db_paths
 
 
-def _launch_counts(kernels) -> dict:
+def _launch_counts(kernels, index=None) -> dict:
     """{kernel name: launches} of ``kernels``; fused_mha's count splits by
     dtype: "fused_mha" (its f32 bodies), "fused_mha_bf16" (its bf16
-    bodies)."""
+    bodies). With ``index``, its certified searches since ``_reset`` too:
+    "searches" and "fallbacks" (those that the certificate failed, whose
+    answer came from the full f32 scan and not from ``extract_candidates``
+    and ``exact_dot``)."""
     from radad_tpu_torch.ops.attention import fused_mha
 
     out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
@@ -1173,6 +1269,8 @@ def _launch_counts(kernels) -> dict:
     out["fused_mha_bf16"] = body["bias_bf16"] + body["no_bias_bf16"]
     for form, n in fused_mha.form_launches.items():
         out[f"fused_mha_bf16_{form}"] = n
+    if index is not None:
+        out["searches"], out["fallbacks"] = index.searches, index.fallbacks
     return out
 
 
@@ -1184,8 +1282,13 @@ def _resident_only(launches, label: str) -> None:
                              f"the resident form alone: {launches}")
 
 
-def _reset(kernels) -> None:
+def _reset(kernels, index=None) -> None:
+    """Every launch count of ``kernels`` (and ``index``'s search counts) to
+    0."""
     from radad_tpu_torch.ops.attention import fused_mha, reset_launches
+
+    if index is not None:
+        index.searches = index.fallbacks = 0
 
     for w in kernels:
         if w is fused_mha:
@@ -1203,8 +1306,7 @@ def _counted_run(torch, pipe, q_paths, batch64, kernels):
     pipe.predict(q_paths[0])  # warm-up outside the counted run
     pipe.predict_batch(q_paths[:8])
     torch.cuda.synchronize()
-    _reset(kernels)
-    pipe.index.searches = pipe.index.fallbacks = 0
+    _reset(kernels, pipe.index)
     lat = {"predict_1": [], "predict_batch_8": [], "predict_batch_64": []}
     stages, outs = {}, {}
     for _ in range(5):
@@ -1219,7 +1321,7 @@ def _counted_run(torch, pipe, q_paths, batch64, kernels):
             lat[name].append((time.perf_counter() - t) * 1e3)
         stages[name] = outs[name][0]["stage_ms"]
     torch.cuda.synchronize()
-    launches = _launch_counts(kernels)
+    launches = _launch_counts(kernels, pipe.index)
     return lat, stages, outs, launches, dict(fused_mha.body_launches)
 
 
@@ -1240,14 +1342,21 @@ def _report(lat, stages, pipe, launches, label):
           f"{launches}")
 
 
-def _compare_fused(torch, pipe, paths, fused, default):
+def _compare_fused(torch, pipe, paths, fused, default, label: str) -> None:
     """predict_batch payloads with and without RADAD_FUSED_ATTENTION=1 on
-    the same clips. Logits within 1e-4; the embeddings' relative change
-    within 1e-4; neighbor ids equal, except that neighbors tied within what
-    that change explains may trade places: at every rank the two squared
-    distances differ by at most 2 |q - x| |dq| plus f32 rounding,
-    2^-20 (|q|^2 + max |x|^2). → (rows whose ids differ, max |dlogit|,
-    max relative embedding change)."""
+    the same clips. The embeddings' relative change within 1e-4; the fused
+    run's neighbors held to the f64 scan of its own embeddings
+    (``_hold_to_f64``); at every rank the two runs' returned distances
+    within what the embedding change dq explains, 2 |q - x| |dq| +
+    |dq|^2, plus each run's f32 rounding (``_dot_rounding`` over its rows,
+    sqrt(D) 2^-24 |q|^2 for the sum of |q|^2) and 2^-20 (|q|^2 + max
+    |x|^2); on every row the fused logit within 1e-4 of the fusion model
+    run on the default embedding with the fused run's neighbors, so that a
+    row whose tied neighbors traded places is held by what the embedding
+    change did to its logit, as one whose neighbors stayed. Prints the
+    numbers under ``label``."""
+    from radad_tpu_torch.data.manifest import file_id
+
     ix = pipe.index
     base = _embed_paths(torch, pipe, paths)
     os.environ["RADAD_FUSED_ATTENTION"] = "1"
@@ -1257,92 +1366,97 @@ def _compare_fused(torch, pipe, paths, fused, default):
         os.environ.pop("RADAD_FUSED_ATTENTION", None)
     dq = (moved - base).double().norm(dim=-1)
     drel = float((dq / base.double().norm(dim=-1)).max())
-    dlogit = max(abs(a["logit"] - b["logit"]) for a, b in zip(fused, default))
-    d_f = torch.tensor([[x["distance"] for x in o["retrieved"]]
-                        for o in fused], dtype=torch.float64)
-    d_d = torch.tensor([[x["distance"] for x in o["retrieved"]]
-                        for o in default], dtype=torch.float64)
-    qsq = base.double().square().sum(-1).cpu()
-    tol = (2.0 * d_d.amax(-1).sqrt() * dq.cpu()
-           + 2.0 ** -20 * (qsq + float(ix.norms_sq[: ix.n].max())))
-    differ = [r for r, (a, b) in enumerate(zip(fused, default))
-              if a["retrieved_files"] != b["retrieved_files"]]
-    if dlogit > 1e-4 or drel > 1e-4 or bool(
-            ((d_f - d_d).abs() > tol[:, None]).any()):
+    excl = torch.as_tensor([file_id(p) for p in paths], device=ix.device,
+                           dtype=torch.int32)
+    rows_f = _rows_of(torch, pipe, fused)
+    _hold_to_f64(torch, ix, moved, _exclusion_mask(torch, ix, excl, "self"),
+                 rows_f, pipe.config.top_k)
+
+    def returned(outs):
+        return torch.tensor([[x["distance"] for x in o["retrieved"]]
+                             for o in outs], dtype=torch.float64,
+                            device=ix.device)
+
+    d_f, d_d = returned(fused), returned(default)
+    q_rounding = 0.0
+    for q, outs in ((moved, fused), (base, default)):
+        q_rounding = q_rounding + _dot_rounding(
+            torch, ix, q, _rows_of(torch, pipe, outs)) + (
+            q.shape[-1] ** 0.5 * 2.0 ** -24 * q.double().square().sum(-1))
+    # an f32 score may fall below 0 where q and x nearly coincide
+    sq_d = torch.maximum(d_f.amax(-1), d_d.amax(-1)).clamp_min(0.0).sqrt()
+    tol = (2.0 * sq_d * dq + dq.square() + q_rounding
+           + 2.0 ** -20 * (base.double().square().sum(-1)
+                           + float(ix.norms_sq[: ix.n].max())))
+    off = float(((d_f - d_d).abs() - tol[:, None]).max())
+    with torch.no_grad():
+        replay = pipe.model(ix.vectors[rows_f].float(), base).float().cpu()
+    dlogit = [abs(a["logit"] - b["logit"]) for a, b in zip(fused, default)]
+    dreplay = max(abs(a["logit"] - float(r)) for a, r in zip(fused, replay))
+    differ = {r for r, (a, b) in enumerate(zip(fused, default))
+              if a["retrieved_files"] != b["retrieved_files"]}
+    same = max((d for r, d in enumerate(dlogit) if r not in differ),
+               default=0.0)
+    swapped = max((dlogit[r] for r in differ), default=0.0)
+    finite = all(abs(o["logit"]) < float("inf") for o in fused)
+    if not (finite and same <= 1e-4 and dreplay <= 1e-4 and drel <= 1e-4
+            and off <= 0):  # a NaN fails too
         raise AssertionError(
-            f"RADAD_FUSED_ATTENTION=1 changed the result: max |dlogit| "
-            f"{dlogit:.3e}, relative embedding change {drel:.3e}, rows "
-            f"{[(r, fused[r]['retrieved'], default[r]['retrieved']) for r in differ]}")
-    return len(differ), dlogit, drel
+            f"RADAD_FUSED_ATTENTION=1 changed the result: finite logits "
+            f"{finite}, max |dlogit| "
+            f"{same:.3e} on rows with equal neighbors, {dreplay:.3e} against "
+            f"the default embedding with the same neighbors, relative "
+            f"embedding change {drel:.3e}, returned distances beyond their "
+            f"bound by {off:.3e} at most")
+    print(f"{label} with RADAD_FUSED_ATTENTION=1: neighbors equal on "
+          f"{len(fused) - len(differ)} of {len(fused)} rows, the rest swap "
+          f"neighbors tied within the embedding change (max relative "
+          f"{drel:.3e}, limit 1e-4); returned distances within their bound "
+          f"by {-off:.3e}; max |dlogit| {same:.3e} on rows with equal "
+          f"neighbors, {swapped:.3e} on the others, {dreplay:.3e} against "
+          f"the default embedding with the fused run's neighbors (limits "
+          f"1e-4)")
 
 
 def serving_phase(torch, dev, tmp: str):
     """The wav2vec2 serving path at full width, certified search, default
     attention; then one predict_batch(8) with the fused attention switch.
     Returns (pipeline, {path: launches}, query clip paths)."""
-    import numpy as np
-
     from radad_tpu_torch.ops.attention import fused_mha
     from radad_tpu_torch.ops.gather import gather_rows
     from radad_tpu_torch.ops.rerank import exact_dot
     from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
 
     os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    torch.cuda.reset_peak_memory_stats()
     pipe, db_paths = _build_pipeline(torch, dev, tmp, "wav2vec2")
     q_paths, _ = _write_clips(tmp, 64, SEED + 2, "query")
     batch64 = q_paths[:32] + db_paths[:32]  # half of them are DB clips
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                flat_topk)
-    lat, stages, outs, launches, _ = _counted_run(torch, pipe, q_paths,
-                                                  batch64, kernels)
-    if not np.isfinite(outs["predict_1"][0]["logit"]):
-        raise AssertionError("non-finite logit from predict")
-    for name in ("predict_batch_8", "predict_batch_64"):
-        paths = q_paths[8:16] if name == "predict_batch_8" else batch64
-        same, f32_rows = _check_against_full_scan(torch, pipe, paths,
-                                                  outs[name])
-        print(f"{name}: neighbors match the f64 full scan on all "
-              f"{len(paths)} rows, ids identical on {same} (the rest swap "
-              f"neighbors tied within f32 rounding); an f32 GEMM full "
-              f"scan's ids differ from f64 on {f32_rows} rows")
-    for name in ("gather_rows", "exact_dot", "extract_candidates"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"wav2vec2 serving path")
-    if launches["fused_mha"] or launches["flat_topk"]:
-        raise AssertionError(f"the default path launched an opt-in kernel: "
-                             f"{launches}")
-    _report(lat, stages, pipe, launches, "wav2vec2")
+    launches, outs, stages = _serve_checked(torch, pipe, q_paths, batch64,
+                                            kernels, "wav2vec2", fused=False)
 
     # the same clips with the fused attention switch: bias-free body
-    _reset(kernels)
+    _reset(kernels, pipe.index)
     os.environ["RADAD_FUSED_ATTENTION"] = "1"
     try:
         fused = pipe.predict_batch(q_paths[8:16])
         torch.cuda.synchronize()
     finally:
         os.environ.pop("RADAD_FUSED_ATTENTION", None)
-    fused_launches = _launch_counts(kernels)
+    fused_launches = _launch_counts(kernels, pipe.index)
     body = dict(fused_mha.body_launches)
     if body["no_bias"] <= 0 or body["bias"]:
         raise AssertionError(f"fused attention: bias-free body not launched "
                              f"alone ({body})")
-    differ, dlogit, drel = _compare_fused(torch, pipe, q_paths[8:16], fused,
-                                          outs["predict_batch_8"])
-    print(f"wav2vec2 with RADAD_FUSED_ATTENTION=1: predict_batch(8) "
-          f"neighbors equal on {8 - differ} of 8 rows, the rest swap "
-          f"neighbors tied within the embedding change (max relative "
-          f"{drel:.3e}, limit 1e-4); max |dlogit| {dlogit:.3e} (limit "
-          f"1e-4); launches {fused_launches}, fused_mha per body {body}")
-    # the f32 reference of the mixed-precision phase: the same clips'
-    # embeddings, neighbor files and stage times
-    sets = _serving_sets(q_paths, batch64)
-    ref = dict(q_paths=q_paths,
-               emb={n: _embed_paths(torch, pipe, p).cpu()
-                    for n, p in sets.items()},
-               files={n: [o["retrieved_files"] for o in outs[n]]
-                      for n in sets},
-               stages={n: stage_ms(torch, pipe, p) for n, p in sets.items()})
+    _compare_fused(torch, pipe, q_paths[8:16], fused,
+                   outs["predict_batch_8"], "wav2vec2 predict_batch_8")
+    print(f"wav2vec2 with RADAD_FUSED_ATTENTION=1: launches "
+          f"{fused_launches}, fused_mha per body {body}")
+    # the f32 reference of the mixed-precision phase
+    ref = dict(q_paths=q_paths, **_f32_reference(
+        torch, pipe, _serving_sets(q_paths, batch64), outs, stages))
     return pipe, {"wav2vec2": launches,
                   "wav2vec2_fused_attention": fused_launches}, q_paths, ref
 
@@ -1414,14 +1528,13 @@ def serving_bf16_phase(torch, dev, tmp: str, ref: dict):
     pipeline's (same seeded weights), recall@5 of the bf16 neighbors
     against the f32 pipeline's (by file), and fused against default bf16.
     Returns {path: launches}."""
-    import numpy as np
-
     from radad_tpu_torch.ops.attention import fused_mha
     from radad_tpu_torch.ops.gather import gather_rows
     from radad_tpu_torch.ops.rerank import exact_dot
     from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
 
     os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    torch.cuda.reset_peak_memory_stats()
     pipe, db_paths = _build_pipeline(torch, dev, tmp, "wav2vec2_bf16",
                                      use_mixed_precision=True)
     if pipe.encoder.compute_dtype != torch.bfloat16:
@@ -1432,52 +1545,17 @@ def serving_bf16_phase(torch, dev, tmp: str, ref: dict):
     sets = _serving_sets(q_paths, batch64)
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                flat_topk)
-    lat, stages, outs, launches, _ = _counted_run(torch, pipe, q_paths,
-                                                  batch64, kernels)
-    if not np.isfinite(outs["predict_1"][0]["logit"]):
-        raise AssertionError("non-finite logit from the bf16 predict")
-    for name in ("predict_batch_8", "predict_batch_64"):
-        same, f32_rows = _check_against_full_scan(torch, pipe, sets[name],
-                                                  outs[name])
-        print(f"wav2vec2 bf16 {name}: neighbors match the f64 full scan of "
-              f"the bf16 embeddings on all {len(sets[name])} rows, ids "
-              f"identical on {same}; an f32 GEMM full scan's ids differ "
-              f"from f64 on {f32_rows} rows")
-    for name in ("gather_rows", "exact_dot", "extract_candidates"):
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"bf16 wav2vec2 serving path")
-    if launches["fused_mha"] or launches["fused_mha_bf16"] or launches[
-            "flat_topk"]:
-        raise AssertionError(f"the default bf16 path launched an opt-in "
-                             f"kernel: {launches}")
-    _report(lat, stages, pipe, launches, "wav2vec2 bf16")
-    for name, paths in sets.items():
-        st = stage_ms(torch, pipe, paths)
-        print(f"wav2vec2 stages {name} (median of 5, ms): bf16 "
-              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
-              + "; f32 " + ", ".join(f"{k} {v:.3f}"
-                                     for k, v in ref["stages"][name].items()))
-        emb = _embed_paths(torch, pipe, paths).cpu().double()
-        f32 = ref["emb"][name].double()
-        dev_rel = ((emb - f32).norm(dim=-1) / f32.norm(dim=-1)).numpy()
-        hits = [len(set(a) & set(b)) for a, b in zip(
-            (o["retrieved_files"] for o in outs[name]), ref["files"][name])]
-        print(f"wav2vec2 bf16 against f32, {name}: embedding relative "
-              f"deviation per clip max {dev_rel.max():.3e}, median "
-              f"{float(np.median(dev_rel)):.3e}; recall@{pipe.config.top_k} "
-              f"of the bf16 neighbors against the f32 pipeline's "
-              f"{sum(hits) / (pipe.config.top_k * len(hits)):.4f} "
-              f"({sum(h == pipe.config.top_k for h in hits)} of "
-              f"{len(hits)} rows identical sets)")
+    launches, outs, stages = _serve_checked(
+        torch, pipe, q_paths, batch64, kernels, "wav2vec2 bf16", fused=False)
+    _against_f32(torch, pipe, "wav2vec2 bf16", sets, outs, stages, ref)
 
     # the fused attention switch: fused_mha's bias-free bf16 body
-    _reset(kernels)
+    _reset(kernels, pipe.index)
     os.environ["RADAD_FUSED_ATTENTION"] = "1"
     try:
         fused = pipe.predict_batch(sets["predict_batch_8"])
         torch.cuda.synchronize()
-        fused_launches = _launch_counts(kernels)
+        fused_launches = _launch_counts(kernels, pipe.index)
         body = dict(fused_mha.body_launches)
         moved = _embed_paths(torch, pipe, sets["predict_batch_8"])
     finally:
@@ -1564,12 +1642,259 @@ def wavlm_phase(torch, dev, tmp: str, mixed: bool = False):
     return {label: launches}
 
 
-def hubert_xlarge_phase(torch, dev, tmp: str):
-    """hubert-xlarge-ls960-ft at full size (48 layers, 1,280 wide, 16 heads
-    of 80) with seeded random weights: one encoder forward of 8 two-second
-    windows with RADAD_FUSED_ATTENTION=1 must launch fused_mha's bias-free
-    body once a layer and stay within 1e-4 relative of the same forward
-    without it. Returns {path: launches}."""
+def _serve_checked(torch, pipe, q_paths, batch64, kernels, label: str,
+                   fused: bool):
+    """``_counted_run`` on ``pipe``, then: neighbors of predict_batch(8) and
+    (64) against the f64 scan of the pipeline's own embeddings, the
+    certified search's kernels launched, fused_mha launched iff ``fused``
+    (RADAD_FUSED_ATTENTION=1 set by the caller) and flat_topk not; the
+    report, the stage times of each call kind and the peak device memory
+    since the caller's reset. → (launches, outputs, {call kind: stage ms})."""
+    import numpy as np
+
+    lat, stages, outs, launches, _ = _counted_run(torch, pipe, q_paths,
+                                                  batch64, kernels)
+    if not np.isfinite(outs["predict_1"][0]["logit"]):
+        raise AssertionError(f"{label}: non-finite logit from predict")
+    sets = _serving_sets(q_paths, batch64)
+    for name in ("predict_batch_8", "predict_batch_64"):
+        held = _check_against_full_scan(torch, pipe, sets[name], outs[name])
+        print(f"{label} {name}: neighbors match the f64 full scan on all "
+              f"{len(sets[name])} rows, {_held_text(held)}")
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{label} serving path")
+    attn = launches["fused_mha"] + launches["fused_mha_bf16"]
+    if launches["flat_topk"] or bool(attn) != fused:
+        raise AssertionError(f"{label}: want fused_mha {'' if fused else 'not '}"
+                             f"launched and flat_topk not: {launches}")
+    _report(lat, stages, pipe, launches, label)
+    _search_costs(torch, pipe, sets, label)
+    stage = {n: stage_ms(torch, pipe, p) for n, p in sets.items()}
+    for name, st in stage.items():
+        print(f"{label} stages {name} (median of 5, ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    print(f"{label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, outs, stage
+
+
+def _search_costs(torch, pipe, sets, label: str) -> None:
+    """Prints, on each call kind's clips, the call ms (CUDA events over 10
+    calls, each ended by a synchronize as a search's caller reads its
+    result: host work included) of the certified search's attempt
+    (``_search_fast_exact``: bf16 scan, candidate select, ``exact_dot``,
+    the certificate's host read) and of the full f32 scan (``_full_scan``)
+    that a failed certificate runs after it, and whether the attempt
+    held: what a fallback wastes beside the scan alone."""
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.index.flat import _full_scan, _search_fast_exact
+
+    ix, k = pipe.index, pipe.config.top_k
+    for name, paths in sets.items():
+        tpp = _embed_paths(torch, pipe, paths)
+        mask = _exclusion_mask(torch, ix, torch.as_tensor(
+            [file_id(p) for p in paths], device=ix.device,
+            dtype=torch.int32), "self")
+
+        def attempt():
+            out = _search_fast_exact(
+                tpp, ix.scan_bf16, ix.norms_sq, mask, k, False, ix.vectors,
+                resid_bf16=ix.resid_bf16)
+            torch.cuda.synchronize()
+            return out
+
+        def scan():
+            _full_scan(tpp, ix.vectors, ix.norms_sq, mask, k, False)
+            torch.cuda.synchronize()
+
+        held = attempt()[2]
+        a_ms, s_ms = time_ms(torch, attempt, 10), time_ms(torch, scan, 10)
+        print(f"{label} {name} search (L2, call ms on CUDA events): "
+              f"certified attempt {a_ms:.3f} "
+              f"({'held' if held else 'failed, wasted'}), full f32 scan "
+              f"{s_ms:.3f}")
+
+
+def _f32_reference(torch, pipe, sets, outs, stages) -> dict:
+    """An f32 pipeline's embeddings, neighbor files and stage times per call
+    kind, which ``_against_f32`` holds a bf16 pipeline's beside."""
+    return dict(emb={n: _embed_paths(torch, pipe, p).cpu()
+                     for n, p in sets.items()},
+                files={n: [o["retrieved_files"] for o in outs[n]]
+                       for n in sets},
+                stages=stages)
+
+
+def _against_f32(torch, pipe, label, sets, outs, stages, ref) -> None:
+    """Prints, per call kind, a bf16 pipeline's stage times beside the f32
+    pipeline's (``ref`` from ``_f32_reference``), each clip embedding's
+    relative deviation from the f32 one and recall@k of the bf16 neighbors
+    against the f32 ones (by file)."""
+    import numpy as np
+
+    k = pipe.config.top_k
+    for name, paths in sets.items():
+        emb = _embed_paths(torch, pipe, paths).cpu().double()
+        f32 = ref["emb"][name].double()
+        dev_rel = ((emb - f32).norm(dim=-1) / f32.norm(dim=-1)).numpy()
+        hits = [len(set(a) & set(b)) for a, b in zip(
+            (o["retrieved_files"] for o in outs[name]), ref["files"][name])]
+        print(f"{label} against f32, {name}: stages bf16 "
+              + ", ".join(f"{s} {v:.3f}" for s, v in stages[name].items())
+              + "; f32 " + ", ".join(
+                  f"{s} {v:.3f}" for s, v in ref["stages"][name].items())
+              + f"; embedding relative deviation per clip max "
+              f"{dev_rel.max():.3e}, median {float(np.median(dev_rel)):.3e};"
+              f" recall@{k} of the bf16 neighbors against the f32 "
+              f"pipeline's {sum(hits) / (k * len(hits)):.4f} "
+              f"({sum(h == k for h in hits)} of {len(hits)} rows identical "
+              f"sets)")
+
+
+def whisper_phase(torch, dev, tmp: str):
+    """whisper-base serving at full width (6 layers, 512 wide, 8 heads of
+    64; f32), certified search on a 25,600 x 3,584 index (TPP of 512), in
+    the reference's 30 s padding (T = 1,500) with the default attention:
+    predict at B = 1 and predict_batch at B = 8 and 64, counted and timed,
+    neighbors against the f64 scan; then ``_whisper_fused_check``. Then the
+    same serving calls with whisper_pad_seconds=None (T = 100) on its own
+    index. Peak device memory per pipeline. Returns ({path: launches}, the
+    f32 embeddings, neighbor files and stage times per pad mode for
+    ``whisper_bf16_phase``)."""
+    import gc
+
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    q_paths, _ = _write_clips(tmp, 64, SEED + 8, "whquery")
+    by_path, ref = {}, {"q_paths": q_paths}
+    for pad, label in ((30.0, "whisper"), (None, "whisper_fast")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pipe, db_paths = _build_pipeline(
+            torch, dev, tmp, label, feature_extractor_type="whisper",
+            whisper_pad_seconds=pad)
+        batch64 = q_paths[:32] + db_paths[:32]
+        sets = _serving_sets(q_paths, batch64)
+        launches, outs, stage = _serve_checked(torch, pipe, q_paths, batch64,
+                                               kernels, label, fused=False)
+        by_path[label] = launches
+        ref[pad] = _f32_reference(torch, pipe, sets, outs, stage)
+        if pad is not None:
+            by_path["whisper_fused_attention"] = _whisper_fused_check(
+                torch, pipe, sets, outs, kernels)
+        del pipe, outs
+    return by_path, ref
+
+
+def _whisper_fused_check(torch, pipe, sets, outs, kernels) -> dict:
+    """predict_batch(8) and (64) of the padded whisper-base pipeline with
+    RADAD_FUSED_ATTENTION=1 must launch fused_mha's bias-free f32 body once
+    a layer a call (at [16, 1500, 512] and [128, 1500, 512]) and nothing
+    else of it, and agree with the default path's ``outs`` as
+    ``_compare_fused`` holds them. → launches."""
+    from radad_tpu_torch.ops.attention import fused_mha
+
+    _reset(kernels, pipe.index)
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        fused = {n: pipe.predict_batch(sets[n])
+                 for n in ("predict_batch_8", "predict_batch_64")}
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    launches = _launch_counts(kernels, pipe.index)
+    body = dict(fused_mha.body_launches)
+    layers = pipe.encoder.arch_cfg.num_hidden_layers
+    if body != {"bias": 0, "no_bias": 2 * layers, "bias_bf16": 0,
+                "no_bias_bf16": 0}:
+        raise AssertionError(f"whisper fused attention: want {2 * layers} "
+                             f"bias-free f32 launches, got {body}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, got in fused.items():
+        _compare_fused(torch, pipe, sets[name], got, outs[name],
+                       f"whisper {name}")
+    print(f"whisper fused attention: launches {launches}, fused_mha per body "
+          f"{body}; peak device memory {peak:.2f} GiB")
+    return launches
+
+
+def whisper_bf16_phase(torch, dev, tmp: str, ref: dict):
+    """whisper-base in mixed precision (bf16 encoder and fusion model, f32
+    parameters and clip embeddings) with RADAD_FUSED_ATTENTION=1, each pad
+    mode on its own 25,600 x 3,584 index: the serving calls of
+    ``whisper_phase``, neighbors against the f64 scan of the bf16
+    embeddings, fused_mha's bias-free bf16 body alone, in the streamed
+    form only at T = 1,500 (30 s padding) and the resident form only at
+    T = 100 (trimmed). Printed beside the f32 pipeline of the same pad
+    mode: stage times, each clip embedding's relative deviation, recall@5
+    of the bf16 neighbors against the f32 ones (by file). Returns {path:
+    launches}."""
+    import gc
+
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    q_paths, by_path = ref["q_paths"], {}
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        for pad, label in ((30.0, "whisper_bf16"),
+                           (None, "whisper_bf16_fast")):
+            torch.cuda.reset_peak_memory_stats()
+            pipe, db_paths = _build_pipeline(
+                torch, dev, tmp, label, feature_extractor_type="whisper",
+                whisper_pad_seconds=pad, use_mixed_precision=True)
+            if pipe.encoder.compute_dtype != torch.bfloat16:
+                raise AssertionError("use_mixed_precision did not give a "
+                                     "bf16 encoder")
+            batch64 = q_paths[:32] + db_paths[:32]
+            sets = _serving_sets(q_paths, batch64)
+            launches, outs, stage = _serve_checked(
+                torch, pipe, q_paths, batch64, kernels, label, fused=True)
+            body = dict(fused_mha.body_launches)
+            if body["no_bias_bf16"] <= 0 or sum(body.values()) != body[
+                    "no_bias_bf16"]:
+                raise AssertionError(f"{label}: the bias-free bf16 body not "
+                                     f"launched alone ({body})")
+            if pad is None:
+                _resident_only(launches, label)
+            elif (launches["fused_mha_bf16_streamed"] <= 0
+                  or launches["fused_mha_bf16_resident"]):
+                raise AssertionError(f"{label}: fused_mha bf16 launched other "
+                                     f"than the streamed form alone at "
+                                     f"T = 1,500: {launches}")
+            by_path[label] = launches
+            _against_f32(torch, pipe, label, sets, outs, stage, ref[pad])
+            del pipe, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    return by_path
+
+
+def fused_forward_phase(torch, dev, tmp: str, kind: str, model_name: str,
+                        label: str):
+    """One full-size encoder with seeded random weights: one forward of 8
+    two-second windows (hubert-xlarge-ls960-ft: 48 layers, 1,280 wide, 16
+    heads of 80) or of 2 (whisper-large-v3: 32 layers, 1,280 wide, 20
+    heads of 64, 128 mel bins, T = 1,500 padded to 30 s) with
+    RADAD_FUSED_ATTENTION=1 must launch fused_mha's bias-free body once a
+    layer and stay within 1e-4 relative of the same forward without it.
+    Returns {path: launches}."""
     import gc
 
     import numpy as np
@@ -1582,24 +1907,23 @@ def hubert_xlarge_phase(torch, dev, tmp: str):
     from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
 
     os.environ.pop("RADAD_FUSED_ATTENTION", None)
-    cfg = Config().replace(
-        feature_extractor_type="hubert",
-        hubert_model_name="facebook/hubert-xlarge-ls960-ft",
-        data_root=os.path.join(tmp, "hubert"))
+    cfg = Config().replace(feature_extractor_type=kind,
+                           data_root=os.path.join(tmp, label),
+                           **{f"{kind}_model_name": model_name})
     t0 = time.perf_counter()
     enc = build_encoder(cfg, seed=SEED, device=dev)
     arch = enc.arch_cfg
     layers, heads = arch.num_hidden_layers, arch.num_attention_heads
-    print(f"hubert-xlarge encoder: {layers} layers x {arch.hidden_size} "
-          f"wide, {heads} heads of {arch.hidden_size // heads}, "
-          f"pretrained={enc.pretrained}, built in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"{label} encoder: {layers} layers x {enc.feature_dim} wide, "
+          f"{heads} heads of {enc.feature_dim // heads}, pretrained="
+          f"{enc.pretrained}, built in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED + 4)
-    sr = cfg.sample_rate
-    tone = np.sin(2 * np.pi * rng.uniform(120, 600, (8, 1))
+    sr, n = cfg.sample_rate, 2 if kind == "whisper" else 8
+    tone = np.sin(2 * np.pi * rng.uniform(120, 600, (n, 1))
                   * np.arange(2 * sr) / sr)
     wave = torch.as_tensor((0.4 * tone + 0.02 * rng.standard_normal(
         tone.shape)).astype(np.float32), device=dev)
+    torch.cuda.reset_peak_memory_stats()
     base = enc.segment_features(wave)
     torch.cuda.synchronize()
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
@@ -1615,21 +1939,22 @@ def hubert_xlarge_phase(torch, dev, tmp: str):
     body = dict(fused_mha.body_launches)
     rel = float(((fused - base).double().flatten(1).norm(dim=1)
                  / base.double().flatten(1).norm(dim=1)).max())
-    print(f"hubert-xlarge with RADAD_FUSED_ATTENTION=1: features "
+    print(f"{label} with RADAD_FUSED_ATTENTION=1: features "
           f"{list(fused.shape)}, max relative change per window {rel:.3e} "
           f"(limit 1e-4), max |diff| {float((fused - base).abs().max()):.3e}"
-          f"; launches {launches}, fused_mha per body {body}")
+          f"; launches {launches}, fused_mha per body {body}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if body != {"bias": 0, "no_bias": layers, "bias_bf16": 0,
                 "no_bias_bf16": 0}:
-        raise AssertionError(f"hubert-xlarge: want {layers} bias-free "
-                             f"fused_mha launches, got {body}")
+        raise AssertionError(f"{label}: want {layers} bias-free fused_mha "
+                             f"launches, got {body}")
     if not (rel <= 1e-4 and bool(torch.isfinite(fused).all())):
-        raise AssertionError(f"hubert-xlarge: fused attention moved the "
-                             f"features by {rel:.3e} relative")
+        raise AssertionError(f"{label}: fused attention moved the features "
+                             f"by {rel:.3e} relative")
     del enc, base, fused
     gc.collect()
     torch.cuda.empty_cache()
-    return {"hubert_xlarge_fused_attention": launches}
+    return {f"{label}_fused_attention": launches}
 
 
 def server_phase(pipe, q_paths) -> None:
@@ -1917,13 +2242,12 @@ def train_phase(torch, dev, tmp: str):
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                flat_topk)
     torch.cuda.synchronize()
-    _reset(kernels)
-    ix.searches = ix.fallbacks = 0
+    _reset(kernels, ix)
     t0 = time.perf_counter()
     pipe.train(train_m, val_m)
     result = pipe.evaluate(val_m)
     torch.cuda.synchronize()
-    launches = _launch_counts(kernels)
+    launches = _launch_counts(kernels, ix)
     secs = time.perf_counter() - t0
     epochs = [r for r in pipe.writer.rows if r["epoch"] != "eval"]
     for r in epochs:
@@ -1961,13 +2285,11 @@ def train_phase(torch, dev, tmp: str):
     for what, (tpp, _, ids, _) in (("train B=128", train_batch),
                                    ("eval B=256", eval_batch)):
         _, _, _, idx = pipe._retrieve(tpp, ids, "batch")
-        same, f32_rows = _hold_to_f64(
+        held = _hold_to_f64(
             torch, ix, tpp, _exclusion_mask(torch, ix, ids, "batch"), idx,
             cfg.top_k)
         print(f"train phase retrieval {what}: neighbors match the f64 full "
-              f"scan on all {tpp.shape[0]} rows, ids identical on {same} "
-              f"(the rest swap neighbors tied within f32 rounding); an f32 "
-              f"GEMM full scan's ids differ from f64 on {f32_rows} rows")
+              f"scan on all {tpp.shape[0]} rows, {_held_text(held)}")
 
     neighbors, _ = steps.fetch(train_batch[0], train_batch[2])
     errs = _update_on_cpu(torch, pipe, train_batch, neighbors)
@@ -2065,13 +2387,12 @@ def _train_bf16(torch, dev, tmp: str):
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                flat_topk)
     torch.cuda.synchronize()
-    _reset(kernels)
-    ix.searches = ix.fallbacks = 0
+    _reset(kernels, ix)
     t0 = time.perf_counter()
     pipe.train(train_m, val_m)
     result = pipe.evaluate(val_m)
     torch.cuda.synchronize()
-    launches = _launch_counts(kernels)
+    launches = _launch_counts(kernels, ix)
     secs = time.perf_counter() - t0
     row = [r for r in pipe.writer.rows if r["epoch"] != "eval"][-1]
     print(f"train bf16 epoch 1: train loss {row['train_loss']:.6f}, val loss "
@@ -2130,7 +2451,9 @@ def main() -> int:
         server_phase(pipe, q_paths)
         del pipe  # free the first pipeline before building the second
         for phase in (lambda: wavlm_phase(torch, dev, tmp),
-                      lambda: hubert_xlarge_phase(torch, dev, tmp),
+                      lambda: fused_forward_phase(
+                          torch, dev, tmp, "hubert",
+                          "facebook/hubert-xlarge-ls960-ft", "hubert_xlarge"),
                       lambda: train_phase(torch, dev, tmp),
                       # mixed precision: bf16 encoders and fusion model
                       lambda: serving_bf16_phase(torch, dev, tmp, ref),
@@ -2139,6 +2462,16 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             by_path.update(phase())
+        # Whisper: whisper-base serving in both pad modes, f32 then bf16
+        # with fused attention; whisper-large-v3's encoder alone
+        gc.collect()
+        torch.cuda.empty_cache()
+        whisper_paths, whisper_ref = whisper_phase(torch, dev, tmp)
+        by_path.update(whisper_paths)
+        by_path.update(whisper_bf16_phase(torch, dev, tmp, whisper_ref))
+        by_path.update(fused_forward_phase(torch, dev, tmp, "whisper",
+                                           "openai/whisper-large-v3",
+                                           "whisper_large_v3"))
     kernels = []
     for name, r in recs.items():
         per_path = {p: n.get(name, 0) for p, n in by_path.items()
@@ -2148,18 +2481,27 @@ def main() -> int:
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
-                   bound_rate=r["bound_rate"], launches_by_path=per_path)
+                   bound_rate=r["bound_rate"], launches_by_path=per_path,
+                   **_pick(r, ("ms_source", "plain_ms_source",
+                               "library_ms_source")))
+        if name in ("exact_dot", "extract_candidates"):
+            # a launch answers only where its search was certified
+            searches = {p: (by_path[p]["searches"], by_path[p]["fallbacks"])
+                        for p in per_path if "searches" in by_path[p]}
+            rec["searches_by_path"] = searches
+            rec["launches_answering"] = sum(
+                round(per_path[p] * (s - f) / s)
+                for p, (s, f) in searches.items() if s)
         if "b8" in r:
             rec["kernel_ms"] = r["kernel_ms"]
-            rec["b8"] = {key: r["b8"][key] for key in (
+            rec["b8"] = _pick(r["b8"], (
                 "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}
+                "bound_by", "max_abs_err"))
         if "no_bias" in r:
             rec["max_rel_err"] = r["max_rel_err"]
-            rec["no_bias"] = {key: r["no_bias"][key] for key in (
+            rec["no_bias"] = _pick(r["no_bias"], (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "max_rel_err") + (
-                    ("streamed_ms",) if "streamed_ms" in r else ())}
+                "max_abs_err", "max_rel_err", "streamed_ms"))
         if "streamed_ms" in r:
             rec["streamed_ms"] = r["streamed_ms"]
             rec["launches_by_form"] = {
@@ -2169,7 +2511,7 @@ def main() -> int:
             rec["hmma"] = r["hmma"]
         if "max_bf16_steps" in r:
             rec["max_bf16_steps"] = r["max_bf16_steps"]
-        for key in ("by_shape", "hd80"):
+        for key in ("by_shape", "hd80", "whisper"):
             if key in r:
                 rec[key] = r[key]
         kernels.append(rec)

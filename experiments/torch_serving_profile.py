@@ -2,8 +2,9 @@
 """Where the time goes in the PyTorch/CUDA port's serving path, on one GPU.
 
 Builds the same full-width serving setup as ``chip_smoke.py`` (seeded
-random wav2vec2-base or wavlm-base, 256 synthetic clips embedded, index
-padded to 25,600 x 5,376), then for ``predict_batch`` at B = 1, 8 and 64:
+random wav2vec2-base, wavlm-base or whisper-base, 256 synthetic clips
+embedded, index padded to 25,600 rows of TPP width: 5,376, or 3,584 for
+whisper-base), then for ``predict_batch`` at B = 1, 8 and 64:
 
 * a stage breakdown from CUDA-synchronized host clocks: decode, embed
   (segment + encoder + TPP), search, neighbor gather, fusion model;
@@ -12,10 +13,13 @@ padded to 25,600 x 5,376), then for ``predict_batch`` at B = 1, 8 and 64:
   share of the call's wall time.
 
 Run from the root of a checkout on a machine with a GPU:
-``python3 experiments/torch_serving_profile.py [--path wavlm] [--out
-FILE] [--mixed_precision]``. ``--path`` picks one of ``chip_smoke.py``'s
-two serving paths: ``wav2vec2`` (default; certified search, default
-attention) or ``wavlm`` (``use_pallas=True``, ``RADAD_FUSED_ATTENTION=1``);
+``python3 experiments/torch_serving_profile.py [--path wavlm|whisper]
+[--whisper_fast] [--out FILE] [--mixed_precision]``. ``--path`` picks one
+of ``chip_smoke.py``'s serving paths: ``wav2vec2`` (default; certified
+search, default attention), ``wavlm`` (``use_pallas=True``,
+``RADAD_FUSED_ATTENTION=1``) or ``whisper`` (certified search; every 2 s
+window padded to 30 s unless ``--whisper_fast``; the attention fused only
+if the caller sets ``RADAD_FUSED_ATTENTION=1``);
 ``--mixed_precision`` runs it with bf16 encoder and fusion model. Prints text; writes
 the per-kernel tables to ``FILE`` (default
 ``runs/torch_serving_profile.txt``).
@@ -38,8 +42,10 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("wav2vec2", "wavlm"),
+    ap.add_argument("--path", choices=("wav2vec2", "wavlm", "whisper"),
                     default="wav2vec2")
+    ap.add_argument("--whisper_fast", action="store_true",
+                    help="whisper: the real frames only, not 30 s padding")
     ap.add_argument("--mixed_precision", action="store_true",
                     help="bf16 encoder and fusion model "
                          "(use_mixed_precision=True)")
@@ -57,11 +63,15 @@ def main() -> int:
     if wavlm:
         os.environ["RADAD_FUSED_ATTENTION"] = "1"
     out_lines = [f"card: {card}", f"path {args.path}, mixed precision "
-                                  f"{args.mixed_precision}"]
+                                  f"{args.mixed_precision}, whisper_fast "
+                                  f"{args.whisper_fast}, "
+                                  f"RADAD_FUSED_ATTENTION="
+                                  f"{os.environ.get('RADAD_FUSED_ATTENTION')}"]
     with tempfile.TemporaryDirectory(prefix="radad_prof_") as tmp:
         pipe, _ = cs._build_pipeline(
             torch, dev, tmp, "profile", feature_extractor_type=args.path,
-            use_pallas=wavlm, use_mixed_precision=args.mixed_precision)
+            use_pallas=wavlm, use_mixed_precision=args.mixed_precision,
+            whisper_pad_seconds=None if args.whisper_fast else 30.0)
         q_paths, _ = cs._write_clips(tmp, 64, cs.SEED + 2, "query")
         pipe.predict_batch(q_paths[:8])  # warm-up
         for b in (1, 8, 64):

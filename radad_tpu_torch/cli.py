@@ -1,9 +1,9 @@
 """Command-line entry point of the port: train, evaluate, predict and
 build_db.
 
-Counterpart: ``radad_tpu/cli.py`` (same flag names; the mesh, Whisper, IVF
-and SQ8 flags wait for their slices, and a configuration the port cannot
-run raises "not yet ported"). ``--device`` defaults to ``cuda`` and the run
+Counterpart: ``radad_tpu/cli.py`` (same flag names; the mesh, IVF and SQ8
+flags wait for their slices, and a configuration the port cannot run
+raises "not yet ported"). ``--device`` defaults to ``cuda`` and the run
 fails when no GPU is present unless ``--device cpu`` is given.
 
 Run: ``python -m radad_tpu_torch.cli --mode train --data_path <dir>
@@ -34,8 +34,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="predict: analyze up to this many seconds instead "
                         "of the 3 s truncation")
     p.add_argument("--feature_extractor", type=str, default="wav2vec2",
-                   help="wav2vec2 or hubert")
-    p.add_argument("--model_name", type=str, default=None)
+                   help="whisper, wavlm, wav2vec2, or hubert")
+    p.add_argument("--model_name", type=str, default=None,
+                   help="HF model id overriding the encoder family's "
+                        "default size (e.g. microsoft/wavlm-large, "
+                        "openai/whisper-small); the architecture comes from "
+                        "a local config.json or the preset table, the "
+                        "weights from a local checkpoint under "
+                        "--weights_dir")
+    p.add_argument("--whisper_fast", action="store_true",
+                   help="whisper: encode only the real frames instead of "
+                        "padding every segment to 30 s (the reference's "
+                        "default, kept as the parity mode)")
     p.add_argument("--data_path", type=str, default=None,
                    help="Directory containing meta.csv + audio files")
     p.add_argument("--data_root", type=str, default=None,
@@ -93,6 +103,8 @@ def config_from_args(args):
         over["top_k"] = args.top_k
     if args.model_name is not None:
         over[f"{args.feature_extractor.lower()}_model_name"] = args.model_name
+    if args.whisper_fast:
+        over["whisper_pad_seconds"] = None
     if args.index_type is not None:
         over["vector_db_index_type"] = args.index_type.upper()
     if args.seed is not None:

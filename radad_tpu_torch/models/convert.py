@@ -23,10 +23,26 @@ import torch
 from radad_tpu_torch.models.fusion import RADADModel
 from radad_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from radad_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from radad_tpu_torch.models.whisper import WhisperConfig, WhisperEncoder
 
 
 def _t(x) -> torch.Tensor:
     return torch.as_tensor(np.array(x, dtype=np.float32))
+
+
+def _layers_from_jax(layers, stacked: Mapping) -> None:
+    """The transformer layers' attn, ffn, ln1 and ln2 from JAX's layers
+    stacked on axis 0 (linear weights transposed)."""
+    for i, layer in enumerate(layers):
+        for key, p in layer["attn"].items():
+            v = _t(stacked["attn"][key][i])
+            p.copy_(v.T if key.endswith("w") else v)
+        for key, p in layer["ffn"].items():
+            v = _t(stacked["ffn"][key][i])
+            p.copy_(v.T if key.startswith("w") else v)
+        for ln in ("ln1", "ln2"):
+            layer[ln]["scale"].copy_(_t(stacked[ln]["scale"][i]))
+            layer[ln]["bias"].copy_(_t(stacked[ln]["bias"][i]))
 
 
 @torch.no_grad()
@@ -52,17 +68,7 @@ def encoder_from_jax(params: Mapping, cfg: Wav2Vec2Config,
     model.pos_conv["bias"].copy_(_t(params["pos_conv"]["bias"]))
     model.encoder_ln["scale"].copy_(_t(params["encoder_ln"]["scale"]))
     model.encoder_ln["bias"].copy_(_t(params["encoder_ln"]["bias"]))
-    stacked = params["layers"]
-    for i, layer in enumerate(model.layers):
-        for key, p in layer["attn"].items():
-            v = _t(stacked["attn"][key][i])
-            p.copy_(v.T if key.endswith("w") else v)
-        for key, p in layer["ffn"].items():
-            v = _t(stacked["ffn"][key][i])
-            p.copy_(v.T if key.startswith("w") else v)
-        for ln in ("ln1", "ln2"):
-            layer[ln]["scale"].copy_(_t(stacked[ln]["scale"][i]))
-            layer[ln]["bias"].copy_(_t(stacked[ln]["bias"][i]))
+    _layers_from_jax(model.layers, params["layers"])
     return model
 
 
@@ -79,6 +85,23 @@ def wavlm_from_jax(params: Mapping, cfg: WavLMConfig) -> WavLMModel:
         layer["gate"]["w"].copy_(_t(stacked["gate_w"][i]).T)
         layer["gate"]["b"].copy_(_t(stacked["gate_b"][i]))
         layer["gate"]["const"].copy_(_t(stacked["gate_const"][i]))
+    return model
+
+
+@torch.no_grad()
+def whisper_from_jax(params: Mapping, cfg: WhisperConfig) -> WhisperEncoder:
+    """``radad_tpu.models.whisper`` params pytree (from ``init_params`` or
+    ``hf_convert.convert_whisper_encoder``; ``attn.kb`` is None there) →
+    ``WhisperEncoder``."""
+    model = WhisperEncoder(cfg)
+    for name in ("conv1", "conv2"):
+        conv = getattr(model, name)
+        conv["kernel"].copy_(_t(params[name]["kernel"]).permute(2, 1, 0))
+        conv["bias"].copy_(_t(params[name]["bias"]))
+    model.pos_embed.copy_(_t(params["pos_embed"]))
+    model.final_ln["scale"].copy_(_t(params["final_ln"]["scale"]))
+    model.final_ln["bias"].copy_(_t(params["final_ln"]["bias"]))
+    _layers_from_jax(model.layers, params["layers"])
     return model
 
 

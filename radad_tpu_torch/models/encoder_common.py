@@ -79,13 +79,14 @@ def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     """HF eager self-attention (modeling_wav2vec2.py): q scaled by
     head_dim**-0.5; logits optionally add ``bias_factors = (gate [B, T, H],
     pos_bias [H, T, T])``, WavLM's gated relative position bias in factored
-    form. ``p``: qw, qb, kw, kb, vw, vb, ow, ob."""
+    form. ``p``: qw, qb, kw, kb, vw, vb, ow, ob; "kb" may be absent
+    (Whisper's k_proj has no bias)."""
     _, t, d = x.shape
     # the scale in x's dtype (JAX: jnp.asarray(scaling, x.dtype)); in bf16
     # 80^-0.5 rounds to 0.11181640625
     scaling = rounded((d // num_heads) ** -0.5, x.dtype)
     q = linear(x, p["qw"], p["qb"]) * scaling
-    k = linear(x, p["kw"], p["kb"])
+    k = linear(x, p["kw"], p.get("kb"))
     v = linear(x, p["vw"], p["vb"])
     gate, pos = bias_factors if bias_factors is not None else (None, None)
     if use_fused_attention(t, d, x.device):
@@ -99,7 +100,8 @@ def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
 
 def feed_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor]
                  ) -> torch.Tensor:
-    """Linear → GELU → Linear (HF Wav2Vec2FeedForward)."""
+    """Linear → GELU → Linear (HF Wav2Vec2FeedForward, Whisper's fc1 and
+    fc2)."""
     return linear(gelu(linear(x, p["w1"], p["b1"])), p["w2"], p["b2"])
 
 
@@ -116,9 +118,9 @@ def post_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
 
 def pre_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
                  bias_factors: Optional[tuple] = None) -> torch.Tensor:
-    """Pre-LN encoder layer (HF Wav2Vec2EncoderLayerStableLayerNorm, the
-    ``do_stable_layer_norm`` large variants): x += attn(LN(x));
-    x += ffn(LN2(x))."""
+    """Pre-LN encoder layer (HF WhisperEncoderLayer, and
+    Wav2Vec2EncoderLayerStableLayerNorm of the ``do_stable_layer_norm``
+    large variants): x += attn(LN(x)); x += ffn(LN2(x))."""
     h = x + self_attention(
         layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"], eps), p["attn"],
         num_heads, bias_factors=bias_factors)

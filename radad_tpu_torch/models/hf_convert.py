@@ -1,10 +1,10 @@
-"""HF checkpoint → port encoder modules (wav2vec2, HuBERT, WavLM).
+"""HF checkpoint → port encoder modules (wav2vec2, HuBERT, WavLM,
+Whisper).
 
 Counterpart: ``radad_tpu/models/hf_convert.py`` (``convert_wav2vec2``,
-``convert_wavlm``, ``load_state_dict``). HF state dicts are already in
-PyTorch's layouts, so weights copy as they are; the weight-normed
-positional conv is materialized into a plain kernel. Whisper comes with its
-encoder in a later slice.
+``convert_wavlm``, ``convert_whisper_encoder``, ``load_state_dict``). HF
+state dicts are already in PyTorch's layouts, so weights copy as they are;
+the weight-normed positional conv is materialized into a plain kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from radad_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from radad_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from radad_tpu_torch.models.whisper import WhisperConfig, WhisperEncoder
 
 
 def _t(x) -> torch.Tensor:
@@ -99,6 +100,46 @@ def convert_wavlm(sd: Mapping, cfg: WavLMConfig) -> WavLMModel:
         _put(sd, layer["gate"]["w"], f"{pre}.gru_rel_pos_linear.weight")
         _put(sd, layer["gate"]["b"], f"{pre}.gru_rel_pos_linear.bias")
         _put(sd, layer["gate"]["const"], f"{pre}.gru_rel_pos_const")
+    return model
+
+
+@torch.no_grad()
+def convert_whisper_encoder(sd: Mapping, cfg: WhisperConfig
+                            ) -> WhisperEncoder:
+    """HF WhisperModel (or WhisperEncoder) state dict → ``WhisperEncoder``.
+    Keys may carry ``model.encoder.`` or ``encoder.`` or no prefix."""
+    for pref in ("model.encoder.", "encoder.", ""):
+        if f"{pref}conv1.weight" in sd:
+            break
+    else:
+        raise KeyError("no whisper encoder keys found in state dict")
+    model = WhisperEncoder(cfg)
+
+    def put(param, key):
+        _put(sd, param, pref + key)
+
+    for name in ("conv1", "conv2"):
+        put(getattr(model, name)["kernel"], f"{name}.weight")
+        put(getattr(model, name)["bias"], f"{name}.bias")
+    put(model.pos_embed, "embed_positions.weight")
+    put(model.final_ln["scale"], "layer_norm.weight")
+    put(model.final_ln["bias"], "layer_norm.bias")
+    for i, layer in enumerate(model.layers):
+        pre = f"layers.{i}"
+        attn = layer["attn"]
+        for short, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                          ("o", "out_proj")):
+            put(attn[f"{short}w"], f"{pre}.self_attn.{hf}.weight")
+            if f"{short}b" in attn:
+                put(attn[f"{short}b"], f"{pre}.self_attn.{hf}.bias")
+        for ln, hf in (("ln1", "self_attn_layer_norm"),
+                       ("ln2", "final_layer_norm")):
+            put(layer[ln]["scale"], f"{pre}.{hf}.weight")
+            put(layer[ln]["bias"], f"{pre}.{hf}.bias")
+        ffn = layer["ffn"]
+        for w, b, hf in (("w1", "b1", "fc1"), ("w2", "b2", "fc2")):
+            put(ffn[w], f"{pre}.{hf}.weight")
+            put(ffn[b], f"{pre}.{hf}.bias")
     return model
 
 

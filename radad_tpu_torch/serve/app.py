@@ -543,6 +543,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_name", type=str, default=None,
                    help="HF model id overriding the encoder family's "
                         "default size")
+    p.add_argument("--whisper_fast", action="store_true",
+                   help="whisper: encode real frames only instead of the "
+                        "reference's 30 s padding (must match how the "
+                        "vector DB was built)")
     return p
 
 
@@ -552,6 +556,8 @@ def config_from_args(args):
     over = {}
     if args.model_name is not None:
         over[f"{args.feature_extractor.lower()}_model_name"] = args.model_name
+    if args.whisper_fast:
+        over["whisper_pad_seconds"] = None
     return Config().replace(
         train_data_path=args.data_path, test_data_path=args.data_path,
         data_root=args.data_root,

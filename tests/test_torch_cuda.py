@@ -364,3 +364,54 @@ def test_train_step_on_card_matches_cpu(cuda):
             off += int(bad.sum())
             total += diff.numel()
     assert off <= 0.005 * total, (off, total)
+
+
+@pytest.mark.parametrize("pad", [30.0, None])
+def test_whisper_fused_attention_on_card(cuda, pad, monkeypatch):
+    """The tiny Whisper of tests/test_torch_whisper.py (64 wide, 2 layers,
+    4 heads of 16; seeded port weights) with RADAD_FUSED_ATTENTION=1 on
+    the card against the port on the CPU, padded to 30 s (T = 1,500) and
+    trimmed (T = 100): f32 features within 1e-4 relative per window, one
+    bias-free f32 launch a layer; bf16 features no further from the CPU's
+    f32 ones than twice the CPU's bf16 features are (the card's attention
+    takes f32 logits, the CPU's default path bf16 ones), one bias-free
+    bf16 launch a layer, all in the streamed form at T = 1,500 and the
+    resident form at T = 100."""
+    import copy
+
+    from radad_tpu_torch.models import whisper
+    from radad_tpu_torch.models.encoder import FrozenEncoder
+
+    cfg = whisper.WhisperConfig(d_model=64, num_hidden_layers=2,
+                                num_attention_heads=4, ffn_dim=128)
+    g = torch.Generator().manual_seed(5)
+    model = whisper.init_params(whisper.WhisperEncoder(cfg), g)
+    segs = 0.3 * torch.randn((3, 32000), generator=g)
+
+    def feats(dev, dtype):
+        enc = FrozenEncoder(name="whisper", model_name="tiny", arch_cfg=cfg,
+                            model=copy.deepcopy(model).to(dev),
+                            pretrained=False, compute_dtype=dtype,
+                            whisper_pad_seconds=pad)
+        out = enc.segment_features(segs.to(dev))
+        assert out.shape == (3, 1500 if pad else 100, 64)
+        return out.double().cpu()
+
+    def rel(a, b):
+        return float(((a - b).flatten(1).norm(dim=1)
+                      / b.flatten(1).norm(dim=1)).max())
+
+    cpu32, cpu16 = feats("cpu", torch.float32), feats("cpu", torch.bfloat16)
+    monkeypatch.setenv("RADAD_FUSED_ATTENTION", "1")
+    body, form = dict(fused_mha.body_launches), dict(fused_mha.form_launches)
+    card32 = feats(cuda, torch.float32)
+    card16 = feats(cuda, torch.bfloat16)
+    torch.cuda.synchronize()
+    ran = {k: fused_mha.body_launches[k] - n for k, n in body.items()}
+    forms = {k: fused_mha.form_launches[k] - n for k, n in form.items()}
+    want = "streamed" if pad else "resident"
+    assert ran == {"bias": 0, "no_bias": 2, "bias_bf16": 0,
+                   "no_bias_bf16": 2}, ran
+    assert forms == {f: 2 if f == want else 0 for f in forms}, forms
+    assert rel(card32, cpu32) <= 1e-4
+    assert rel(card16, cpu32) <= 2 * rel(cpu16, cpu32)

@@ -15,6 +15,7 @@ from radad_tpu_torch.models.convert import encoder_from_jax
 from radad_tpu_torch.models.encoder import FrozenEncoder as TEnc
 from radad_tpu_torch.models.encoder import build_encoder, resolve_arch_config
 from radad_tpu_torch.models.wav2vec2 import Wav2Vec2Config as TW
+from radad_tpu_torch.models.whisper import WhisperConfig
 
 TINY = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
             intermediate_size=64, conv_dim=(16, 16, 16, 16),
@@ -138,6 +139,8 @@ def test_build_encoder_random_and_local(tmp_path, rng):
     assert a.arch_cfg == TW()  # unknown name → base width
     torch.testing.assert_close(a.model.pos_conv["kernel"],
                                b.model.pos_conv["kernel"])
-    with pytest.raises(NotImplementedError):
-        build_encoder(cfg.replace(feature_extractor_type="whisper"),
+    # Whisper builds from the same config: seeded random whisper-base
+    w = build_encoder(cfg.replace(feature_extractor_type="whisper"),
                       device="cpu")
+    assert w.name == "whisper" and not w.pretrained
+    assert w.arch_cfg == WhisperConfig() and w.feature_dim == 512

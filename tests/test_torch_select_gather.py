@@ -234,8 +234,8 @@ def test_every_preset_head_width_has_a_kernel_build(kind, name):
     dispatches it to an f32 and a bf16 instance (the mixed-precision
     encoders give the kernel bf16)."""
     cfg = resolve_arch_config(name, None, kind)
-    hd, rest = divmod(cfg.hidden_size, cfg.num_attention_heads)
-    assert rest == 0 and hd in _HEAD_DIMS, (name, cfg.hidden_size,
+    hd, rest = divmod(cfg.feature_dim, cfg.num_attention_heads)
+    assert rest == 0 and hd in _HEAD_DIMS, (name, cfg.feature_dim,
                                             cfg.num_attention_heads)
     src = _source("fused_mha")
     for launcher in ("launch", "launch_bf16"):

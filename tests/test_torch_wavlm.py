@@ -194,6 +194,11 @@ def test_build_encoder_wavlm_random_and_local(tmp_path, rng):
                            "weight"]))
     feats = enc.segment_features(torch.as_tensor(_segments(rng, 2, 32000)))
     assert feats.shape == (2, 99, 64) and torch.isfinite(feats).all()
-    with pytest.raises(NotImplementedError):
-        build_encoder(cfg.replace(feature_extractor_type="whisper"),
+    # Whisper builds from the same config: seeded random whisper-tiny, its
+    # architecture from the preset
+    w = build_encoder(cfg.replace(feature_extractor_type="whisper",
+                                  whisper_model_name="openai/whisper-tiny"),
                       device="cpu")
+    assert w.name == "whisper" and not w.pretrained
+    assert (w.arch_cfg.d_model, w.arch_cfg.num_hidden_layers,
+            w.arch_cfg.num_attention_heads, w.feature_dim) == (384, 4, 6, 384)
