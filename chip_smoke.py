@@ -20,17 +20,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``fused_mha``'s two 3xTF32 bodies at T = 99, 600 and 1,500, and at head
    width 80, and its two bf16 bodies at the same shapes against their
    plain version within ``BF16_TOL`` * (1 + |plain|), timed beside SDPA on
-   the same bf16 inputs and beside the streamed two-pass form that the
-   wrapper takes above T = 128; the HMMA
-   instructions of both kernels counted with ``cuobjdump``, per bf16 form,
-   and the resident form's HD 64 and 80 instances required to build
-   without a spill) and takes the
+   the same bf16 inputs and beside the streamed form (one pass over
+   64-key tiles; wgmma at head width 64) that the wrapper takes above
+   T = 128; the tensor-core instructions (HMMA, HGMMA) of both kernels
+   counted with ``cuobjdump``, per bf16 form, the resident form's HD 64
+   and 80 instances and the streamed form's HD 64 ones required to build
+   without a spill, ptxas's registers and spills of the streamed HD 64
+   and 128 instances printed) and takes the
    device time
    (``torch.profiler``) of kernel, plain version, and one PyTorch library
    call computing the same function (``library_ms``, used nowhere in the
    port); at whisper-base's shapes too: ``fused_mha``'s bias-free f32 body
    and its streamed bf16 form at [16, 1500, 512] and [128, 1500, 512]
-   (8 heads of 64) beside SDPA, ``gather_rows`` and ``exact_dot`` on a
+   (8 heads of 64) beside SDPA (flash in bf16), with TFLOP/s and the
+   ratios to SDPA and to the bound, ``gather_rows`` and ``exact_dot`` on a
    [25,600, 3,584] table;
 3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
    wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
@@ -143,7 +146,19 @@ TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
 WHISPER_ATTN = ((16, 1500), (128, 1500))
 # fused_mha's bf16 forms -> the kernel symbol of each (mangled-name prefix)
 BF16_FORMS = {"resident": "mha_bf16_resident_kernel",
-              "streamed": "mha_bf16_kernel"}
+              "streamed": "mha_bf16_streamed_kernel"}
+# the streamed form's wgmma kernel, which takes head width 64 (templated on
+# the bias alone)
+STREAMED_HD64 = "mha_bf16_wgmma_kernel"
+
+
+def _bf16_instance(form: str, hd: int, bias: bool) -> str:
+    """The mangled-name part that names fused_mha's bf16 kernel instance of
+    ``form`` at head width ``hd`` (the streamed form's HD 64 instance is
+    the wgmma kernel)."""
+    if form == "streamed" and hd == 64:
+        return f"{STREAMED_HD64}ILb{int(bias)}E"
+    return f"{BF16_FORMS[form]}ILi{hd}ELb{int(bias)}E"
 
 
 def _card_line() -> str:
@@ -664,16 +679,20 @@ def _fused_mha_bf16_record(torch, g) -> dict:
     and at head width 80 ([16, 99, 1280], 16 heads), timed beside the
     streamed form on the same inputs, plus T = 600 and 1,500 correctness
     points. BF16_TOL is a bf16 rounding of the output, ~2 steps at |plain|
-    ~ 1; the CPU emulation of the kernel's rounding stays within 2.5e-3
-    and its faults miss it. Both bodies' HD = 64 and 80 instances must
-    hold bf16 HMMA instructions in both forms (the resident one-pass form
-    that T <= 128 takes, and the streamed two-pass form)."""
+    ~ 1; the CPU emulation of the kernel's rounding stays within 5.2e-3
+    and its faults miss it. Both bodies' instances must hold bf16
+    tensor-core instructions in both forms: the resident form that
+    T <= 128 takes (HD 64, 80; HMMA) and the streamed form (HD 64: HGMMA,
+    HD 80 and 128: HMMA); the streamed HD 64 instances must not spill."""
     from radad_tpu_torch.ops.attention import BF16_TOL
 
     bf = torch.bfloat16
     counts = _hmma_counts("fused_mha", form="BF16")
-    hmma = {f"{key} {form}": n for form, symbol in BF16_FORMS.items()
-            for key, n in _hmma(counts, symbol).items()}
+    hmma = {f"{body} HD {hd} {form}": sum(
+        n for fn, n in counts.items()
+        if _bf16_instance(form, hd, body == "bias") in fn)
+        for form, hds in (("resident", (64, 80)), ("streamed", (64, 80, 128)))
+        for hd in hds for body in ("bias", "no_bias")}
     if counts:
         print(f"fused_mha bf16 SASS (cuobjdump): bf16 HMMA instructions "
               f"{hmma}")
@@ -683,6 +702,7 @@ def _fused_mha_bf16_record(torch, g) -> dict:
     else:
         print("fused_mha bf16 SASS: cuobjdump not found, HMMA not counted")
     _resident_spills()
+    streamed_ptxas = _streamed_ptxas()
     checks = [_fused_mha_at(torch, g, shape, bf, bias, timed=False)
               for shape in ((4, 600, 768, 12), (2, 1500, 768, 12))
               for bias in (False, True)]
@@ -710,6 +730,7 @@ def _fused_mha_bf16_record(torch, g) -> dict:
         library_call="F.scaled_dot_product_attention on the bf16 inputs, "
                      "bias materialized in bf16",
         no_bias=recs[(128, 99, 768, 12), "no_bias"],
+        streamed_ptxas=streamed_ptxas,
         hd80={body: r for (shape, body), r in recs.items()
               if shape[3] == 16})
     return rec
@@ -720,8 +741,8 @@ def _whisper_kernel_records(torch, dev, g) -> dict:
     bias-free f32 body and its bf16 body (the streamed form, which
     T = 1,500 takes) at [16, 1500, 512] and [128, 1500, 512], 8 heads of
     64 (B = 8 and 64 clips of two windows padded to 30 s), by
-    ``_fused_mha_at`` (there the bound is the operations; the streamed
-    form computes Q K^T twice, the bound counts the function's once);
+    ``_fused_mha_at`` (there the bound is the operations: one Q K^T and
+    one P V at the bf16 or TF32 rate), with TFLOP/s;
     ``gather_rows`` at M = 5, 40, 320 and ``exact_dot`` at B = 1, 8, 64
     (R = 32) on a [25,600, 3,584] f32 table (TPP of 512-wide features), as
     the serving path gives them. → {kernel: {shape: record}}."""
@@ -736,8 +757,16 @@ def _whisper_kernel_records(torch, dev, g) -> dict:
     for b, t in WHISPER_ATTN:
         for name, dt in (("fused_mha", torch.float32),
                          ("fused_mha_bf16", torch.bfloat16)):
-            out[name][f"[{b},{t},{d}]"] = _fused_mha_at(
+            out[name][f"[{b},{t},{d}]"] = rec = _fused_mha_at(
                 torch, g, (b, t, d, h), dt, False, iters=10)
+            # one Q K^T and one P V: 4 B H T^2 HD operations
+            flop = 4.0 * b * h * t * t * (d // h)
+            rec["tflops"] = flop / rec["ms"] / 1e9
+            rec["library_tflops"] = flop / rec["library_ms"] / 1e9
+            print(f"{name} [{b},{t},{d}]: {rec['tflops']:.1f} TFLOP/s, "
+                  f"SDPA {rec['library_tflops']:.1f}; "
+                  f"{rec['ms'] / rec['library_ms']:.2f}x SDPA's time, "
+                  f"{rec['ms'] / rec['bound_ms']:.2f}x the bound")
             torch.cuda.empty_cache()
 
     n, dw, r = INDEX_ROWS, 3_584, 32
@@ -811,11 +840,40 @@ def _resident_spills() -> None:
                                  f"{line}")
 
 
+def _streamed_ptxas() -> dict:
+    """{"<body> HD <hd>": ptxas's spill and register lines} of the
+    streamed bf16 instances at head widths 64 (whisper-base: the wgmma
+    kernel) and 128; raises on a spill at HD 64. ptxas's notes that it
+    serialized the wgmma kernel's wgmma are printed."""
+    from radad_tpu_torch.ops import _native
+
+    report = _native.build_reports.get("fused_mha", "")
+    out = {}
+    for hd in (64, 128):
+        for body in ("no_bias", "bias"):
+            tag = _bf16_instance("streamed", hd, body == "bias")
+            out[f"{body} HD {hd}"] = " | ".join(
+                line for fn, line in ptxas_lines(report) if tag in fn)
+    for line in report.splitlines():
+        if STREAMED_HD64 in line and "Performance Loss" in line:
+            print(f"ptxas note on the wgmma kernel: {line.strip()}")
+    print(f"fused_mha bf16 streamed form, ptxas: {out}")
+    if report and not all(out.values()):
+        raise AssertionError("a streamed bf16 instance is missing from "
+                             "ptxas's report")
+    for key, text in out.items():
+        if "HD 64" in key and "0 bytes spill stores, 0 bytes spill loads" \
+                not in text:
+            raise AssertionError(f"streamed bf16 instance spills: {key}: "
+                                 f"{text}")
+    return out
+
+
 def _hmma_counts(name: str, form: str = "") -> dict:
-    """HMMA (tensor-core) instructions, of the operand type ``form`` where
-    given (e.g. "TF32"), in each function of the built library of kernel
-    ``name``'s SASS, from ``cuobjdump -sass`` where the toolkit has it
-    (else {})."""
+    """Tensor-core instructions (HMMA, mma.sync; HGMMA, wgmma), of the
+    operand type ``form`` where given (e.g. "TF32"), in each function of
+    the built library of kernel ``name``'s SASS, from ``cuobjdump -sass``
+    where the toolkit has it (else {})."""
     import shutil
 
     from radad_tpu_torch.ops import _native
@@ -832,7 +890,8 @@ def _hmma_counts(name: str, form: str = "") -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line and form in line:
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line) \
+                and form in line:
             counts[fn] += 1
     return counts
 
@@ -1271,6 +1330,7 @@ def _launch_counts(kernels, index=None) -> dict:
         out[f"fused_mha_bf16_{form}"] = n
     if index is not None:
         out["searches"], out["fallbacks"] = index.searches, index.fallbacks
+        out["route"] = index.route
     return out
 
 
@@ -1337,9 +1397,9 @@ def _report(lat, stages, pipe, launches, label):
               f"{[round(x, 2) for x in v['runs_ms']]}, stage_ms "
               f"{stages.get(name, '-')}")
     ix = pipe.index
-    print(f"{label} serving path: {calls} calls, {ix.searches} searches, "
-          f"{ix.fallbacks} fallbacks to the full f32 scan; kernel launches "
-          f"{launches}")
+    print(f"{label} serving path: {calls} calls, search route {ix.route}, "
+          f"{ix.searches} searches, {ix.fallbacks} fallbacks to the full f32 "
+          f"scan; kernel launches {launches}")
 
 
 def _compare_fused(torch, pipe, paths, fused, default, label: str) -> None:
@@ -2489,6 +2549,8 @@ def main() -> int:
             searches = {p: (by_path[p]["searches"], by_path[p]["fallbacks"])
                         for p in per_path if "searches" in by_path[p]}
             rec["searches_by_path"] = searches
+            rec["route_by_path"] = {p: by_path[p]["route"]
+                                    for p in searches}
             rec["launches_answering"] = sum(
                 round(per_path[p] * (s - f) / s)
                 for p, (s, f) in searches.items() if s)
@@ -2515,6 +2577,8 @@ def main() -> int:
             if key in r:
                 rec[key] = r[key]
         kernels.append(rec)
+    print("search route by path: " + json.dumps(
+        {p: n["route"] for p, n in by_path.items() if "route" in n}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Device time of ``csrc/fused_mha.cu``'s bf16 bodies and of variants of
-them, on one GPU, at the WavLM serving shape (q, k, v [128, 99, 768] bf16,
-12 heads of 64; gate [128, 99, 12], pos_bias [12, 99, 99]) and at head
-width 80 ([16, 99, 1280], 16 heads).
+them, on one GPU: the resident form at the WavLM serving shape (q, k, v
+[128, 99, 768] bf16, 12 heads of 64; gate [128, 99, 12], pos_bias
+[12, 99, 99]) and at head width 80 ([16, 99, 1280], 16 heads); the
+streamed form at whisper-base's padded shapes ([16 | 128, 1500, 512], 8
+heads of 64, bias-free).
 
 Each variant is the committed source with a few lines replaced, built by
 its own ``nvcc`` (the port's flags) into
 ``radad_tpu_torch/build/variants/`` and called through its C entry
-``radad_fused_mha_bf16`` with the form it names:
+``radad_fused_mha_bf16`` with the form it names. Resident form:
 
 * ``as_built``: the resident form as it is (one pass at T <= 128: Q, K
   and V of a (batch row, head) in shared memory, S in registers, the exact
@@ -16,26 +18,43 @@ its own ``nvcc`` (the port's flags) into
   rows with the next row's copies in flight, pos_bias staged once a block
   in ``ldmatrix`` rows; at most 128 registers, 2 blocks of 7 warps an SM;
   O stored from the accumulator fragments);
-* ``streamed``: the same library's streamed two-pass form (taken above
-  T = 128);
+* ``streamed``: the same library's streamed form (taken above T = 128);
 * ``rows1``: one (batch row, head) a block, one row buffer;
 * ``regs255``: no register cap (one block an SM);
 * ``warps8``: 8 warps a block at every T (at T = 99 one has no rows; the
   8-warp instance, one block an SM);
 * ``scalar_reads``: Q, K fragments by 32-bit and V's by 16-bit shared
   reads instead of ``ldmatrix``;
-* ``expf_div``: e = expf(s - m) and p = e / l, as the streamed form;
+* ``expf_div``: e = expf(s - m) and p = e / l;
 * ``staged_store``: O staged in bf16 through the warp's own Q rows, then
   16-byte stores of whole rows.
+
+Streamed form at head width 64 (``STREAMED_VARIANTS``):
+
+* ``as_built``: the wgmma body (2 warpgroups of 64 rows a block, Q and K,
+  V in 128B-swizzled shared memory, a 5-tile cp.async ring, P V retired
+  each tile, 2 blocks an SM);
+* ``mma_sync``: the mma.sync body that the other head widths take
+  (FlashAttention-2 style, 4 warps of 32 rows, Q in registers);
+* ``pv_in_flight``: P V left running into the next tile, retired after
+  the next barrier (ptxas then serializes every wgmma: the loop's back
+  edge copies O while it runs);
+* ``stages4``: a 4-tile ring (2 tiles in flight);
+* ``two_s``: ``experiments/fused_mha_wgmma_two_s.cuh`` in place of the
+  body (S of the next tile issued before the softmax of this one, two S
+  accumulators; one block an SM);
+* ``parent`` (with ``--parent DIR``, an unpacked earlier checkout): that
+  checkout's own streamed form, e.g. the two-pass body of PR 10.
 
 Every variant must stay within ``BF16_TOL`` * (1 + |plain|) of
 ``fused_mha_plain`` (else the script raises). Times are CUDA-event means
 over back-to-back launches, taken in turns (as_built, variant, variant,
-as_built), beside SDPA on the same bf16 inputs and the plain version in
-the same call; one line times ``as_built`` at B = 12 ... 128 (rows a block
-1 ... 11). Run from the root of a checkout:
-``python3 experiments/fused_mha_bf16_variants.py [--out FILE]``; it prints
-a table and writes it to ``FILE`` (default
+as_built), beside SDPA on the same bf16 inputs (flash where bias-free) and
+the plain version in the same call; one line times the resident
+``as_built`` at B = 12 ... 128 (rows a block 1 ... 11). Run from the root
+of a checkout:
+``python3 experiments/fused_mha_bf16_variants.py [--out FILE] [--parent DIR]``;
+it prints a table and writes it to ``FILE`` (default
 ``runs/fused_mha_bf16_variants.txt``).
 """
 
@@ -62,6 +81,14 @@ WARPS8 = (("  const int threads = 32 * ((t + 15) / 16);",
           ("  if (t <= 112)\n    return launch_resident_nk<HD, BIAS, 7>",
            "  if (false)\n    return launch_resident_nk<HD, BIAS, 7>"))
 SCALAR_READS = (
+    # the helper that packs two 16-bit reads (not in the source)
+    ("__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], "
+     "const bf16* p) {\n",
+     "__device__ __forceinline__ uint32_t pair_u32(bf16 lo, bf16 hi) {\n"
+     "  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);"
+     "\n}\n\n"
+     "__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], "
+     "const bf16* p) {\n"),
     ("  ldsm_x4(a, q0 + (lane % 16) * RS + 16 * kk + 8 * (lane / 16));\n",
      "  const bf16* p = q0 + (lane / 4) * RS + 16 * kk + 2 * (lane % 4);\n"
      "  a[0] = *reinterpret_cast<const uint32_t*>(p);\n"
@@ -120,6 +147,30 @@ STAGED_STORE = (
     // the next row's gate; its slot was last read before this row's barrier
 """),
 )
+# the streamed form at HD 64 (the wgmma kernel) -> (old text, new text) swaps
+STREAMED_VARIANTS = {
+    "as_built": (),
+    "mma_sync": (("  if constexpr (HD == 64)\n    return launch_wgmma",
+                  "  if constexpr (HD == -1)\n    return launch_wgmma"),),
+    "pv_in_flight": (
+        ("    fetch(j + kWgAhead);  // into the slot of tile j - 2\n"
+         "    cp_async_commit();\n",
+         "    fetch(j + kWgAhead);  // into the slot of tile j - 2\n"
+         "    cp_async_commit();\n"
+         "    wg_wait_all();\n"
+         "    fence_regs(o);\n"),
+        ("    wg_commit();\n"
+         "    wg_wait_all();  // nothing in flight across the loop's back edge"
+         " (see above)\n"
+         "    fence_regs(o);\n"
+         "  }\n",
+         "    wg_commit();\n"
+         "  }\n"
+         "  wg_wait_all();\n"
+         "  fence_regs(o);\n")),
+    "stages4": (("constexpr int kWgStages = 5;", "constexpr int kWgStages = 4;"),),
+    "two_s": "fused_mha_wgmma_two_s.cuh",  # the body's section replaced
+}
 VARIANTS = {  # name -> (form, (old text, new text) swaps)
     "as_built": (RESIDENT, ()),
     "streamed": (STREAMED, ()),  # the as_built library's streamed form
@@ -133,24 +184,16 @@ VARIANTS = {  # name -> (form, (old text, new text) swaps)
 }
 
 
-def build_variants() -> dict:
-    """name -> (form, loaded library) of every variant, built in
-    parallel; prints ptxas's registers and spills of the HD 64 and 80
-    instances of the body each variant runs."""
+def _build(jobs: dict) -> dict:
+    """{name: (source text, ptxas tags to print)} -> {name: loaded library},
+    one nvcc each, all started together; prints ptxas's registers and
+    spills of the instances whose mangled names hold a tag."""
     from radad_tpu_torch.ops import _native
 
-    src = open(os.path.join(_native.CSRC_DIR, "fused_mha.cu")).read()
     out_dir = os.path.join(_native.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, (form, swaps) in VARIANTS.items():
-        if name == "streamed":
-            continue
-        text = src
-        for old, new in swaps:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: '{old}' not found once")
-            text = text.replace(old, new)
+    for name, (text, _) in jobs.items():
         cu = os.path.join(out_dir, f"fused_mha_bf16_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
@@ -165,15 +208,83 @@ def build_variants() -> dict:
             raise RuntimeError(f"{name}: nvcc failed\n{err}")
         report = (out + err).splitlines()
         for i, line in enumerate(report):
-            for hd in (64, 80):
-                for flag, body in ((0, "no bias"), (1, "bias")):
-                    tag = f"mha_bf16_resident_kernelILi{hd}ELb{flag}E"
-                    if tag in line and "Function properties" in line:
-                        print(f"ptxas[{name}, HD {hd} {body}]: " + " | ".join(
-                            x.strip() for x in report[i + 1: i + 3]))
-        libs[name] = (VARIANTS[name][0], ctypes.CDLL(lib))
-    libs["streamed"] = (STREAMED, libs["as_built"][1])
+            for tag in jobs[name][1]:
+                if tag in line and "Function properties" in line:
+                    print(f"ptxas[{name}, {tag}]: " + " | ".join(
+                        x.strip() for x in report[i + 1: i + 3]))
+                if tag in line and "Performance Loss" in line:
+                    print(f"ptxas[{name}]: {line.strip()[:160]}")
+        libs[name] = ctypes.CDLL(lib)
     return libs
+
+
+def _swapped(src: str, name: str, swaps) -> str:
+    for old, new in swaps:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: '{old}' not found once")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(parent: str = "") -> dict:
+    """name -> (form, loaded library) of every resident variant, and
+    "streamed/<name>" of every streamed one (plus "streamed/parent" from
+    ``parent``'s source), built in parallel."""
+    from radad_tpu_torch.ops import _native
+
+    src = open(os.path.join(_native.CSRC_DIR, "fused_mha.cu")).read()
+    res_tags = [f"mha_bf16_resident_kernelILi{hd}ELb{flag}E"
+                for hd in (64, 80) for flag in (0, 1)]
+    jobs = {name: (_swapped(src, name, swaps), res_tags)
+            for name, (form, swaps) in VARIANTS.items() if name != "streamed"}
+    for name, swaps in STREAMED_VARIANTS.items():
+        if isinstance(swaps, str):  # a file that replaces the wgmma section
+            start = src.index("// ----------------------------------- bf16 "
+                              "streamed body on wgmma")
+            end = src.index("template <bool BIAS>\nint launch_wgmma(")
+            body = open(os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), swaps)).read()
+            swaps = ((src[start:end], body),)
+        if name != "as_built":
+            jobs[f"streamed_{name}"] = (
+                _swapped(src, name, swaps),
+                ["mha_bf16_wgmma_kernelILb0E",
+                 "mha_bf16_streamed_kernelILi64ELb0E"])
+    if parent:
+        jobs["streamed_parent"] = (open(os.path.join(
+            parent, "radad_tpu_torch", "csrc", "fused_mha.cu")).read(), [])
+    built = _build(jobs)
+    libs = {name: (VARIANTS[name][0], built[name])
+            for name in VARIANTS if name != "streamed"}
+    libs["streamed"] = (STREAMED, libs["as_built"][1])
+    libs["streamed/as_built"] = libs["streamed"]
+    for name in jobs:
+        if name.startswith("streamed_"):
+            libs["streamed/" + name[len("streamed_"):]] = (STREAMED,
+                                                           built[name])
+    return libs
+
+
+def _caller(torch, native, tensors, b, t, d, h):
+    """call(form, lib, bias, rows=b) -> a function that launches the C entry
+    of ``lib`` on ``tensors`` (q, k, v, gate, pos, out)."""
+    q, k, v, gate, pos, out = tensors
+
+    def call(form, lib, bias, rows=b):
+        fn = lib.radad_fused_mha_bf16
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def go():
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    gate.data_ptr() if bias else None,
+                    pos.data_ptr() if bias else None, out.data_ptr(),
+                    rows, t, d, h, form, native.stream_of(q))
+            native.check_launch("fused_mha bf16 variant", rc)
+        return go
+    return call
 
 
 def main() -> int:
@@ -184,6 +295,9 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(
         "runs", "fused_mha_bf16_variants.txt"))
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--parent", default="",
+                    help="an unpacked earlier checkout whose streamed form "
+                         "is timed beside this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -193,7 +307,7 @@ def main() -> int:
     from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
 
     card, dev = cs.header(torch)
-    libs = build_variants()
+    libs = build_variants(args.parent)
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     lines = [f"card: {card}",
@@ -205,70 +319,66 @@ def main() -> int:
         print(line)
         lines.append(line)
 
-    for b, t, d, h in ((128, 99, 768, 12), (16, 99, 1280, 16)):
+    def inputs(b, t, d, h):
         hd = d // h
         q, k, v = (torch.randn((b, t, d), generator=g, device=dev)
                    for _ in range(3))
         q *= hd ** -0.5
         gate = 1.0 + 2.0 * torch.rand((b, t, h), generator=g, device=dev)
         pos = torch.randn((h, t, t), generator=g, device=dev)
-        q, k, v, gate, pos = (x.to(bf) for x in (q, k, v, gate, pos))
-        out = torch.empty_like(q)
+        tensors = [x.to(bf) for x in (q, k, v, gate, pos)]
+        return tensors + [torch.empty_like(tensors[0])]
 
-        def call(form, lib, bias, rows=b):
-            fn = lib.radad_fused_mha_bf16
-            fn.argtypes = [ctypes.c_void_p] * 6 + [
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-
-            def go():
-                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        gate.data_ptr() if bias else None,
-                        pos.data_ptr() if bias else None, out.data_ptr(),
-                        rows, t, d, h, form, _native.stream_of(q))
-                _native.check_launch("fused_mha bf16 variant", rc)
-            return go
-
+    def compare(names, call, tensors, shape, bias, extra_rows):
+        """err of every variant in ``names`` against the plain version,
+        then each timed in turns beside the first; → {name: [ms, ...]}."""
+        q, k, v, gate, pos, out = tensors
+        b, t, d, h = shape
+        extra = dict(gate=gate, pos_bias=pos) if bias else {}
+        want = fused_mha_plain(q, k, v, h, **extra).float()
+        errs = {}
+        for name in names:
+            call(*libs[name], bias)()
+            torch.cuda.synchronize()
+            errs[name] = float(((out.float() - want).abs()
+                                / (1 + want.abs())).max())
+            if not errs[name] <= BF16_TOL:
+                faults.append(f"{name} [{b},{t},{d}] bias={bias}: err "
+                              f"{errs[name]:.3e} outside {BF16_TOL}")
+        base = call(*libs[names[0]], bias)
+        row = {}
+        for name in names[1:]:
+            var = call(*libs[name], bias)
+            ts = [cs.time_ms(torch, f, iters=args.iters)
+                  for f in (base, var, var, base)]
+            row[names[0]] = row.get(names[0], []) + [ts[0], ts[3]]
+            row[name] = [ts[1], ts[2]]
+        hd = d // h
         qh, kh, vh = (x.view(b, t, h, hd).transpose(1, 2) for x in (q, k, v))
         mask = (gate.float().transpose(1, 2)[..., None]
-                * pos.float()[None]).to(bf)
+                * pos.float()[None]).to(bf) if bias else None
+        row["sdpa"] = [cs.time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=1.0), iters=args.iters)]
+        row["plain"] = [cs.time_ms(
+            torch, lambda: fused_mha_plain(q, k, v, h, **extra), iters=20)]
+        flop = 4.0 * b * h * t * t * hd
+        emit(f"[{b},{t},{d}] {h} heads {'bias' if bias else 'no bias'}: "
+             + ", ".join(
+                 f"{n} {sum(x) / len(x):.4f} ms "
+                 f"{[round(y, 4) for y in x]}"
+                 + (f" ({flop / (sum(x) / len(x)) / 1e9:.0f} TFLOP/s)"
+                    if extra_rows else "")
+                 + (f" err {errs[n]:.3e}" if n in errs else "")
+                 for n, x in row.items()))
+
+    resident = [n for n in libs if not n.startswith("streamed/")]
+    for shape in ((128, 99, 768, 12), (16, 99, 1280, 16)):
+        tensors = inputs(*shape)
+        call = _caller(torch, _native, tensors, *shape)
         for bias in (False, True):
-            extra = dict(gate=gate, pos_bias=pos) if bias else {}
-            want = fused_mha_plain(q, k, v, h, **extra).float()
-            errs = {}
-            for name, (form, lib) in libs.items():
-                call(form, lib, bias)()
-                torch.cuda.synchronize()
-                errs[name] = float(((out.float() - want).abs()
-                                    / (1 + want.abs())).max())
-                if not errs[name] <= BF16_TOL:
-                    faults.append(f"{name} [{b},{t},{d}] bias={bias}: err "
-                                  f"{errs[name]:.3e} outside {BF16_TOL}")
-            base = call(*libs["as_built"], bias)
-            row = {}
-            for name, (form, lib) in libs.items():
-                if name == "as_built":
-                    continue
-                var = call(form, lib, bias)
-                ts = [cs.time_ms(torch, f, iters=args.iters)
-                      for f in (base, var, var, base)]
-                row["as_built"] = row.get("as_built", []) + [ts[0], ts[3]]
-                row[name] = [ts[1], ts[2]]
-            row["sdpa"] = [cs.time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask if bias else None, scale=1.0),
-                iters=args.iters)]
-            row["plain"] = [cs.time_ms(
-                torch, lambda: fused_mha_plain(q, k, v, h, **extra),
-                iters=20)]
-            emit(f"[{b},{t},{d}] {h} heads {'bias' if bias else 'no bias'}: "
-                 + ", ".join(
-                     f"{n} {sum(x) / len(x):.4f} ms "
-                     f"{[round(y, 4) for y in x]}"
-                     + (f" err {errs[n]:.3e}" if n in errs else "")
-                     for n, x in row.items()))
-            if b == 128:
+            compare(resident, call, tensors, shape, bias, False)
+            if shape[0] == 128:
                 sweep = {rows: cs.time_ms(torch, call(*libs["as_built"], bias,
                                                       rows),
                                           iters=args.iters)
@@ -276,6 +386,14 @@ def main() -> int:
                 emit(f"  as_built by B ({'bias' if bias else 'no bias'}): "
                      + ", ".join(f"B={r} {ms:.4f} ms"
                                  for r, ms in sweep.items()))
+        del tensors
+    streamed = [n for n in libs if n.startswith("streamed/")]
+    for shape in ((16, 1500, 512, 8), (128, 1500, 512, 8)):
+        tensors = inputs(*shape)
+        compare(streamed, _caller(torch, _native, tensors, *shape), tensors,
+                shape, False, True)
+        del tensors
+        torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         f.write("\n".join(lines + faults) + "\n")

@@ -77,16 +77,20 @@
 // bf16 bodies (the mixed-precision encoders give q, k, v, gate and pos_bias
 // all in bf16): the Pallas bodies form the logits in f32 from the bf16
 // operands, take the softmax in f32, cast the NORMALIZED weights to v's
-// dtype, accumulate P V in f32 and store the output in bf16. Both forms
-// below run one mma.sync m16n8k16 bf16 -> f32 for each k16 step of S = Q K^T
-// and of O = P V (bf16 products are exact in f32, so no split); the gate x
-// pos_bias product and its add, the softmax and the RN f32 adds of each
-// P V block into O (the tensor core truncates when it adds) are f32 on the
-// CUDA cores. P goes to bf16 (RN) in place in registers: the S accumulator
-// holds keys 2c, 2c + 1 (and 2c + 8, 2c + 9 in the next n8 fragment) of rows
-// g and g + 8, the k16 A operand's layout. The wrapper picks the form by
-// shape (ops/attention.py::bf16_form) and passes it to the C entry, which
-// refuses a form it cannot take.
+// dtype, accumulate P V in f32 and store the output in bf16. The forms
+// below run bf16 -> f32 tensor-core products for each k16 step of S = Q K^T
+// and of O = P V (bf16 products are exact in f32, so no split): mma.sync
+// m16n8k16 with every fragment read by ldmatrix.x4 (.trans for V; rows of
+// HD + 8 bf16 keep the eight 16-byte row addresses of each 8 x 8 matrix on
+// distinct banks), or wgmma (the streamed form at HD 64). They take the
+// gate x pos_bias product and its add, the softmax and e = ex2(s log2(e) -
+// m log2(e)) (one FMA) in f32 on the CUDA cores, and round the weights to
+// bf16 (RN) in place in registers: the S accumulator holds keys 2c, 2c + 1
+// (and 2c + 8, 2c + 9 in the next n8 fragment) of rows g and g + 8, the k16
+// A operand's layout (wgmma's accumulator and register A operand have
+// mma.sync's layout, a warp's 16 rows each). The wrapper picks the form by shape
+// (ops/attention.py::bf16_form) and passes it to the C entry, which refuses
+// a form it cannot take.
 // - Resident form (mha_bf16_resident_kernel; T <= 128, HD <= 80: every
 //   shipped encoder's 2 s window, T = 99). A block walks batch rows of one
 //   head, ceil(T / 16) warps of 16 query rows; its grid (heads, row groups)
@@ -101,25 +105,52 @@
 //   loaded into a register before the row's copies and staged at its end.
 //   A warp holds its whole row of S in registers (2 NK n8 fragments,
 //   NK = 7 at T <= 112, else 8), takes the exact row max and sum in one
-//   pass (the lane's fragments, then the quad; no online rescale),
-//   e = ex2(s log2(e) - m log2(e)) with one FMA and p = e * (1 / l) with one
-//   reciprocal a row, so Q K^T runs once and exp once a logit. Fragments
-//   come from ldmatrix.x4 (.trans for V); rows of HD + 8 keep the eight
-//   16-byte row addresses of each 8 x 8 matrix on distinct banks. At
-//   T <= 112, at most 128 registers, so 2 blocks of 7 warps an SM (8 warps
-//   at T > 112: one block, no register cap). What bounds it: the issue of
-//   its instructions and the latency of each warp's dependent chains at 14
-//   warps an SM, more than the byte rate (PERF.md).
-// - Streamed form (mha_bf16_kernel; T > 128, and HD 128 at any T, whose
-//   resident form would not fit in shared memory): two passes over 32-key
-//   tiles of K (and V in pass 2) double-buffered by 16-byte cp.async with
-//   zero-fill past T, 8 warps of 16 query rows a block. Pass 1 takes each
-//   row's max m and sum l (online over the tiles); pass 2 recomputes the same
-//   S, forms p = exp(s - m) / l and rounds it. The online softmax would
-//   round unnormalized weights, another rounding of every weight. Rows keep
-//   a stride of HD + 8 bf16, so the A and B fragment reads (row = lane / 4,
-//   32-bit word = lane % 4) and V's 16-bit reads (key = 2 (lane % 4), dim =
-//   lane / 4) fall on distinct banks.
+//   pass (the lane's fragments, then the quad; no online rescale) and
+//   rounds the normalized weights p = e * (1 / l) (one reciprocal a row),
+//   as the Pallas body does; each k16 block of P V goes into O by RN f32
+//   adds. At T <= 112, at most 128 registers, so 2 blocks of 7 warps an SM
+//   (8 warps at T > 112: one block, no register cap). What bounds it: the
+//   issue of its instructions and the latency of each warp's dependent
+//   chains at 14 warps an SM, more than the byte rate (PERF.md).
+// - Streamed form (T > 128, and HD 128 at any T, whose resident form would
+//   not fit in shared memory): one pass over the keys in 64-key tiles with
+//   an online softmax, so Q K^T runs once a logit. Per tile: S = Q K^T in
+//   f32 (+ gate x pos_bias, read from L2 as in the f32 body), keys >= T to
+//   -inf (last tile only), the row max m over the lane's keys and the quad,
+//   O and l rescaled by ex2((m_old - m) log2(e)), e = ex2(s log2(e) -
+//   m log2(e)) in place, l += the lane's e (f32, summed over the quad once
+//   at the end), e rounded to bf16 in place as the A operand of O += P V,
+//   accumulated in f32 across tiles; at the end O * (1 / l) in bf16. The
+//   weights are rounded before the normalization (the Pallas body rounds
+//   after it): an intended difference inside BF16_TOL (ROADMAP Queue 3;
+//   tests/test_torch_attention_bf16.py emulates it). O sums in the tensor
+//   core's accumulator, whose truncating adds cost at most ~T/16 x 2^-23
+//   relative (1.1e-5 at T = 1,500), far below the output's bf16 rounding.
+//   Bound at whisper-base's [B, 1500, 512], 8 heads of 64: 4 B H T^2 HD
+//   operations at 989 TFLOP/s against 4 B T D x 2 bytes at 3.35 TB/s, bound
+//   by operations (0.0745 ms at B = 16); the exponentials, one a logit,
+//   take about as long again at an SM's 16 ex2 a clock, so the tensor cores
+//   and the softmax must overlap to come near it.
+//   - HD 64 (mha_bf16_wgmma_kernel: whisper-base and every shipped 64-wide
+//     head): wgmma. A block takes 128 query rows of one (batch row, head):
+//     2 warpgroups of 64 rows, m64n64k16 for both products. Q (once) and
+//     K, V (64-key tiles, a ring of 5, 3 tiles in flight) land by 16-byte
+//     cp.async in 128B-swizzled rows of 128 bytes (chunk ch of row r at
+//     ch ^ (r % 8)), which wgmma reads by descriptor: S from Q and K
+//     (K-major), O from P in registers and V (transposed B). One barrier a
+//     tile. 109 registers, no spill, so 2 blocks (4 warpgroups) an SM,
+//     whose softmax and products interleave. Designs that lost (PERF.md,
+//     experiments/fused_mha_bf16_variants.py): the mma.sync body below at
+//     HD 64; P V left running into the next tile, which ptxas serializes;
+//     S of the next tile issued before the softmax of this one (two S
+//     buffers), whose 182 registers leave one block an SM.
+//   - Other widths (mha_bf16_streamed_kernel, mma.sync m16n8k16,
+//     FlashAttention-2 style): 128 query rows a block, 4 warps of 32 rows
+//     (two m16 tiles, so each K and V fragment read by ldmatrix feeds two
+//     products) at HD <= 80, 8 warps of 16 rows at HD 128 (whose O and Q
+//     fragments would not fit twice in 255 registers); Q's A fragments in
+//     registers once; K and V in 64-key tiles through a ring of 3 stages,
+//     ldmatrix (.trans for V) from rows of HD + 8.
 // Every HD in _HEAD_DIMS is a multiple of k16. Bound at the WavLM serving
 // shape in bf16: 78.4 MB of q, k, v, out, gate and pos_bias, 0.0234 ms at
 // 3.35 TB/s, against 3.85 GFLOP at 989 TFLOP/s: bound by bytes.
@@ -462,16 +493,6 @@ int dispatch(const float* q, const float* k, const float* v, const float* gate,
 
 using bf16 = uint16_t;  // raw bf16 bits; arithmetic is f32
 
-// bf16 elements of one K or V tile of the bf16 ring (padded rows)
-template <int HD>
-constexpr int kTileBf16 = kKeys * (HD + 8);
-
-// K ring [2], V ring [2], then Q [kRows] (bf16 rows of HD + 8)
-template <int HD>
-constexpr size_t smem_bytes_bf16() {
-  return sizeof(bf16) * (4 * kTileBf16<HD> + kRows * (HD + 8));
-}
-
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 16 : 0));
@@ -486,10 +507,6 @@ __device__ __forceinline__ float bf16_to_f32(bf16 x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pair_u32(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
 // d += A (16 x 16) . B (16 x 8), bf16 operands, f32 accumulation
@@ -512,208 +529,9 @@ __device__ __forceinline__ float2 bias_pair_bf16(const bf16* row, int key, int t
                      key + 1 < t_len ? bf16_to_f32(row[key + 1]) : 0.f);
 }
 
-template <int HD, bool BIAS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-mha_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ gate,
-                const bf16* __restrict__ pos, bf16* __restrict__ out, int t_len,
-                int d_model, int heads) {
-  constexpr int RS = HD + 8;        // padded row stride of the tiles (bf16)
-  constexpr int K16 = HD / 16;      // k16 steps of Q K^T
-  constexpr int NF = HD / 8;        // n8 fragments of O
-  constexpr int kCopies = HD / 8;   // 16-byte copies a row
-  constexpr int kTile = kTileBf16<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring_k = reinterpret_cast<bf16*>(smem_raw);  // [2][kKeys][RS]
-  bf16* ring_v = ring_k + 2 * kTile;                  // [2][kKeys][RS]
-  bf16* qtile = ring_v + 2 * kTile;                   // [kRows][RS]
-
-  const int t0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c = lane % 4;
-  const int64_t base = b * t_len * static_cast<int64_t>(d_model) + h * HD;
-  const int r0 = warp * 16;
-  const int t_lo = t0 + r0 + g, t_hi = t_lo + 8;
-  const bool active = t0 + r0 < t_len;  // warp-uniform
-  const int n_tiles = (t_len + kKeys - 1) / kKeys;
-  const int n_steps = 2 * n_tiles;      // pass 1 (K), then pass 2 (K and V)
-
-  // step j: key tile j % n_tiles into ring slot j % 2; V only in pass 2
-  auto fetch = [&](int j) {
-    const int s0 = (j < n_tiles ? j : j - n_tiles) * kKeys;
-    bf16* kdst = ring_k + (j % 2) * kTile;
-    bf16* vdst = ring_v + (j % 2) * kTile;
-    const bool with_v = j >= n_tiles;
-    for (int i = tid; i < kKeys * kCopies; i += kThreads) {
-      const int r = i / kCopies, col = (i % kCopies) * 8;
-      const bool ok = s0 + r < t_len;
-      const int64_t src = ok ? base + static_cast<int64_t>(s0 + r) * d_model + col : 0;
-      cp_async16(kdst + r * RS + col, k + src, ok);
-      if (with_v) cp_async16(vdst + r * RS + col, v + src, ok);
-    }
-  };
-
-  for (int i = tid; i < kRows * kCopies; i += kThreads) {
-    const int r = i / kCopies, col = (i % kCopies) * 8;
-    const bool ok = t0 + r < t_len;
-    cp_async16(qtile + r * RS + col,
-               q + (ok ? base + static_cast<int64_t>(t0 + r) * d_model + col : 0), ok);
-  }
-  fetch(0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-
-  // the lane's A-fragment words: rows g and g + 8, columns 2c, 2c + 1 (+ 8)
-  const bf16* qrow = qtile + (r0 + g) * RS + 2 * c;
-
-  float g_lo = 0.f, g_hi = 0.f;
-  if (BIAS) {
-    if (t_lo < t_len) g_lo = bf16_to_f32(gate[(b * t_len + t_lo) * heads + h]);
-    if (t_hi < t_len) g_hi = bf16_to_f32(gate[(b * t_len + t_hi) * heads + h]);
-  }
-  const bf16* prow_lo = BIAS ? pos + (static_cast<int64_t>(h) * t_len + t_lo) * t_len : nullptr;
-  const bf16* prow_hi = BIAS ? prow_lo + 8 * static_cast<int64_t>(t_len) : nullptr;
-  const bool pair = (t_len % 2 == 0) && (reinterpret_cast<uintptr_t>(pos) % 4 == 0);
-
-  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  float o[NF][4];
-#pragma unroll
-  for (int nd = 0; nd < NF; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-
-  for (int j = 0; j < n_steps; ++j) {
-    if (j > 0) {
-      cp_async_wait_all();  // step j's tiles have landed (this thread's copies)
-      __syncthreads();      // ... everyone's; step j - 1's slot is free
-    }
-    if (j + 1 < n_steps) {
-      fetch(j + 1);
-      cp_async_commit();
-    }
-    if (!active) continue;
-    const bool second = j >= n_tiles;
-    const bf16* kt = ring_k + (j % 2) * kTile;
-    const bf16* vt = ring_v + (j % 2) * kTile;
-    const int s0 = (second ? j - n_tiles : j) * kKeys;
-    const int nkf = min(kKF, (t_len - s0 + 7) / 8);  // key fragments holding a key < T
-
-    // S = Q K^T on bf16 tensor cores; s[f] as in the f32 body
-    float s[kKF][4];
-#pragma unroll
-    for (int f = 0; f < kKF; ++f)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[f][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < K16; ++kk) {
-      const bf16* qa = qrow + 16 * kk;
-      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(qa),
-                             *reinterpret_cast<const uint32_t*>(qa + 8 * RS),
-                             *reinterpret_cast<const uint32_t*>(qa + 8),
-                             *reinterpret_cast<const uint32_t*>(qa + 8 * RS + 8)};
-#pragma unroll
-      for (int f = 0; f < kKF; ++f) {
-        if (f < nkf) {
-          const bf16* kb = kt + (8 * f + g) * RS + 16 * kk + 2 * c;
-          mma_bf16(s[f], a, *reinterpret_cast<const uint32_t*>(kb),
-                   *reinterpret_cast<const uint32_t*>(kb + 8));
-        }
-      }
-    }
-
-    // gate x pos_bias in f32 (product rounded, then added), keys >= T to -inf
-#pragma unroll
-    for (int f = 0; f < kKF; ++f) {
-      const int key = s0 + 8 * f + 2 * c;
-      if constexpr (BIAS) {
-        const float2 zero2 = make_float2(0.f, 0.f);
-        const float2 plo = f < nkf && t_lo < t_len ? bias_pair_bf16(prow_lo, key, t_len, pair) : zero2;
-        const float2 phi = f < nkf && t_hi < t_len ? bias_pair_bf16(prow_hi, key, t_len, pair) : zero2;
-        s[f][0] = __fadd_rn(s[f][0], __fmul_rn(g_lo, plo.x));
-        s[f][1] = __fadd_rn(s[f][1], __fmul_rn(g_lo, plo.y));
-        s[f][2] = __fadd_rn(s[f][2], __fmul_rn(g_hi, phi.x));
-        s[f][3] = __fadd_rn(s[f][3], __fmul_rn(g_hi, phi.y));
-      }
-      if (key >= t_len) s[f][0] = s[f][2] = -INFINITY;
-      if (key + 1 >= t_len) s[f][1] = s[f][3] = -INFINITY;
-    }
-
-    if (!second) {
-      // pass 1: the row max and the row sum, online over the tiles
-      float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-      for (int f = 0; f < kKF; ++f) {
-        mx_lo = fmaxf(mx_lo, fmaxf(s[f][0], s[f][1]));
-        mx_hi = fmaxf(mx_hi, fmaxf(s[f][2], s[f][3]));
-      }
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 1));
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 2));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 1));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 2));
-      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-      float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-      for (int f = 0; f < kKF; ++f) {
-        sum_lo += expf(s[f][0] - mn_lo) + expf(s[f][1] - mn_lo);
-        sum_hi += expf(s[f][2] - mn_hi) + expf(s[f][3] - mn_hi);
-      }
-      sum_lo += __shfl_xor_sync(kFull, sum_lo, 1);
-      sum_lo += __shfl_xor_sync(kFull, sum_lo, 2);
-      sum_hi += __shfl_xor_sync(kFull, sum_hi, 1);
-      sum_hi += __shfl_xor_sync(kFull, sum_hi, 2);
-      l_lo = l_lo * expf(m_lo - mn_lo) + sum_lo;
-      l_hi = l_hi * expf(m_hi - mn_hi) + sum_hi;
-      m_lo = mn_lo;
-      m_hi = mn_hi;
-      continue;
-    }
-
-    // pass 2: normalized weights p = exp(s - m) / l rounded to bf16, O += P V;
-    // k16 step kk takes keys 16 kk .. 16 kk + 15 of the tile: A = P's
-    // fragments 2 kk and 2 kk + 1 packed in place
-    const int nks = min(kKF / 2, (t_len - s0 + 15) / 16);
-#pragma unroll
-    for (int kk = 0; kk < kKF / 2; ++kk) {
-      if (kk < nks) {
-        const float(&f0)[4] = s[2 * kk];
-        const float(&f1)[4] = s[2 * kk + 1];
-        const uint32_t a[4] = {
-            pack_bf16(expf(f0[0] - m_lo) / l_lo, expf(f0[1] - m_lo) / l_lo),
-            pack_bf16(expf(f0[2] - m_hi) / l_hi, expf(f0[3] - m_hi) / l_hi),
-            pack_bf16(expf(f1[0] - m_lo) / l_lo, expf(f1[1] - m_lo) / l_lo),
-            pack_bf16(expf(f1[2] - m_hi) / l_hi, expf(f1[3] - m_hi) / l_hi)};
-        const bf16* vb = vt + (16 * kk + 2 * c) * RS + g;
-#pragma unroll
-        for (int nd = 0; nd < NF; ++nd) {
-          const bf16* vp = vb + 8 * nd;
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(acc, a, pair_u32(vp[0], vp[RS]), pair_u32(vp[8 * RS], vp[9 * RS]));
-          add4(o[nd], acc);
-        }
-      }
-    }
-  }
-  if (!active) return;
-
-  // O fragment: o[nd] = {(g, 8nd + 2c), (g, 8nd + 2c + 1), (g + 8, ..), (g + 8, ..)}
-#pragma unroll
-  for (int nd = 0; nd < NF; ++nd) {
-    const int col = 8 * nd + 2 * c;
-    if (t_lo < t_len)
-      *reinterpret_cast<uint32_t*>(out + base + static_cast<int64_t>(t_lo) * d_model + col) =
-          pack_bf16(o[nd][0], o[nd][1]);
-    if (t_hi < t_len)
-      *reinterpret_cast<uint32_t*>(out + base + static_cast<int64_t>(t_hi) * d_model + col) =
-          pack_bf16(o[nd][2], o[nd][3]);
-  }
-}
-
 // ------------------------------------------ bf16 resident body (T <= kResMaxT)
 
-constexpr int kFormStreamed = 0;  // the C entry's `form`: mha_bf16_kernel
+constexpr int kFormStreamed = 0;  // the C entry's `form`: mha_bf16_streamed_kernel
 constexpr int kFormResident = 1;  // mha_bf16_resident_kernel
 constexpr int kResMaxT = 128;     // the resident body's largest T (16 n8 key fragments)
 constexpr int kResMaxHD = 80;     // and head width (HD 128 takes the streamed body)
@@ -1106,6 +924,614 @@ int launch_resident(const bf16* q, const bf16* k, const bf16* v, const bf16* gat
   return launch_resident_nk<HD, BIAS, 8>(q, k, v, gate, pos, out, b, t, d, heads, stream);
 }
 
+// ------------------------------------------------- bf16 streamed body (any T)
+
+constexpr int kStrKeys = 64;              // keys of a K / V tile
+constexpr int kStrKF = kStrKeys / 8;      // n8 key fragments of a tile
+constexpr int kStrStages = 3;             // tiles in the cp.async ring
+constexpr int kStrRows = 128;             // query rows a block
+constexpr int kStrMinBlocks = 2;          // blocks an SM at HD <= 80
+
+// m16 row tiles a warp: 2 at HD <= 80 (a K or V fragment feeds two
+// products), 1 at HD 128; warps a block
+template <int HD>
+__host__ __device__ constexpr int str_mi() { return HD <= 80 ? 2 : 1; }
+template <int HD>
+__host__ __device__ constexpr int str_warps() { return kStrRows / (16 * str_mi<HD>()); }
+
+// the ring ([kStrStages][K tile, V tile]), then Q, rows of HD + 8 bf16
+template <int HD>
+constexpr size_t str_smem_bytes() {
+  return sizeof(bf16) * (kStrStages * 2 * kStrKeys + kStrRows) * (HD + 8);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// grid (query tiles, heads, batch rows)
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(32 * str_warps<HD>(), HD <= 80 ? kStrMinBlocks : 1)
+mha_bf16_streamed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ gate,
+                         const bf16* __restrict__ pos, bf16* __restrict__ out, int t_len,
+                         int d_model, int heads) {
+  constexpr int RS = HD + 8;            // padded row stride (bf16)
+  constexpr int K16 = HD / 16;          // k16 steps of Q K^T
+  constexpr int NF = HD / 8;            // n8 fragments of O
+  constexpr int MI = str_mi<HD>();      // m16 row tiles a warp
+  constexpr int kBlock = 32 * str_warps<HD>();  // threads
+  constexpr int kCopies = HD / 8;       // 16-byte copies a row
+  constexpr int kTile = kStrKeys * RS;  // bf16 of one K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qtile = ring + kStrStages * 2 * kTile;  // [kStrRows][RS]
+
+  const int t0 = blockIdx.x * kStrRows;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int64_t base = b * t_len * static_cast<int64_t>(d_model) + h * HD;
+  const int r0 = warp * 16 * MI;         // the warp's first row in the block
+  const bool active = t0 + r0 < t_len;   // warp-uniform
+  const int n_tiles = (t_len + kStrKeys - 1) / kStrKeys;
+
+  // key tile j into ring slot j % kStrStages, zero past T
+  auto fetch = [&](int j) {
+    bf16* kd = ring + (j % kStrStages) * 2 * kTile;
+    bf16* vd = kd + kTile;
+    const int s0 = j * kStrKeys;
+    for (int i = tid; i < kStrKeys * kCopies; i += kBlock) {
+      const int r = i / kCopies, col = (i % kCopies) * 8;
+      const bool ok = s0 + r < t_len;
+      const int64_t src = ok ? base + static_cast<int64_t>(s0 + r) * d_model + col : 0;
+      cp_async16(kd + r * RS + col, k + src, ok);
+      cp_async16(vd + r * RS + col, v + src, ok);
+    }
+  };
+
+  // groups: Q, then tiles 0 .. kStrStages - 2 (each committed, maybe empty)
+  for (int i = tid; i < kStrRows * kCopies; i += kBlock) {
+    const int r = i / kCopies, col = (i % kCopies) * 8;
+    const bool ok = t0 + r < t_len;
+    cp_async16(qtile + r * RS + col,
+               q + (ok ? base + static_cast<int64_t>(t0 + r) * d_model + col : 0), ok);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < kStrStages - 1; ++j) {
+    if (j < n_tiles) fetch(j);
+    cp_async_commit();
+  }
+  cp_async_wait<kStrStages - 1>();  // Q has landed (this thread's copies)
+  __syncthreads();                  // ... everyone's
+
+  // Q's A fragments, once: m16 tile i holds rows r0 + 16 i .. r0 + 16 i + 15
+  uint32_t qa[MI][K16][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int kk = 0; kk < K16; ++kk) frag_q<RS>(qa[i][kk], qtile + (r0 + 16 * i) * RS, kk, lane);
+
+  // the lane's rows: t0 + r0 + 16 i + g (lo) and + 8 (hi)
+  float g_lo[MI], g_hi[MI];
+  const bf16* prow_lo[MI];
+  const bf16* prow_hi[MI];
+  const bool pair = (t_len % 2 == 0) && (reinterpret_cast<uintptr_t>(pos) % 4 == 0);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int t_lo = t0 + r0 + 16 * i + g, t_hi = t_lo + 8;
+    g_lo[i] = g_hi[i] = 0.f;
+    prow_lo[i] = prow_hi[i] = nullptr;
+    if constexpr (BIAS) {
+      if (t_lo < t_len) {
+        g_lo[i] = bf16_to_f32(gate[(b * t_len + t_lo) * heads + h]);
+        prow_lo[i] = pos + (static_cast<int64_t>(h) * t_len + t_lo) * t_len;
+      }
+      if (t_hi < t_len) {
+        g_hi[i] = bf16_to_f32(gate[(b * t_len + t_hi) * heads + h]);
+        prow_hi[i] = pos + (static_cast<int64_t>(h) * t_len + t_hi) * t_len;
+      }
+    }
+  }
+
+  float m[MI][2], l[MI][2], o[MI][NF][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    m[i][0] = m[i][1] = -INFINITY;
+    l[i][0] = l[i][1] = 0.f;
+#pragma unroll
+    for (int nd = 0; nd < NF; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][nd][e] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStrStages - 2>();  // tile j has landed (this thread's copies)
+    __syncthreads();                  // ... everyone's; tile j - 1's slot is free
+    if (j + kStrStages - 1 < n_tiles) fetch(j + kStrStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* kt = ring + (j % kStrStages) * 2 * kTile;
+    const bf16* vt = kt + kTile;
+    const int s0 = j * kStrKeys;
+
+    // S = Q K^T: s[i][f] = {(g, 8f + 2c), (g, 8f + 2c + 1), (g + 8, ..), (g + 8, ..)}
+    // of m16 tile i, keys of the tile
+    float s[MI][kStrKF][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int f = 0; f < kStrKF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][f][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K16; ++kk) {
+#pragma unroll
+      for (int p = 0; p < kStrKF / 2; ++p) {
+        uint32_t kb[4];
+        frag_k<RS>(kb, kt, p, kk, lane);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(s[i][2 * p], qa[i][kk], kb[0], kb[1]);
+          mma_bf16(s[i][2 * p + 1], qa[i][kk], kb[2], kb[3]);
+        }
+      }
+    }
+
+    const bool edge = s0 + kStrKeys > t_len;  // the tile holds keys >= T (uniform)
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      // gate x pos_bias (product exact in f32, so one FMA rounds as the
+      // plain version's multiply and add), keys >= T to -inf, the row max
+#pragma unroll
+      for (int f = 0; f < kStrKF; ++f) {
+        const int key = s0 + 8 * f + 2 * c;
+        if constexpr (BIAS) {
+          const float2 zero2 = make_float2(0.f, 0.f);
+          const float2 plo = prow_lo[i] ? bias_pair_bf16(prow_lo[i], key, t_len, pair) : zero2;
+          const float2 phi = prow_hi[i] ? bias_pair_bf16(prow_hi[i], key, t_len, pair) : zero2;
+          s[i][f][0] = __fmaf_rn(g_lo[i], plo.x, s[i][f][0]);
+          s[i][f][1] = __fmaf_rn(g_lo[i], plo.y, s[i][f][1]);
+          s[i][f][2] = __fmaf_rn(g_hi[i], phi.x, s[i][f][2]);
+          s[i][f][3] = __fmaf_rn(g_hi[i], phi.y, s[i][f][3]);
+        }
+        if (edge) {
+          if (key >= t_len) s[i][f][0] = s[i][f][2] = -INFINITY;
+          if (key + 1 >= t_len) s[i][f][1] = s[i][f][3] = -INFINITY;
+        }
+      }
+      float mx_lo = m[i][0], mx_hi = m[i][1];
+#pragma unroll
+      for (int f = 0; f < kStrKF; ++f) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[i][f][0], s[i][f][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[i][f][2], s[i][f][3]));
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 2));
+      // finite: the tile's first key is < T. 0 on the first tile (m = -inf)
+      const float sc_lo = ex2((m[i][0] - mx_lo) * kLog2e);
+      const float sc_hi = ex2((m[i][1] - mx_hi) * kLog2e);
+      m[i][0] = mx_lo;
+      m[i][1] = mx_hi;
+#pragma unroll
+      for (int nd = 0; nd < NF; ++nd) {
+        o[i][nd][0] *= sc_lo;
+        o[i][nd][1] *= sc_lo;
+        o[i][nd][2] *= sc_hi;
+        o[i][nd][3] *= sc_hi;
+      }
+      // e = ex2(s log2(e) - m log2(e)) in place; the lane's l in key order
+      const float ms_lo = res_scale_max(mx_lo), ms_hi = res_scale_max(mx_hi);
+      float sum_lo = l[i][0] * sc_lo, sum_hi = l[i][1] * sc_hi;
+#pragma unroll
+      for (int f = 0; f < kStrKF; ++f) {
+        s[i][f][0] = res_exp(s[i][f][0], ms_lo);
+        s[i][f][1] = res_exp(s[i][f][1], ms_lo);
+        s[i][f][2] = res_exp(s[i][f][2], ms_hi);
+        s[i][f][3] = res_exp(s[i][f][3], ms_hi);
+        sum_lo += s[i][f][0] + s[i][f][1];
+        sum_hi += s[i][f][2] + s[i][f][3];
+      }
+      l[i][0] = sum_lo;
+      l[i][1] = sum_hi;
+    }
+
+    // O += P V: k16 step kk takes the tile's keys 16 kk .. 16 kk + 15, A = e
+    // of fragments 2 kk and 2 kk + 1 rounded to bf16 in place; two n8
+    // fragments of O (16 dims) a V ldmatrix
+#pragma unroll
+    for (int kk = 0; kk < kStrKF / 2; ++kk) {
+      uint32_t pa[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        pa[i][0] = pack_bf16(s[i][2 * kk][0], s[i][2 * kk][1]);
+        pa[i][1] = pack_bf16(s[i][2 * kk][2], s[i][2 * kk][3]);
+        pa[i][2] = pack_bf16(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+        pa[i][3] = pack_bf16(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NF / 2; ++n) {
+        uint32_t vb[4];
+        frag_v<RS>(vb, vt, kk, n, lane);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(o[i][2 * n], pa[i], vb[0], vb[1]);
+          mma_bf16(o[i][2 * n + 1], pa[i], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  // l over the quad ((l0 + l1) + (l2 + l3)), O * (1 / l) in bf16
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    float l_lo = l[i][0], l_hi = l[i][1];
+    l_lo += __shfl_xor_sync(kFull, l_lo, 1);
+    l_lo += __shfl_xor_sync(kFull, l_lo, 2);
+    l_hi += __shfl_xor_sync(kFull, l_hi, 1);
+    l_hi += __shfl_xor_sync(kFull, l_hi, 2);
+    const float n_lo = res_norm(l_lo), n_hi = res_norm(l_hi);
+    const int t_lo = t0 + r0 + 16 * i + g, t_hi = t_lo + 8;
+#pragma unroll
+    for (int nd = 0; nd < NF; ++nd) {
+      const int col = 8 * nd + 2 * c;
+      if (t_lo < t_len)
+        *reinterpret_cast<uint32_t*>(out + base + static_cast<int64_t>(t_lo) * d_model + col) =
+            pack_bf16(o[i][nd][0] * n_lo, o[i][nd][1] * n_lo);
+      if (t_hi < t_len)
+        *reinterpret_cast<uint32_t*>(out + base + static_cast<int64_t>(t_hi) * d_model + col) =
+            pack_bf16(o[i][nd][2] * n_hi, o[i][nd][3] * n_hi);
+    }
+  }
+}
+
+template <int HD, bool BIAS>
+int launch_streamed(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
+                    const bf16* pos, bf16* out, int64_t b, int t, int d, int heads,
+                    cudaStream_t stream) {
+  constexpr size_t smem = str_smem_bytes<HD>();
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(mha_bf16_streamed_kernel<HD, BIAS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mha_bf16_streamed_kernel<HD, BIAS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((t + kStrRows - 1) / kStrRows, heads, static_cast<unsigned>(b));
+  mha_bf16_streamed_kernel<HD, BIAS><<<grid, 32 * str_warps<HD>(), smem, stream>>>(
+      q, k, v, gate, pos, out, t, d, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------- bf16 streamed body on wgmma (HD 64 only)
+
+constexpr int kWgKeys = 64;                   // keys of a K / V tile
+constexpr int kWgStages = 5;                  // tiles in the cp.async ring
+constexpr int kWgAhead = kWgStages - 2;       // tiles fetched ahead of the one in use
+constexpr int kWgRows = 128;                  // query rows a block: 2 warpgroups of 64
+constexpr int kWgThreads = 256;
+constexpr int kWgTile = kWgKeys * 64;         // bf16 of a K or V tile (128-byte rows)
+// the ring, Q, and 1,024 bytes to align both to the swizzle pattern
+constexpr size_t kWgSmem = sizeof(bf16) * (kWgStages * 2 * kWgTile + kWgRows * 64) + 1024;
+static_assert(kWgKeys * 8 % kWgThreads == 0 && kWgRows * 8 % kWgThreads == 0,
+              "a tile's 16-byte copies spread evenly over the threads");
+
+// element offset of 16-byte chunk ch of row r in a tile of 128-byte rows,
+// 128B-swizzled: chunk ch ^ (r % 8) of the row (rows 1,024-byte aligned in
+// groups of 8, as the hardware's pattern repeats)
+__device__ __forceinline__ int sw128(int r, int ch) { return r * 64 + 8 * (ch ^ (r % 8)); }
+
+// wgmma descriptor of a 128B-swizzled tile at p (a 1,024-byte aligned group
+// of 8 rows, or an offset of k16 steps inside its rows): start address,
+// leading byte offset 1 (not read for these layouts), stride byte offset
+// 1,024 (from one group of 8 rows to the next: Q's and K's rows, V's keys),
+// swizzle 128B
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* p) {
+  return static_cast<uint64_t>((smem_u32(p) >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of an accumulator across a
+// wgmma wait or issue
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+// this thread's writes to shared memory (cp.async) visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d = A (64 x 16) . B (16 x 64) (ACC false: d only written) or d += A . B,
+// both K-major in shared memory by descriptor (Q's rows, K's rows); f32
+// accumulator in the layout of 8 m16n8 fragments of the warp's 16 rows:
+// d[4 j + e] is the mma.sync body's s[j][e]
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (ACC)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+          "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+          "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+          "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+          "=f"(d[30]), "=f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d += A (64 x 16, bf16 registers: the warp's 16 rows in mma.sync's A
+// layout) . B (16 x 64) stored as K rows of N (V's keys; transposed)
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// grid (query tiles, heads, batch rows); HD = 64: one 128-byte swizzle row
+// a Q, K or V row. ptxas serializes every wgmma of a kernel where one of
+// them sits on a divergent path, where registers that a running wgmma
+// reads or writes are copied or defined (the compiler copies loop-carried
+// registers at a loop's entry and back edge) or where registers run short.
+// So: no branch around a wgmma, a wait or a copy (every warpgroup
+// computes, also one whose rows all lie past T; copies past the last tile
+// zero-fill), nothing in flight across the loop's back edge, O's and P's
+// registers settled before each issue, and at most 128 registers.
+template <bool BIAS>
+__global__ void __launch_bounds__(kWgThreads, 2)
+mha_bf16_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ gate,
+                      const bf16* __restrict__ pos, bf16* __restrict__ out, int t_len,
+                      int d_model, int heads) {
+  constexpr int HD = 64;
+  constexpr int K16 = HD / 16;           // k16 steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024);
+  bf16* qs = ring + kWgStages * 2 * kWgTile;  // [kWgRows][64], swizzled
+
+  const int t0 = blockIdx.x * kWgRows;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4, ch = tid % 8;
+  const int64_t base = b * t_len * static_cast<int64_t>(d_model) + h * HD;
+  const bf16* qw = qs + (warp / 4) * 64 * 64;  // the warpgroup's 64 rows of Q
+  const int n_tiles = (t_len + kWgKeys - 1) / kWgKeys;
+
+  // key tile j into ring slot j % kWgStages, zero past T (all of it for
+  // j >= n_tiles); thread tid copies chunk tid % 8 of rows tid / 8 + 32 u
+  auto fetch = [&](int j) {
+    bf16* kd = ring + (j % kWgStages) * 2 * kWgTile;
+    const int s0 = j * kWgKeys;
+#pragma unroll
+    for (int u = 0; u < kWgKeys * 8 / kWgThreads; ++u) {
+      const int r = (tid + u * kWgThreads) / 8;
+      const bool ok = s0 + r < t_len;
+      const int64_t at = ok ? base + static_cast<int64_t>(s0 + r) * d_model + 8 * ch : 0;
+      cp_async16(kd + sw128(r, ch), k + at, ok);
+      cp_async16(kd + kWgTile + sw128(r, ch), v + at, ok);
+    }
+  };
+
+  // groups: Q with tile 0, then tiles 1 .. kWgAhead - 1
+#pragma unroll
+  for (int u = 0; u < kWgRows * 8 / kWgThreads; ++u) {
+    const int r = (tid + u * kWgThreads) / 8;
+    const bool ok = t0 + r < t_len;
+    cp_async16(qs + sw128(r, ch),
+               q + (ok ? base + static_cast<int64_t>(t0 + r) * d_model + 8 * ch : 0), ok);
+  }
+#pragma unroll
+  for (int j = 0; j < kWgAhead; ++j) {
+    fetch(j);
+    cp_async_commit();
+  }
+
+  const int t_lo = t0 + 16 * warp + g, t_hi = t_lo + 8;  // the lane's rows
+  float g_lo = 0.f, g_hi = 0.f;
+  const bf16* prow_lo = nullptr;
+  const bf16* prow_hi = nullptr;
+  const bool pair = (t_len % 2 == 0) && (reinterpret_cast<uintptr_t>(pos) % 4 == 0);
+  if constexpr (BIAS) {
+    if (t_lo < t_len) {
+      g_lo = bf16_to_f32(gate[(b * t_len + t_lo) * heads + h]);
+      prow_lo = pos + (static_cast<int64_t>(h) * t_len + t_lo) * t_len;
+    }
+    if (t_hi < t_len) {
+      g_hi = bf16_to_f32(gate[(b * t_len + t_hi) * heads + h]);
+      prow_hi = pos + (static_cast<int64_t>(h) * t_len + t_hi) * t_len;
+    }
+  }
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float s[32], o[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = o[e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kWgAhead - 1>();  // tile j has landed (this thread's copies)
+    fence_async_smem();
+    __syncthreads();  // ... everyone's; every warpgroup's P V(j - 2) is done
+    fetch(j + kWgAhead);  // into the slot of tile j - 2
+    cp_async_commit();
+    const bf16* kt = ring + (j % kWgStages) * 2 * kWgTile;
+    const bf16* vt = kt + kWgTile;
+
+    // S = Q K^T: four k16 steps, each 32 bytes further along the rows of Q
+    // and of K
+    wg_fence();
+    wgmma_ss<false>(s, sw128_desc(qw), sw128_desc(kt));
+#pragma unroll
+    for (int kk = 1; kk < K16; ++kk)
+      wgmma_ss<true>(s, sw128_desc(qw + 16 * kk), sw128_desc(kt + 16 * kk));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    // gate x pos_bias, keys >= T to -inf, the row max
+    const int s0 = j * kWgKeys;
+    const bool edge = s0 + kWgKeys > t_len;  // the last tile (uniform)
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      const int key = s0 + 8 * f + 2 * c;
+      float* sf = s + 4 * f;
+      if constexpr (BIAS) {
+        const float2 zero2 = make_float2(0.f, 0.f);
+        const float2 plo = prow_lo ? bias_pair_bf16(prow_lo, key, t_len, pair) : zero2;
+        const float2 phi = prow_hi ? bias_pair_bf16(prow_hi, key, t_len, pair) : zero2;
+        sf[0] = __fmaf_rn(g_lo, plo.x, sf[0]);
+        sf[1] = __fmaf_rn(g_lo, plo.y, sf[1]);
+        sf[2] = __fmaf_rn(g_hi, phi.x, sf[2]);
+        sf[3] = __fmaf_rn(g_hi, phi.y, sf[3]);
+      }
+      if (edge) {
+        if (key >= t_len) sf[0] = sf[2] = -INFINITY;
+        if (key + 1 >= t_len) sf[1] = sf[3] = -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(sf[0], sf[1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sf[2], sf[3]));
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 2));
+    // O and l to the new max (0 on the first tile: m = -inf)
+    const float sc_lo = ex2((m_lo - mx_lo) * kLog2e), sc_hi = ex2((m_hi - mx_hi) * kLog2e);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      o[4 * f] *= sc_lo;
+      o[4 * f + 1] *= sc_lo;
+      o[4 * f + 2] *= sc_hi;
+      o[4 * f + 3] *= sc_hi;
+    }
+    // e = ex2(s log2(e) - m log2(e)) in place; the lane's l in key order
+    const float ms_lo = res_scale_max(mx_lo), ms_hi = res_scale_max(mx_hi);
+    float sum_lo = l_lo * sc_lo, sum_hi = l_hi * sc_hi;
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      float* sf = s + 4 * f;
+      sf[0] = res_exp(sf[0], ms_lo);
+      sf[1] = res_exp(sf[1], ms_lo);
+      sf[2] = res_exp(sf[2], ms_hi);
+      sf[3] = res_exp(sf[3], ms_hi);
+      sum_lo += sf[0] + sf[1];
+      sum_hi += sf[2] + sf[3];
+    }
+    l_lo = sum_lo;
+    l_hi = sum_hi;
+
+    // O += P V, left running into the next tile: k16 step kk takes keys
+    // 16 kk .. 16 kk + 15 (A: e of fragments 2 kk and 2 kk + 1 rounded to
+    // bf16), V's keys 16 kk on (2,048 bytes a step)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    // O's rescale and P's packing done before the fence (ptxas serializes
+    // a kernel whose accumulators are written between fence and wgmma)
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(o, pa[kk], sw128_desc(vt + 16 * kk * 64));
+    wg_commit();
+    wg_wait_all();  // nothing in flight across the loop's back edge (see above)
+    fence_regs(o);
+  }
+
+  l_lo += __shfl_xor_sync(kFull, l_lo, 1);
+  l_lo += __shfl_xor_sync(kFull, l_lo, 2);
+  l_hi += __shfl_xor_sync(kFull, l_hi, 1);
+  l_hi += __shfl_xor_sync(kFull, l_hi, 2);
+  const float n_lo = res_norm(l_lo), n_hi = res_norm(l_hi);
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const int col = 8 * f + 2 * c;
+    if (t_lo < t_len)
+      *reinterpret_cast<uint32_t*>(out + base + static_cast<int64_t>(t_lo) * d_model + col) =
+          pack_bf16(o[4 * f] * n_lo, o[4 * f + 1] * n_lo);
+    if (t_hi < t_len)
+      *reinterpret_cast<uint32_t*>(out + base + static_cast<int64_t>(t_hi) * d_model + col) =
+          pack_bf16(o[4 * f + 2] * n_hi, o[4 * f + 3] * n_hi);
+  }
+}
+
+template <bool BIAS>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* gate, const bf16* pos,
+                 bf16* out, int64_t b, int t, int d, int heads, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(mha_bf16_wgmma_kernel<BIAS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(kWgSmem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(mha_bf16_wgmma_kernel<BIAS>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((t + kWgRows - 1) / kWgRows, heads, static_cast<unsigned>(b));
+  mha_bf16_wgmma_kernel<BIAS><<<grid, kWgThreads, kWgSmem, stream>>>(q, k, v, gate, pos, out, t,
+                                                                      d, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
                 const bf16* pos, bf16* out, int64_t b, int t, int d, int heads, int form,
@@ -1118,21 +1544,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (form != kFormStreamed) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = smem_bytes_bf16<HD>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mha_bf16_kernel<HD, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(mha_bf16_kernel<HD, BIAS>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((t + kRows - 1) / kRows, heads, static_cast<unsigned>(b));
-  mha_bf16_kernel<HD, BIAS><<<grid, kThreads, smem, stream>>>(q, k, v, gate, pos, out, t, d,
-                                                              heads);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (HD == 64)
+    return launch_wgmma<BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
+  return launch_streamed<HD, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
 }
 
 template <bool BIAS>
@@ -1167,8 +1581,8 @@ extern "C" int radad_fused_mha(const float* q, const float* k, const float* v,
 
 // The same contract in bf16: q, k, v, out [B, T, D], gate [B, T, heads] and
 // pos [heads, T, T] all bf16 (raw 16-bit values), q, k, v 16-byte aligned.
-// `form` picks the body: 0 the streamed two-pass body (any T), 1 the
-// resident one-pass body (T <= 128 and HD <= 80; cudaErrorInvalidValue
+// `form` picks the body: 0 the streamed body (one pass over key tiles, any
+// T), 1 the resident body (T <= 128 and HD <= 80; cudaErrorInvalidValue
 // elsewhere, as for any other form).
 extern "C" int radad_fused_mha_bf16(const void* q, const void* k, const void* v,
                                     const void* gate, const void* pos, void* out,

@@ -13,6 +13,14 @@ that was not re-scored could still beat the k-th exact score, the search
 falls back to a full f32 scan. That branch is a host ``if`` on one bool
 (``lax.cond`` in JAX); ``FlatIndex.fallbacks`` counts it.
 
+``FlatIndex(build_accel=False)`` builds no scan arrays and searches every
+batch with the exact f32 scan alone, as the JAX package's ``build_accel``
+does (its meshes consume the canonical arrays). The JAX package also takes
+the certified route only where ``_accel_eligible`` holds: on a TPU with D a
+multiple of 128, the TPU's lane layout. The port does not build that
+layout, so those two conditions are not ported: with ``build_accel`` (the
+default) the certified route runs on every device and D.
+
 ``FlatIndex(use_pallas=True)`` opts out of it into the JAX package's
 single-kernel route: ``ops.topk.flat_topk`` (bf16 fused scan + per-tile
 k-select) over-fetches ``max(4k, 32)`` candidates and an exact f32 re-rank
@@ -66,16 +74,20 @@ class FlatIndex:
     Device state: ``vectors [cap, D]`` (f32, or bf16 with
     ``use_float16``), ``labels [cap] f32``, ``ids [cap] int32`` (basename
     id per row, for self-exclusion), ``norms_sq [cap] f32``, and the scan
-    arrays ``scan_bf16`` / ``resid_bf16``; rows ``>= n`` are masked out of
-    every search. Host state: paths and metadata lists. ``use_pallas``
-    searches with ``flat_topk`` + exact re-rank instead of the certified
-    route."""
+    arrays ``scan_bf16`` / ``resid_bf16`` (None with ``build_accel=False``);
+    rows ``>= n`` are masked out of every search. Host state: paths and
+    metadata lists. ``route`` names the search every batch takes:
+    "certified" (the default), "full_scan" (``build_accel=False``: the
+    exact f32 scan, counted as a search and never as a fallback) or
+    "flat_topk" (``use_pallas``: ``flat_topk`` + exact re-rank, with or
+    without the scan arrays)."""
 
     metric_kinds = ("L2", "IP", "COSINE")
 
     def __init__(self, dimension: int, metric: str = "L2", *,
                  use_float16: bool = False, add_batch_size: int = 10000,
-                 use_pallas: bool = False, device="cuda"):
+                 use_pallas: bool = False, build_accel: bool = True,
+                 device="cuda"):
         metric = metric.upper()
         if metric == "IVF":
             raise NotImplementedError("IVF index: not yet ported")
@@ -86,6 +98,10 @@ class FlatIndex:
         self.use_float16 = bool(use_float16)
         self.add_batch_size = int(add_batch_size)
         self.use_pallas = use_pallas
+        # False: no scan_bf16 / resid_bf16, every search the full f32 scan
+        # (the JAX package passes False where a mesh consumes the canonical
+        # arrays)
+        self.build_accel = bool(build_accel)
         self.device = resolve_device(device)
         self.n = 0
         self._cap = 0
@@ -107,6 +123,14 @@ class FlatIndex:
     @property
     def ntotal(self) -> int:
         return self.n
+
+    @property
+    def route(self) -> str:
+        """The search every batch takes: "flat_topk", "certified" or
+        "full_scan"."""
+        if self.use_pallas:
+            return "flat_topk"
+        return "certified" if self.build_accel else "full_scan"
 
     # ------------------------------------------------------------------
     def add(self, vectors, labels: Sequence[float], paths: Sequence[str],
@@ -159,9 +183,9 @@ class FlatIndex:
         self.labels = grown(self.labels, (cap,), torch.float32)
         self.ids = grown(self.ids, (cap,), torch.int32, fill=-1)
         self.norms_sq = grown(self.norms_sq, (cap,), torch.float32)
-        if self.use_float16:
+        if self.build_accel and self.use_float16:
             self.scan_bf16 = self.vectors  # bf16 storage IS the scan copy
-        else:
+        elif self.build_accel:
             self.scan_bf16 = grown(self.scan_bf16, (cap, d), torch.bfloat16)
             self.resid_bf16 = grown(self.resid_bf16, (cap, d),
                                     torch.bfloat16)
@@ -170,15 +194,16 @@ class FlatIndex:
     def _write_rows(self, start: int, vec: torch.Tensor, lab: torch.Tensor,
                     idc: torch.Tensor) -> None:
         """Install f32 rows at ``start``: stored rows, exact norms of the
-        stored rows, and (f32 storage) their bf16 scan copy and bf16
-        rounding residual, the x-side correction of the certified scan."""
+        stored rows, and (f32 storage, ``build_accel``) their bf16 scan
+        copy and bf16 rounding residual, the x-side correction of the
+        certified scan."""
         end = start + vec.shape[0]
         self.vectors[start:end] = vec
         stored = self.vectors[start:end].float()
         self.norms_sq[start:end] = stored.square().sum(-1)
         self.labels[start:end] = lab
         self.ids[start:end] = idc
-        if not self.use_float16:
+        if self.resid_bf16 is not None:
             hi = vec.to(torch.bfloat16)
             self.scan_bf16[start:end] = hi
             self.resid_bf16[start:end] = (vec - hi.float()).to(
@@ -269,12 +294,13 @@ class FlatIndex:
 
     @classmethod
     def load(cls, directory: str, *, use_pallas: bool = False,
-             device="cuda") -> "FlatIndex":
+             build_accel: bool = True, device="cuda") -> "FlatIndex":
         with open(os.path.join(directory, "index_meta.json")) as f:
             meta = json.load(f)
         idx = cls(meta["dimension"], meta["metric"],
                   use_float16=meta.get("use_float16", False),
-                  use_pallas=use_pallas, device=device)
+                  use_pallas=use_pallas, build_accel=build_accel,
+                  device=device)
         idx._meta_extra = {k: v for k, v in meta.items()
                            if k not in ("dimension", "metric", "n",
                                         "use_float16")}
@@ -439,7 +465,8 @@ def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
     fell_back).
 
     Default: the certified search, ``fell_back`` when it ran the full f32
-    scan. ``use_pallas``: ``flat_topk`` over-fetches ``max(4k, 32)``
+    scan; without ``scan_bf16`` (``FlatIndex(build_accel=False)``) the full
+    f32 scan alone, ``fell_back`` False. ``use_pallas``: ``flat_topk`` over-fetches ``max(4k, 32)``
     candidates from a bf16 scan, ``_rerank_exact`` orders them (JAX
     ``flat.py:1216-1224``, ``|x|^2`` from the gathered rows as there);
     ``fell_back`` is False.
@@ -465,6 +492,9 @@ def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
         return dists, idx, False
     invalid_row = torch.arange(cap, device=q.device) >= n_valid
     mask = invalid_row[None, :] | (ids[None, :] == exclude_ids[:, None])
+    if scan_bf16 is None:
+        dists, idx = _full_scan(q, vectors, xsq, mask, k, larger_better)
+        return dists, idx, False
     dists, idx, certified = _search_fast_exact(
         q, scan_bf16, xsq, mask, k, larger_better, vectors,
         resid_bf16=resid_bf16, rerank_depth=rerank_depth)

@@ -35,10 +35,16 @@ wrapper picks by shape (``bf16_form``) and passes to the C entry: at
 T <= 128 and head width <= 80 (every shipped encoder's 2 s window, T = 99)
 the resident form holds a row's whole key range in shared memory and its
 logits in registers, and takes the exact row max and sum in one pass
-(e = exp(s − m) by ex2, p = e · (1/l)); above, the streamed form takes two
-passes over 32-key tiles (max and sum, then the weights). The output is
-rounded to bf16, so kernel and plain version differ by a bf16 rounding of
-the output at most, held within ``BF16_TOL`` · (1 + |plain|)
+(e = exp(s − m) by ex2, p = e · (1/l)); above (Whisper's T = 1,500) and
+at head width 128, the streamed form makes one pass over 64-key tiles with
+an online softmax (on ``wgmma`` at head width 64, ``mma.sync`` at the
+others): per tile the row max m, O and l rescaled by
+exp(m_old − m), e = exp(s − m) rounded to bf16 as the weights of P·V,
+accumulated in f32 across tiles, and one division by l at the end. So it
+rounds unnormalized weights where the Pallas body rounds normalized ones,
+an intended difference inside the tolerance. The output is rounded to
+bf16, so kernel and plain version differ by about a bf16 rounding of the
+output, held within ``BF16_TOL`` · (1 + |plain|)
 (``tests/test_torch_attention_bf16.py`` emulates both forms, with controls
 that fail). ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel
 to both tolerances on the card.
@@ -118,9 +124,10 @@ def fused_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bf16_form(t: int, head_dim: int) -> str:
-    """The bf16 body's form for ``T`` and the head width: "resident" (one
-    pass, every key of a row in registers) at T <= 128 and HD <= 80, else
-    "streamed" (two passes over 32-key tiles)."""
+    """The bf16 body's form for ``T`` and the head width: "resident" (every
+    key of a row in registers, exact row max and sum) at T <= 128 and
+    HD <= 80, else "streamed" (one pass over 64-key tiles, online
+    softmax)."""
     if t <= _RESIDENT_MAX_T and head_dim in _RESIDENT_HEAD_DIMS:
         return "resident"
     return "streamed"

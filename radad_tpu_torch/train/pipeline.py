@@ -310,7 +310,9 @@ class DetectionPipeline:
         return FlatIndex(self.tpp_dim, cfg.vector_db_index_type,
                          use_float16=cfg.use_float16,
                          add_batch_size=cfg.vector_add_batch_size,
-                         use_pallas=self.use_pallas, device=self.device)
+                         use_pallas=self.use_pallas,
+                         # JAX: self.mesh is None; the port has no mesh yet
+                         build_accel=True, device=self.device)
 
     def _grid_pad(self) -> Optional[int]:
         cfg = self.config
@@ -876,6 +878,7 @@ class DetectionPipeline:
                 f"embeddings; rebuild the DB or use the encoder it was "
                 f"built with")
         self.index = FlatIndex.load(path, use_pallas=self.index.use_pallas,
+                                    build_accel=True,  # as _make_index
                                     device=self.device)
         return True
 

@@ -9,20 +9,29 @@ add gate × pos_bias in f32. Then, in one of two forms (the wrapper's
   the exact row max m, e = 2^(s·log2(e) − m·log2(e)) (one FMA, ex2, results
   below 2⁻¹²⁶ flushed to 0), the row sum l in the kernel's order (each lane
   adds its key pairs 8f + 2c, 8f + 2c + 1 over the fragments f, then the
-  four lanes of the quad pairwise), and p = e · (1/l);
-- streamed (otherwise): a two-pass softmax over tiles of 32 keys, pass 1
-  the max m and sum l (online over the tiles), pass 2 p = exp(s − m) / l.
-Both round p to bf16 and add each k16 step's P·V block sum (f32) to O with
-round-to-nearest f32 adds; O is stored in bf16. ``emulate_bf16`` repeats
-that in plain torch, and the tests hold it to the kernel's plain version
-(``fused_mha_plain``) and to JAX's Pallas ``fused_mha`` in interpret mode
-within the card tests' tolerance, BF16_TOL · (1 + |plain|). Faulty
-emulations must fail it: P·V accumulated in bf16, the online softmax
-without the rescale of O when the row max grows, a second pass that
-normalizes by a stale max, and a resident form whose row max and sum cover
-only the first 64 keys. The online softmax as such (unnormalized weights
-rounded, one division at the end: the design the kernel did not take)
-stays within it too.
+  four lanes of the quad pairwise), and p = e · (1/l) rounded to bf16; each
+  k16 step's P·V block sum (f32) goes into O by round-to-nearest f32 adds;
+- streamed (otherwise): one pass over tiles of 64 keys with an online
+  softmax. Per tile: the new row max m (the running max and the tile's),
+  the scale 2^((m_old − m)·log2(e)) applied to O and to each lane's
+  partial sum l, e = 2^(s·log2(e) − m·log2(e)) as above, the lane's key
+  pairs added to its l in fragment order, e rounded to bf16 as the weights
+  and O += P·V over k16 blocks; at the end l over the quad pairwise and
+  O · (1/l). The card accumulates O in the tensor core's accumulator, which
+  truncates where the emulation rounds: at most ~T/16 · 2⁻²³ relative
+  (1.1e-5 at T = 1,500), far below the output's bf16 rounding, so the
+  emulation rounds.
+O is stored in bf16. ``emulate_bf16`` repeats that in plain torch, and the
+tests hold it to the kernel's plain version (``fused_mha_plain``) and to
+JAX's Pallas ``fused_mha`` in interpret mode within the card tests'
+tolerance, BF16_TOL · (1 + |plain|). Faulty emulations must fail it: P·V
+accumulated in bf16, an online softmax without the rescale of O when the
+row max grows, a two-pass softmax that normalizes by a stale max, a
+resident form whose row max and sum cover only the first 64 keys, and the
+streamed form without the rescale of O or of l. Two designs the kernel did
+not take stay within it too: the online softmax with exp and a division
+at the end over 32-key tiles, and two passes over the keys that round the
+normalized weights (PR 8's streamed form).
 """
 
 import jax.numpy as jnp
@@ -33,7 +42,8 @@ import torch
 from radad_tpu.ops.attention import fused_mha as jfused_mha
 from radad_tpu_torch.ops.attention import BF16_TOL, bf16_form, fused_mha_plain
 
-KEYS = 32  # keys per shared-memory tile of the streamed form (kKeys)
+KEYS = 64  # keys per K/V tile of the streamed form (kStrKeys)
+OLD_KEYS = 32  # the key tiles of the two-pass and plain online designs
 K16 = 16   # keys per P·V product (mma.sync m16n8k16)
 LOG2E = np.float32(1.4426950408889634)
 BF = torch.bfloat16
@@ -69,29 +79,47 @@ def _exp_shifted(s, m):
     return torch.where(e < 2.0 ** -126, torch.zeros_like(e), e)
 
 
+def _lane_pairs(e):
+    """``e [..., n]`` (n <= 64, a key tile) → each lane's key pairs
+    e[8f + 2c] + e[8f + 2c + 1] in f32, ``[..., fragments, 4 lanes]``."""
+    n = e.shape[-1]
+    nf = -(-n // 8)
+    pad = torch.zeros(e.shape[:-1] + (8 * nf - n,))
+    pairs = torch.cat([e, pad], -1).reshape(e.shape[:-1] + (nf, 4, 2))
+    return pairs[..., 0] + pairs[..., 1]
+
+
 def emulate_bf16(q, k, v, num_heads, gate=None, pos_bias=None, *,
                  softmax=None, pv="rn_blocks"):
     """The bf16 kernel's arithmetic on bf16 ``[B, T, D]`` tensors (q
     pre-scaled) → bf16 ``[B, T, D]``. ``softmax``: None (the form the
     kernel takes at this shape: "one_pass" at T <= 128 and head width <=
-    80, else "two_pass"), "one_pass" (the resident form), "two_pass" (the
-    streamed form), "online" (unnormalized weights rounded, O rescaled,
-    divided at the end), "online_no_rescale" (a fault), "stale_max" (a
-    fault: pass 2 normalizes by the first tile's max), "first64" (a fault:
-    the resident form with the row max and sum over the first 64 keys
-    only). ``pv``: "rn_blocks" (as built) or "bf16" (a fault: O rounded to
-    bf16 after every block)."""
+    80, else "streamed"), "one_pass" (the resident form), "streamed" (the
+    streamed form: online over 64-key tiles, ex2, l per lane), "two_pass"
+    (PR 8's streamed form: max and sum over 32-key tiles, then normalized
+    weights), "online" (exp, unnormalized weights rounded, O rescaled,
+    divided at the end, 32-key tiles), and faults: "online_no_rescale"
+    ("online" without the rescale of O), "stale_max" (pass 2 normalizes by
+    the first tile's max), "first64" (the resident form with the row max
+    and sum over the first 64 keys only), "streamed_no_rescale" (the
+    streamed form without the rescale of O when the max grows),
+    "streamed_stale_l" (the streamed form without the rescale of l: l
+    summed against stale maxima). ``pv``: "rn_blocks" (each k16 block sum
+    added to O by an RN add) or "bf16" (a fault: O rounded to bf16 after
+    every block)."""
     b, t, d = q.shape
     hd = d // num_heads
     if softmax is None:
         softmax = {"resident": "one_pass",
-                   "streamed": "two_pass"}[bf16_form(t, hd)]
+                   "streamed": "streamed"}[bf16_form(t, hd)]
 
     def heads(x):
         return x.float().reshape(b, t, num_heads, hd).transpose(1, 2)
 
     qh, kh, vh = heads(q), heads(k), heads(v)
-    tiles = [(s0, min(s0 + KEYS, t)) for s0 in range(0, t, KEYS)]
+
+    def tiles(width):
+        return [(s0, min(s0 + width, t)) for s0 in range(0, t, width)]
 
     def scores(s0, s1):
         s = torch.zeros((b, num_heads, t, s1 - s0))
@@ -111,6 +139,9 @@ def emulate_bf16(q, k, v, num_heads, gate=None, pos_bias=None, *,
                 o = _bf(o)
         return o
 
+    def heads_out(o):
+        return o.transpose(1, 2).reshape(b, t, d).to(BF)
+
     m = torch.full((b, num_heads, t, 1), float("-inf"))
     l = torch.zeros((b, num_heads, t, 1))
     o = torch.zeros((b, num_heads, t, hd))
@@ -121,11 +152,29 @@ def emulate_bf16(q, k, v, num_heads, gate=None, pos_bias=None, *,
         e = _exp_shifted(s, m)
         l = _row_sum_quad(e if softmax == "one_pass" else e[..., :64])
         p = _bf(e * (1.0 / l))
-        o = add_pv(o, p, 0, t)
-        return o.transpose(1, 2).reshape(b, t, d).to(BF)
+        return heads_out(add_pv(o, p, 0, t))
+    if softmax.startswith("streamed"):
+        lanes = torch.zeros((b, num_heads, t, 4))  # each lane's partial l
+        for s0, s1 in tiles(KEYS):
+            s = scores(s0, s1)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            scale = torch.exp2(((m - m_new) * LOG2E).double()).float()
+            e = _exp_shifted(s, m_new)
+            if softmax != "streamed_stale_l":
+                lanes = lanes * scale
+            pairs = _lane_pairs(e)
+            for f in range(pairs.shape[-2]):  # the lane's pairs in order
+                lanes = lanes + pairs[..., f, :]
+            if softmax != "streamed_no_rescale":
+                o = o * scale
+            o = add_pv(o, _bf(e), s0, s1)
+            m = m_new
+        l = ((lanes[..., 0] + lanes[..., 1])
+             + (lanes[..., 2] + lanes[..., 3]))[..., None]
+        return heads_out(o * (1.0 / l))
     if softmax in ("two_pass", "stale_max"):
         first = None
-        for s0, s1 in tiles:  # pass 1
+        for s0, s1 in tiles(OLD_KEYS):  # pass 1
             s = scores(s0, s1)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
@@ -133,22 +182,21 @@ def emulate_bf16(q, k, v, num_heads, gate=None, pos_bias=None, *,
             m = m_new
             first = m if first is None else first
         use = first if softmax == "stale_max" else m
-        for s0, s1 in tiles:  # pass 2
+        for s0, s1 in tiles(OLD_KEYS):  # pass 2
             p = _bf(torch.exp(scores(s0, s1) - use) / l)
             o = add_pv(o, p, s0, s1)
-    else:
-        for s0, s1 in tiles:
-            s = scores(s0, s1)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            scale = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
-            l = l * scale + p.sum(-1, keepdim=True)
-            if softmax == "online":
-                o = o * scale
-            o = add_pv(o, _bf(p), s0, s1)
-            m = m_new
-        o = o / l
-    return o.transpose(1, 2).reshape(b, t, d).to(BF)
+        return heads_out(o)
+    for s0, s1 in tiles(OLD_KEYS):
+        s = scores(s0, s1)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        scale = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * scale + p.sum(-1, keepdim=True)
+        if softmax == "online":
+            o = o * scale
+        o = add_pv(o, _bf(p), s0, s1)
+        m = m_new
+    return heads_out(o / l)
 
 
 def _inputs(rng, b, t, h, hd, bias):
@@ -167,6 +215,22 @@ def _inputs(rng, b, t, h, hd, bias):
     return args, {n: torch.as_tensor(a).to(BF) for n, a in extra.items()}
 
 
+def test_emulated_tile_width_is_the_kernels():
+    """The emulation's key tile is both streamed bodies' (kStrKeys for the
+    mma.sync body, kWgKeys for the wgmma one at head width 64), read from
+    the source."""
+    import os
+    import re
+
+    import radad_tpu_torch
+
+    src = open(os.path.join(os.path.dirname(radad_tpu_torch.__file__),
+                            "csrc", "fused_mha.cu")).read()
+    for name in ("kStrKeys", "kWgKeys"):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found and int(found.group(1)) == KEYS, name
+
+
 def _worst(got, want) -> float:
     """max |got - want| / (1 + |want|), in f32."""
     got, want = got.float(), want.float()
@@ -177,24 +241,27 @@ GRID = [(99, 64), (600, 64), (1500, 64), (99, 80), (130, 16)]
 
 
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("t,hd", GRID + [(128, 64), (129, 64), (99, 128)])
+@pytest.mark.parametrize("t,hd", GRID + [(128, 64), (129, 64), (99, 128),
+                                         (200, 128)])
 def test_bf16_emulation_within_tolerance(t, hd, bias, rng):
     """The emulation of the form the kernel takes at each shape against
-    the plain version, BF16_TOL · (1 + |plain|): the resident one-pass form
-    at the serving T = 99 (head widths 64 and 80) and at T = 128, its
-    largest; the streamed two-pass form at T = 129, 600 and 1,500, at head
-    width 128 (T = 99), and for a 16-wide head at T = 130 (five key tiles,
-    the last with 2 keys); at T <= 130 also against JAX's Pallas kernel in
-    interpret mode. Measured: at most 2.5e-3 (1 + |plain|), where the f32
-    sums of kernel and plain version put a weight or an output on the other
-    side of a bf16 rounding tie (the kernel on the card: 5.0e-3, its tensor
-    cores' truncating sums included)."""
+    the plain version, BF16_TOL · (1 + |plain|): the resident form at the
+    serving T = 99 (head widths 64 and 80) and at T = 128, its largest;
+    the streamed form at T = 129 (three key tiles, the last with 1 key),
+    600 and 1,500, at head width 128 (T = 99 and 200), and for a 16-wide
+    head at T = 130; at T <= 200 also against JAX's Pallas kernel in
+    interpret mode. Measured: the resident form at most 1.4e-3
+    (1 + |plain|), where the f32 sums of kernel and plain version put a
+    weight or an output on the other side of a bf16 rounding tie (on the
+    card 5.0e-3, its tensor cores' truncating sums included); the streamed
+    form at most 5.2e-3, from rounding each weight before the division by
+    l."""
     (q, k, v), extra = _inputs(rng, 2, t, 2, hd, bias)
     got = emulate_bf16(q, k, v, 2, **extra)
     want = fused_mha_plain(q, k, v, 2, **extra)
     assert got.dtype == want.dtype == BF
     assert _worst(got, want) <= BF16_TOL, (t, hd, bias, _worst(got, want))
-    if t <= 130:
+    if t <= 200:
         jax_out = jfused_mha(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
                                for x in (q, k, v)), 2, interpret=True,
                              **{n: jnp.asarray(x.float().numpy(),
@@ -205,32 +272,37 @@ def test_bf16_emulation_within_tolerance(t, hd, bias, rng):
 
 
 def test_online_softmax_also_within_tolerance(rng):
-    """The design the kernel did not take, rounding unnormalized weights
-    and dividing at the end, lies within the tolerance as well at the
-    serving T = 99 and at T = 1,500 (both bodies; measured 5.2e-3, twice
-    the two-pass form's error)."""
+    """Two designs the kernel did not take lie within the tolerance as well
+    at the serving T = 99 and at T = 1,500 (both bodies): the online
+    softmax in its plain form (exp, unnormalized weights rounded, one
+    division at the end, 32-key tiles; measured 5.2e-3, as the streamed
+    form) and PR 8's two passes over the keys, which round the normalized
+    weights (measured 1.5e-3) at the cost of a second Q Kᵀ."""
     for t in (99, 1500):
         for bias in (False, True):
             (q, k, v), extra = _inputs(rng, 2, t, 2, 64, bias)
-            got = emulate_bf16(q, k, v, 2, softmax="online", **extra)
             want = fused_mha_plain(q, k, v, 2, **extra)
-            assert _worst(got, want) <= BF16_TOL, (t, bias)
+            for softmax in ("online", "two_pass"):
+                got = emulate_bf16(q, k, v, 2, softmax=softmax, **extra)
+                assert _worst(got, want) <= BF16_TOL, (t, bias, softmax)
 
 
 @pytest.mark.parametrize("fault", ["pv_bf16", "online_no_rescale",
-                                   "stale_max", "first64"])
+                                   "stale_max", "first64",
+                                   "streamed_no_rescale",
+                                   "streamed_stale_l"])
 def test_faulty_emulations_fail(fault, rng):
     """The tolerance bites: each fault misses it, both bodies. At T = 1,500
-    (47 key tiles; the row max grows across them): P·V accumulated in bf16
-    loses a term whenever it falls below half a step of the running sum
-    (measured 3.5e-2 with |O| ~ 3); without the rescale 1.07, with a stale
-    max 6.96. At T = 128, the resident form with the row max and sum over
-    the first 64 keys only: its weights do not sum to 1 (measured 0.7-35 ·
+    (24 tiles of 64 keys, 47 of 32; the row max grows across them): the
+    streamed form with P·V accumulated in bf16 loses a term whenever it
+    falls below half a step of the running sum (measured 3.5e-2 with
+    |O| ~ 3); the plain online softmax without the rescale of O 1.3, the
+    two-pass form with a stale max 7.0; the streamed form without the
+    rescale of O 0.77, without that of l (l summed against stale maxima)
+    0.18. At T = 128, the resident form with the row max and sum over the
+    first 64 keys only: its weights do not sum to 1 (measured 0.7-35 ·
     (1 + |plain|) at T = 99 and 128)."""
-    kw = {"pv_bf16": dict(pv="bf16"),
-          "online_no_rescale": dict(softmax="online_no_rescale"),
-          "stale_max": dict(softmax="stale_max"),
-          "first64": dict(softmax="first64")}[fault]
+    kw = dict(pv="bf16") if fault == "pv_bf16" else dict(softmax=fault)
     t = 128 if fault == "first64" else 1500
     for bias in (False, True):
         (q, k, v), extra = _inputs(rng, 2, t, 2, 64, bias)

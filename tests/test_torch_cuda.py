@@ -176,15 +176,16 @@ def test_fused_mha_rejects_bf16_on_card(cuda):
 def test_fused_mha_bf16_kernel_on_card(cuda, t, saturate):
     """Both bf16 bodies against their plain version (f32 logits from the
     bf16 operands, normalized weights rounded to bf16, p·v in f32, bf16
-    out) within BF16_TOL * (1 + |plain|): T at the edges of the k16 steps,
+    out) within BF16_TOL * (1 + |plain|) (the streamed form rounds the
+    weights before the normalization): T at the edges of the k16 steps,
     the 16-row warp tiles, the 128-row block and the key tiles, up to 1,500
     frames; head widths 64, 80 and the other builds (16, 32, 128).
     ``saturate``: True as in the f32 test (the row max grows from tile to
     tile); "last": every row's dominant key in the last key fragment (the
     resident form's last fragment at T = 99 holds 3 keys, at T = 128 8).
     One launch per call, counted per body and dtype, and per form: the
-    resident one-pass form at T <= 128 and head width <= 80, the streamed
-    two-pass form elsewhere."""
+    resident form at T <= 128 and head width <= 80, the streamed form
+    (one pass over 64-key tiles) elsewhere."""
     from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
 
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -222,6 +223,48 @@ def test_fused_mha_bf16_kernel_on_card(cuda, t, saturate):
             err = (got.float() - want.float()).abs()
             assert bool((err <= BF16_TOL * (1 + want.float().abs())).all()), (
                 t, hd, body, float(err.max()))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [129, 600, 1500])
+def test_fused_mha_bf16_streamed_on_card(cuda, t, hd, bias):
+    """The streamed form (one pass over 64-key tiles, online softmax)
+    against fused_mha_plain within BF16_TOL * (1 + |plain|) at Whisper's
+    width (8 heads of 64; 4 of 128), B = 3: T = 129 (a last tile of 1 key,
+    a last block of 1 row), 600 and 1,500 (a last block of 92 rows). Each
+    row's logits grow from tile to tile (q . k rises with the key's index,
+    up to ~12 at the last key), so O and l are rescaled at every tile; one
+    launch, counted as the streamed form."""
+    from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    b, h = 3, 512 // hd
+    d = h * hd
+    q, k, v = (torch.randn((b, t, d), generator=g, device=cuda)
+               for _ in range(3))
+    q *= hd ** -0.5
+    u = torch.randn((h, hd), generator=g, device=cuda)
+    u = (u / u.norm(dim=-1, keepdim=True)).reshape(1, 1, d)  # unit a head
+    ramp = torch.linspace(0.0, 1.0, t, device=cuda)[None, :, None]
+    q, k = q + u, k + 12.0 * ramp * u  # q . k gains ~12 s / T at key s
+    extra = {}
+    if bias:
+        extra = dict(gate=1.0 + 2.0 * torch.rand((b, t, h), generator=g,
+                                                 device=cuda),
+                     pos_bias=torch.randn((h, t, t), generator=g,
+                                          device=cuda))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    extra = {n: x.to(torch.bfloat16) for n, x in extra.items()}
+    forms = dict(fused_mha.form_launches)
+    got = fused_mha(q, k, v, h, **extra)
+    want = fused_mha_plain(q, k, v, h, **extra)
+    torch.cuda.synchronize()
+    forms["streamed"] += 1
+    assert fused_mha.form_launches == forms
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= BF16_TOL * (1 + want.float().abs())).all()), (
+        t, hd, bias, float(err.max()))
 
 
 @pytest.mark.parametrize("metric", ["L2", "IP"])
