@@ -12,7 +12,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. holds each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes (``gather_rows`` at M = 5, 32, 40,
    256, 320, 640, 1,280 and 2,048 rows, each timed call reading its rows
-   from device memory, not the L2; ``exact_dot`` at B = 128 and 256;
+   from device memory, not the L2; ``exact_dot`` at B = 1, 8, 64 (the
+   serving batches), 128 and 256 (also at D = 3,584 below), each of its two
+   forms (``split``, a block a candidate row, which the wrapper takes at
+   B <= 64; ``per_query``) on f32, bf16 and int8 rows, two calls bitwise
+   equal, and timed beside gather + ``bmm``, the form the wrapper picks
+   printed, at B = 8 as the median and spread of 21 profiler samples;
    ``extract_candidates`` at B = 1, 8, 64, 128 and 256 queries;
    ``flat_topk`` at B = 64 and 8 also against the
    exact scores of its bf16 operands within the bound of its tensor-core
@@ -22,18 +27,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    plain version within ``BF16_TOL`` * (1 + |plain|), timed beside SDPA on
    the same bf16 inputs and beside the streamed form (one pass over
    64-key tiles; wgmma at head width 64) that the wrapper takes above
-   T = 128; the tensor-core instructions (HMMA, HGMMA) of both kernels
-   counted with ``cuobjdump``, per bf16 form, the resident form's HD 64
-   and 80 instances and the streamed form's HD 64 ones required to build
-   without a spill, ptxas's registers and spills of the streamed HD 64
-   and 128 instances printed) and takes the
+   T = 128, and, where the resident form runs its ``wgmma`` kernel (head
+   width 64 without bias), beside its ``mma.sync`` kernel on the same
+   inputs; the tensor-core instructions (HMMA, HGMMA) of both kernels
+   counted with ``cuobjdump``, per bf16 form, both resident kernels
+   (``mma.sync`` at HD 64 and 80, ``wgmma`` at every N) and the streamed
+   form's HD 64 ones required to build without a spill, ptxas's registers
+   and spills of the streamed HD 64 and 128 instances printed) and takes
+   the
    device time
    (``torch.profiler``) of kernel, plain version, and one PyTorch library
    call computing the same function (``library_ms``, used nowhere in the
    port); at whisper-base's shapes too: ``fused_mha``'s bias-free f32 body
    and its streamed bf16 form at [16, 1500, 512] and [128, 1500, 512]
    (8 heads of 64) beside SDPA (flash in bf16), with TFLOP/s and the
-   ratios to SDPA and to the bound, ``gather_rows`` and ``exact_dot`` on a
+   ratios to SDPA and to the bound; the bf16 resident form at the trimmed
+   shapes [16 | 128, 100, 512]; ``gather_rows`` and ``exact_dot`` on a
    [25,600, 3,584] table;
 3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
    wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
@@ -42,9 +51,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    on 8 and 64 clips through the certified search; neighbors must agree
    with an f64 full scan up to ties within the f32 score's rounding, a
    bound computed from the inputs alone (``_hold_to_f64``), and
-   ``gather_rows``, ``exact_dot`` and ``extract_candidates`` must have
-   launched; the searches and the certificate's fallbacks are counted per
-   path, and the certified attempt is timed beside the full f32 scan. One
+   ``gather_rows``, ``exact_dot`` (its split form alone, as on every
+   serving path; the per-query form alone on the train paths) and
+   ``extract_candidates`` must have launched; the searches and the
+   certificate's fallbacks are counted per path, and the certified
+   attempt is timed beside the full f32 scan. One
    more ``predict_batch(8)`` with ``RADAD_FUSED_ATTENTION=1`` must launch
    ``fused_mha``'s bias-free body, move the embeddings by less than 1e-4
    relative, hold its neighbors to the f64 scan, return distances within
@@ -144,21 +155,35 @@ TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
 # whisper-base's attention on the serving path padded to 30 s: (rows, T) of
 # predict_batch at B = 8 and 64 (two windows a clip)
 WHISPER_ATTN = ((16, 1500), (128, 1500))
-# fused_mha's bf16 forms -> the kernel symbol of each (mangled-name prefix)
-BF16_FORMS = {"resident": "mha_bf16_resident_kernel",
-              "streamed": "mha_bf16_streamed_kernel"}
-# the streamed form's wgmma kernel, which takes head width 64 (templated on
-# the bias alone)
-STREAMED_HD64 = "mha_bf16_wgmma_kernel"
+# the same trimmed to the clip (--whisper_fast, T = 100)
+WHISPER_FAST_ATTN = ((16, 100), (128, 100))
+# fused_mha's bf16 forms -> the kernel symbols of each (mangled-name
+# prefixes): the mma.sync kernel (templated on the head width and the bias)
+# and the wgmma kernel that takes head width 64 (the streamed form's is
+# templated on the bias; the resident form's takes no bias and is
+# templated on the keys of S)
+BF16_FORMS = {"resident": ("mha_bf16_resident_kernel",
+                           "mha_bf16_resident_wgmma_kernel"),
+              "streamed": ("mha_bf16_streamed_kernel",
+                           "mha_bf16_wgmma_kernel")}
+# the C entry's form code of the resident form's mma.sync kernel at head
+# width 64 without bias, where the wrapper's pick runs the wgmma kernel
+RESIDENT_MMA = 2
+# exact_dot's B (R = 32) on the serving paths (predict, predict_batch at 8
+# and 64) and on the train and eval batches
+EXACT_DOT_SERVING_B = (1, 8, 64)
+EXACT_DOT_TRAIN_B = (128, 256)
 
 
 def _bf16_instance(form: str, hd: int, bias: bool) -> str:
-    """The mangled-name part that names fused_mha's bf16 kernel instance of
-    ``form`` at head width ``hd`` (the streamed form's HD 64 instance is
-    the wgmma kernel)."""
-    if form == "streamed" and hd == 64:
-        return f"{STREAMED_HD64}ILb{int(bias)}E"
-    return f"{BF16_FORMS[form]}ILi{hd}ELb{int(bias)}E"
+    """The mangled-name part that names the fused_mha bf16 kernel instance
+    that the wrapper's ``form`` runs at head width ``hd``."""
+    mma, wgmma = BF16_FORMS[form]
+    if hd == 64 and form == "streamed":
+        return f"{wgmma}ILb{int(bias)}E"
+    if hd == 64 and not bias:
+        return f"{wgmma}ILi"  # every instance (keys of S: 64, 104, 128)
+    return f"{mma}ILi{hd}ELb{int(bias)}E"
 
 
 def _card_line() -> str:
@@ -229,6 +254,17 @@ def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
                          f"3 sessions: {[(e.key, e.count) for e in seen]}")
 
 
+def timed_ms(torch, fn, iters: int = 20):
+    """(ms, source): ``device_ms`` of ``fn`` ("profiler"), or, where the
+    profiler kept no device event of it, the CUDA-event time of
+    back-to-back calls, host launch gaps included ("cuda_events")."""
+    try:
+        return device_ms(torch, fn, iters), "profiler"
+    except NoDeviceEvents as e:
+        print(f"timed_ms: {e}; timed on CUDA events")
+        return time_ms(torch, fn, iters), "cuda_events"
+
+
 def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
     """Device ms per call of the kernel, its plain version and the library
     call (``device_ms``), plus the kernel wrapper's per-call time on the
@@ -242,12 +278,9 @@ def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
     rec = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain),
                     ("library_ms", library)):
-        try:
-            rec[key] = device_ms(torch, fn, iters)
-        except NoDeviceEvents as e:
-            print(f"timings: {e}; {key} timed on CUDA events")
-            rec[key] = time_ms(torch, fn, iters)
-            rec[f"{key}_source"] = "cuda_events"
+        rec[key], source = timed_ms(torch, fn, iters)
+        if source != "profiler":
+            rec[f"{key}_source"] = source
     rec["call_ms"] = time_ms(torch, kernel, iters)
     return rec
 
@@ -352,40 +385,42 @@ def kernel_phase(torch, dev):
         tolerance="bit-equal", **by_m[1_280], by_shape=_shape_table(by_m, "M"),
         shape=f"x [{n},{d}] f32, idx [1280] (by_shape: M = 5 .. 2048)")
 
-    # exact_dot: B = 256 (eval batch) and 128 (train batch) queries x R = 32
-    # candidates, f32 and bf16 rows. Tolerance: f32 summation order,
+    # exact_dot: B = 256 (eval batch) and 128 (train batch), 64, 8 and 1
+    # (wav2vec2 serving) queries x R = 32 candidates, f32, bf16 and int8
+    # rows, both forms. Tolerance: f32 summation order,
     # |err| <= 1e-5 * sum_d |q_d x_d|.
     r = 32
-    table_bf16 = table.to(torch.bfloat16)
+    tables = _row_types(torch, table, g)
+    table_bf16 = tables["bf16"]
     by_b, errs = {}, {}
-    for b in (256, 128):
+    for b in EXACT_DOT_TRAIN_B[::-1] + EXACT_DOT_SERVING_B[::-1]:
         q = torch.randn((b, d), generator=g, device=dev)
         cidx = torch.randint(0, n, (b, r), generator=g, device=dev,
                              dtype=torch.int32)
-        for name, x in (("f32", table), ("bf16", table_bf16)):
-            errs[(b, name)] = _exact_dot_err(torch, q, x, cidx)
-        by_b[b] = rec = _exact_dot_record(torch, q, table, cidx)
-        print(f"exact_dot B={b}: device {rec['ms']:.4f} ms, gather + bmm "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
-              f"plain {rec['plain_ms']:.4f} ms; max_abs_err f32 "
-              f"{errs[(b, 'f32')]:.3e}, bf16 {errs[(b, 'bf16')]:.3e} "
-              f"(tolerance 1e-5 * sum|q*x|)")
+        errs[b] = _exact_dot_forms(torch, q, tables, cidx)
+        by_b[b] = rec = _exact_dot_record(torch, q, table, cidx,
+                                          samples=21 if b == 8 else 0)
+        rec["max_abs_err"] = max(errs[b].values())
+        _print_exact_dot(f"D={d} B={b}", rec, errs[b])
         if b == 256:
-            bf16_ms = device_ms(torch, lambda: exact_dot(q, table_bf16,
-                                                         cidx))
+            bf16_ms = timed_ms(torch, lambda: exact_dot(q, table_bf16,
+                                                        cidx))[0]
             rows_read = int(torch.unique(cidx).numel())
             bf16_bound = bound_ms(rows_read * d * 2 + b * d * 4
                                   + 2 * b * r * 4, 2.0 * b * r * d)[0]
             print(f"exact_dot bf16 rows: {bf16_ms:.4f} ms on the device, "
                   f"bound {bf16_bound:.4f} ms")
+    del tables
     recs["exact_dot"] = dict(
         route="cuda", source="radad_tpu_torch/csrc/exact_dot.cu",
         replaces="radad_tpu/ops/rerank.py:131",
-        max_abs_err=max(e for (_, kind), e in errs.items() if kind == "f32"),
-        tolerance="1e-5 * sum|q*x| (f32 summation order)",
+        tolerance="1e-5 * sum|q*x| (f32 summation order), each form, f32, "
+                  "bf16 and int8 rows; two calls bitwise equal",
         **by_b[256], by_shape=_shape_table(by_b, "B"),
         shape=f"q [256,{d}] f32, x [{n},{d}] f32, idx [256,{r}] (by_shape: "
-              f"B = 128, 256)")
+              f"B = 1 .. 256; ms_by_form: each form on the same inputs)")
+    recs["exact_dot"]["max_abs_err"] = max(
+        rec["max_abs_err"] for rec in by_b.values())
 
     # extract_candidates: B = 1, 8, 64, 256 queries, T = 24 tiles of 128
     # lanes, m = 8 rounds, with exact ties, all-(-inf) tiles and a -0 at a
@@ -497,21 +532,140 @@ def _exact_dot_err(torch, q, x, cidx) -> float:
     return float(err.max())
 
 
-def _exact_dot_record(torch, q, table, cidx) -> dict:
+def _row_types(torch, table, g) -> dict:
+    """{"f32", "bf16", "int8": a [n, d] table of that row type} (int8:
+    seeded codes in [-127, 127])."""
+    return {"f32": table, "bf16": table.to(torch.bfloat16),
+            "int8": torch.randint(-127, 128, table.shape, generator=g,
+                                  device=table.device, dtype=torch.int8)}
+
+
+def _exact_dot_form_call(torch, q, x, cidx, form: str):
+    """A call of exact_dot's C entry with the form given (the wrapper picks
+    the form by shape; this checks and times the other one beside it)."""
+    from radad_tpu_torch.ops import _native
+    from radad_tpu_torch.ops.rerank import _X_KIND, FORMS, _entry
+
+    out = torch.empty(cidx.shape, dtype=torch.float32, device=q.device)
+    fn = _entry()
+
+    def call():
+        _native.check_launch("exact_dot", fn(
+            q.data_ptr(), x.data_ptr(), cidx.data_ptr(), out.data_ptr(),
+            q.shape[0], x.shape[0], q.shape[1], cidx.shape[1],
+            _X_KIND[x.dtype], FORMS.index(form), _native.stream_of(q)))
+        return out
+    return call
+
+
+def _exact_dot_forms(torch, q, tables, cidx) -> dict:
+    """Each of exact_dot's forms, on each row type of ``tables``, against
+    ``exact_dot_plain`` within 1e-5 * sum_d |q_d x_d|, two calls bitwise
+    equal (the summation order is fixed: no atomics); the wrapper's own
+    pick too (``_exact_dot_err``). → {"<form> <row type>": max |err|}."""
+    from radad_tpu_torch.ops.rerank import FORMS, exact_dot_plain
+
+    errs = {}
+    for kind, x in tables.items():
+        _exact_dot_err(torch, q, x, cidx)
+        want = exact_dot_plain(q, x, cidx)
+        scale = (x[cidx.long()].float().abs() * q.abs()[:, None, :]).sum(-1)
+        for form in FORMS:
+            call = _exact_dot_form_call(torch, q, x, cidx, form)
+            first = call().clone()
+            again = call().clone()
+            torch.cuda.synchronize()
+            err = (first - want).abs()
+            if not bool((err <= 1e-5 * scale).all()):
+                raise AssertionError(
+                    f"exact_dot {form} [{kind}] B={q.shape[0]} "
+                    f"D={q.shape[1]} outside tolerance: max err "
+                    f"{float(err.max())}")
+            if not torch.equal(first, again):
+                raise AssertionError(f"exact_dot {form} [{kind}] "
+                                     f"B={q.shape[0]}: two calls differ")
+            errs[f"{form} {kind}"] = float(err.max())
+    return errs
+
+
+def device_ms_samples(torch, fn, n: int = 21, iters: int = 10) -> dict:
+    """``n`` samples of ``device_ms`` (each a profiler session of ``iters``
+    calls): their count, median and spread (min, max, quartiles). A
+    session whose device events the profiler lost is no sample (``lost``
+    counts them); after ``n`` such sessions the samples are CUDA-event
+    times instead (``source``: "cuda_events", host launch gaps
+    included)."""
+    import numpy as np
+
+    xs, lost, source = [], 0, "profiler"
+    while len(xs) < n and lost < n:
+        try:
+            xs.append(device_ms(torch, fn, iters))
+        except NoDeviceEvents:
+            lost += 1
+    if len(xs) < n:
+        xs, source = [time_ms(torch, fn, iters) for _ in range(n)], \
+            "cuda_events"
+    xs.sort()
+    q1, med, q3 = (float(v) for v in np.percentile(xs, [25, 50, 75]))
+    return dict(n=n, lost=lost, source=source, median=med, min=xs[0],
+                max=xs[-1], q1=q1, q3=q3)
+
+
+def _exact_dot_record(torch, q, table, cidx, samples: int = 0) -> dict:
     """``exact_dot`` of ``q [b, d]`` against rows ``cidx [b, r]`` of
-    ``table``, timed beside its plain version and gather + ``bmm``; bound:
-    each distinct candidate row read once, q and the ids read, the output
-    written, against 2 b r d operations at the f32 rate."""
-    from radad_tpu_torch.ops.rerank import exact_dot, exact_dot_plain
+    ``table``, timed beside its plain version and gather + ``bmm``, and
+    each form on the same inputs (``ms_by_form``; ``form``: the wrapper's
+    pick); bound: each distinct candidate row read once, q and the ids
+    read, the output written, against 2 b r d operations at the f32 rate.
+    ``samples``: also that many profiler samples of each form and of
+    gather + ``bmm`` (``device_ms_samples``), whose medians are the record's
+    times."""
+    from radad_tpu_torch.ops.rerank import (FORMS, exact_dot, exact_dot_form,
+                                            exact_dot_plain)
 
     (b, d), r = q.shape, cidx.shape[1]
+
+    def library():
+        return torch.bmm(table[cidx.long()], q[:, :, None])
+
     rec = timings(torch, lambda: exact_dot(q, table, cidx),
-                  lambda: exact_dot_plain(q, table, cidx),
-                  lambda: torch.bmm(table[cidx.long()], q[:, :, None]))
+                  lambda: exact_dot_plain(q, table, cidx), library)
+    rec["form"] = exact_dot_form(b, r, d)
+    calls = {form: _exact_dot_form_call(torch, q, table, cidx, form)
+             for form in FORMS}
+    by_form = {form: timed_ms(torch, call) for form, call in calls.items()}
+    rec["ms_by_form"] = {form: ms for form, (ms, _) in by_form.items()}
+    if any(src != "profiler" for _, src in by_form.values()):
+        rec["ms_by_form_source"] = {f: src for f, (_, src) in by_form.items()}
+    if samples:
+        rec["samples"] = {name: device_ms_samples(torch, fn, samples)
+                          for name, fn in (*calls.items(),
+                                           ("library", library))}
+        rec["ms_by_form"] = {form: rec["samples"][form]["median"]
+                             for form in FORMS}
+        rec.pop("ms_by_form_source", None)
+        rec["ms"] = rec["ms_by_form"][rec["form"]]
+        rec["library_ms"] = rec["samples"]["library"]["median"]
     rows_read = int(torch.unique(cidx).numel())
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
     return rec
+
+
+def _print_exact_dot(label: str, rec: dict, errs: dict) -> None:
+    forms = ", ".join(f"{f} {ms:.4f}" for f, ms in rec["ms_by_form"].items())
+    print(f"exact_dot {label}: the wrapper picks {rec['form']}: device "
+          f"{rec['ms']:.4f} ms (by form: {forms}), gather + bmm "
+          f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms; max |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (tolerance 1e-5 * sum|q*x|; two calls bitwise equal)")
+    for name, smp in rec.get("samples", {}).items():
+        print(f"  {label} {name}: median of {smp['n']} samples "
+              f"({smp['source']}; {smp['lost']} profiler sessions lost) "
+              f"{smp['median']:.5f} ms, quartiles {smp['q1']:.5f} .. "
+              f"{smp['q3']:.5f}, min {smp['min']:.5f}, max {smp['max']:.5f}")
 
 
 def _pick(rec: dict, keys) -> dict:
@@ -524,7 +678,8 @@ def _pick(rec: dict, keys) -> dict:
 def _shape_table(by_shape: dict, key: str) -> dict:
     """{"<key>=<n>": the timings and bound at that shape}."""
     keep = ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
-            "bound_by")
+            "bound_by", "form", "ms_by_form", "max_abs_err", "streamed_ms",
+            "resident_mma_ms", "max_rel_err")
     return {f"{key}={n}": _pick(r, keep) for n, r in by_shape.items()}
 
 
@@ -543,7 +698,9 @@ def _fused_mha_at(torch, g, shape, dtype, bias: bool, timed: bool = True,
     gate, pos_bias) read or written once at 3.35 TB/s against one Q K^T
     and one P V, three times at the TF32 rate (3xTF32) or once at the
     bf16 rate. ``streamed``: the bf16 streamed form's ms on the same
-    inputs too. → record."""
+    inputs too, and where the wrapper runs the resident form's wgmma kernel
+    (T <= 128, head width 64, no bias) the mma.sync resident kernel's
+    (``resident_mma_ms``). → record."""
     import torch.nn.functional as F
 
     from radad_tpu_torch.ops.attention import (BF16_TOL, bf16_form,
@@ -595,9 +752,17 @@ def _fused_mha_at(torch, g, shape, dtype, bias: bool, timed: bool = True,
         lambda: plain(q, k, v, h, **extra),
         lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                scale=1.0), iters))
+    others = ()
     if streamed:
-        rec["streamed_ms"] = device_ms(
-            torch, _bf16_form_call((q, k, v), h, extra, "streamed"), iters)
+        others = ("streamed",) + (
+            ("resident_mma",) if hd == 64 and not bias
+            and bf16_form(t, hd) == "resident" else ())
+    for form in others:
+        ms, src = timed_ms(torch, _bf16_form_call((q, k, v), h, extra,
+                                                   form), iters)
+        rec[f"{form}_ms"] = ms
+        if src != "profiler":
+            rec[f"{form}_ms_source"] = src
     size = 4 if f32 else 2
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         4 * b * t * d * size + ((b * t * h + h * t * t) * size if bias else 0),
@@ -605,6 +770,9 @@ def _fused_mha_at(torch, g, shape, dtype, bias: bool, timed: bool = True,
         rate=TF32_FLOPS if f32 else BF16_FLOPS)
     print(f"{name}: device {rec['ms']:.4f} ms"
           + (f" (streamed form {rec['streamed_ms']:.4f})" if streamed else "")
+          + (f" (resident form's mma.sync kernel "
+             f"{rec['resident_mma_ms']:.4f})" if "resident_mma_ms" in rec
+             else "")
           + f", SDPA {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
           f" ms ({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms; {text}")
     return rec
@@ -683,7 +851,9 @@ def _fused_mha_bf16_record(torch, g) -> dict:
     and its faults miss it. Both bodies' instances must hold bf16
     tensor-core instructions in both forms: the resident form that
     T <= 128 takes (HD 64, 80; HMMA) and the streamed form (HD 64: HGMMA,
-    HD 80 and 128: HMMA); the streamed HD 64 instances must not spill."""
+    HD 80 and 128: HMMA; the resident form at HD 64 without bias: HGMMA,
+    and its mma.sync kernel, timed beside it, HMMA); the streamed HD 64
+    instances must not spill."""
     from radad_tpu_torch.ops.attention import BF16_TOL
 
     bf = torch.bfloat16
@@ -693,9 +863,16 @@ def _fused_mha_bf16_record(torch, g) -> dict:
         if _bf16_instance(form, hd, body == "bias") in fn)
         for form, hds in (("resident", (64, 80)), ("streamed", (64, 80, 128)))
         for hd in hds for body in ("bias", "no_bias")}
+    mma64 = f"{BF16_FORMS['resident'][0]}ILi64ELb0E"
+    hmma["no_bias HD 64 resident_mma"] = sum(
+        n for fn, n in counts.items() if mma64 in fn)
     if counts:
-        print(f"fused_mha bf16 SASS (cuobjdump): bf16 HMMA instructions "
-              f"{hmma}")
+        print(f"fused_mha bf16 SASS (cuobjdump): bf16 HMMA / HGMMA "
+              f"instructions {hmma}; the resident form's wgmma kernel by "
+              f"keys of S: " + ", ".join(
+                  f"N={fn.split('ILi')[1].split('E')[0]} {n} HGMMA"
+                  for fn, n in counts.items() if BF16_FORMS["resident"][1]
+                  in fn))
         if min(hmma.values()) <= 0:
             raise AssertionError(f"a bf16 fused_mha body (or its symbol) has "
                                  f"no bf16 HMMA instruction: {hmma}")
@@ -743,9 +920,13 @@ def _whisper_kernel_records(torch, dev, g) -> dict:
     64 (B = 8 and 64 clips of two windows padded to 30 s), by
     ``_fused_mha_at`` (there the bound is the operations: one Q K^T and
     one P V at the bf16 or TF32 rate), with TFLOP/s;
+    the bf16 body at the trimmed shapes [16 | 128, 100, 512] (the resident
+    form, timed beside its mma.sync kernel and the streamed form);
     ``gather_rows`` at M = 5, 40, 320 and ``exact_dot`` at B = 1, 8, 64
     (R = 32) on a [25,600, 3,584] f32 table (TPP of 512-wide features), as
-    the serving path gives them. → {kernel: {shape: record}}."""
+    the serving path gives them, and at B = 128, 256 (the train and eval
+    batches' B at this width, for the forms' threshold), each form checked
+    on f32, bf16 and int8 rows. → {kernel: {shape: record}}."""
     from radad_tpu_torch.ops.attention import bf16_form
 
     out = {"fused_mha": {}, "fused_mha_bf16": {}, "gather_rows": {},
@@ -769,34 +950,50 @@ def _whisper_kernel_records(torch, dev, g) -> dict:
                   f"{rec['ms'] / rec['bound_ms']:.2f}x the bound")
             torch.cuda.empty_cache()
 
+    # trimmed whisper-base (--whisper_fast, T = 100): the bf16 resident form
+    # beside its mma.sync kernel, the streamed form and flash
+    for b, t in WHISPER_FAST_ATTN:
+        out["fused_mha_bf16"][f"[{b},{t},{d}]"] = _fused_mha_at(
+            torch, g, (b, t, d, h), torch.bfloat16, False, streamed=True)
+
     n, dw, r = INDEX_ROWS, 3_584, 32
     table = torch.randn((n, dw), generator=g, device=dev)
-    for bb in (1, 8, 64):
+    tables = _row_types(torch, table, g)
+    for bb in EXACT_DOT_SERVING_B:
         m = 5 * bb
         out["gather_rows"][f"M={m}"] = rec = _gather_record(torch, table, m,
                                                             g)
         rec["max_abs_err"] = 0.0
+        print(f"D={dw}: gather_rows M={m} device {rec['ms']:.4f} ms "
+              f"(index_select {rec['library_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}, plain {rec['plain_ms']:.4f})")
         q = torch.randn((bb, dw), generator=g, device=dev)
         cidx = torch.randint(0, n, (bb, r), generator=g, device=dev,
                              dtype=torch.int32)
-        err = _exact_dot_err(torch, q, table, cidx)
+        errs = _exact_dot_forms(torch, q, tables, cidx)
+        out["exact_dot"][f"B={bb}"] = rec2 = _exact_dot_record(
+            torch, q, table, cidx, samples=21 if bb == 8 else 0)
+        rec2["max_abs_err"] = max(errs.values())
+        _print_exact_dot(f"D={dw} B={bb}", rec2, errs)
+    for bb in EXACT_DOT_TRAIN_B:  # both forms at this width too (threshold)
+        q = torch.randn((bb, dw), generator=g, device=dev)
+        cidx = torch.randint(0, n, (bb, r), generator=g, device=dev,
+                             dtype=torch.int32)
+        errs = _exact_dot_forms(torch, q, tables, cidx)
         out["exact_dot"][f"B={bb}"] = rec2 = _exact_dot_record(
             torch, q, table, cidx)
-        rec2["max_abs_err"] = err
-        print(f"D={dw}: gather_rows M={m} device {rec['ms']:.4f} ms "
-              f"(index_select {rec['library_ms']:.4f}, bound "
-              f"{rec['bound_ms']:.4f}, plain {rec['plain_ms']:.4f}); "
-              f"exact_dot B={bb} R={r} device {rec2['ms']:.4f} ms (gather + "
-              f"bmm {rec2['library_ms']:.4f}, bound {rec2['bound_ms']:.4f}, "
-              f"plain {rec2['plain_ms']:.4f}, max err {err:.3e})")
-    del table
+        rec2["max_abs_err"] = max(errs.values())
+        _print_exact_dot(f"D={dw} B={bb}", rec2, errs)
+    del table, tables
     torch.cuda.empty_cache()
     return out
 
 
 def _bf16_form_call(qkv, h, extra, form: str):
     """A call of fused_mha's C entry in bf16 with the form given (the
-    wrapper picks the form by shape; this times the other one beside it)."""
+    wrapper picks the form by shape; this times the other one beside it):
+    "streamed", "resident", or "resident_mma" (the resident form's
+    mma.sync kernel also at head width 64 without bias)."""
     import ctypes
 
     import torch
@@ -818,22 +1015,28 @@ def _bf16_form_call(qkv, h, extra, form: str):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if gate is None else gate.data_ptr(),
             None if pos is None else pos.data_ptr(), out.data_ptr(), b, t, d,
-            h, _FORMS.index(form), _native.stream_of(q)))
+            h, RESIDENT_MMA if form == "resident_mma" else _FORMS.index(form),
+            _native.stream_of(q)))
         return out
     return call
 
 
 def _resident_spills() -> None:
     """Raises if ptxas reports a spill in a resident bf16 instance at head
-    width 64 or 80 (the shipped encoders; ``header`` prints every line)."""
+    width 64 or 80 (the shipped encoders; ``header`` prints every line):
+    the mma.sync kernel's HD 64 and 80 instances and every instance of the
+    wgmma kernel (HD 64 without bias), or if either kernel is missing from
+    the report."""
     from radad_tpu_torch.ops import _native
 
     report = _native.build_reports.get("fused_mha", "")
+    mma, wgmma = BF16_FORMS["resident"]
     lines = [(fn, line) for fn, line in ptxas_lines(report)
-             if BF16_FORMS["resident"] in fn and "spill" in line
-             and ("ILi64E" in fn or "ILi80E" in fn)]
-    if report and not lines:
-        raise AssertionError("no resident bf16 instance in ptxas's report")
+             if "spill" in line and (wgmma in fn or (
+                 mma in fn and ("ILi64E" in fn or "ILi80E" in fn)))]
+    for kernel in (mma, wgmma):
+        if report and not any(kernel in fn for fn, _ in lines):
+            raise AssertionError(f"{kernel} is not in ptxas's report")
     for fn, line in lines:
         if not line.startswith("0 bytes stack frame, 0 bytes spill stores"):
             raise AssertionError(f"resident bf16 instance spills: {fn}: "
@@ -844,7 +1047,8 @@ def _streamed_ptxas() -> dict:
     """{"<body> HD <hd>": ptxas's spill and register lines} of the
     streamed bf16 instances at head widths 64 (whisper-base: the wgmma
     kernel) and 128; raises on a spill at HD 64. ptxas's notes that it
-    serialized the wgmma kernel's wgmma are printed."""
+    serialized a wgmma kernel's wgmma (the streamed or the resident form's)
+    are printed."""
     from radad_tpu_torch.ops import _native
 
     report = _native.build_reports.get("fused_mha", "")
@@ -855,8 +1059,9 @@ def _streamed_ptxas() -> dict:
             out[f"{body} HD {hd}"] = " | ".join(
                 line for fn, line in ptxas_lines(report) if tag in fn)
     for line in report.splitlines():
-        if STREAMED_HD64 in line and "Performance Loss" in line:
-            print(f"ptxas note on the wgmma kernel: {line.strip()}")
+        for wgmma in (BF16_FORMS["streamed"][1], BF16_FORMS["resident"][1]):
+            if wgmma in line and "Performance Loss" in line:
+                print(f"ptxas note on {wgmma}: {line.strip()}")
     print(f"fused_mha bf16 streamed form, ptxas: {out}")
     if report and not all(out.values()):
         raise AssertionError("a streamed bf16 instance is missing from "
@@ -1323,6 +1528,10 @@ def _launch_counts(kernels, index=None) -> dict:
     from radad_tpu_torch.ops.attention import fused_mha
 
     out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
+    for w in kernels:  # exact_dot's launches per form
+        for form, n in getattr(w, "form_launches", {}).items():
+            if w is not fused_mha:
+                out[f"{w.__name__}_{form}"] = n
     body = fused_mha.body_launches
     out["fused_mha"] = body["bias"] + body["no_bias"]
     out["fused_mha_bf16"] = body["bias_bf16"] + body["no_bias_bf16"]
@@ -1332,6 +1541,15 @@ def _launch_counts(kernels, index=None) -> dict:
         out["searches"], out["fallbacks"] = index.searches, index.fallbacks
         out["route"] = index.route
     return out
+
+
+def _exact_dot_form_only(launches, label: str, form: str) -> None:
+    """The path's exact_dot launches all took ``form``, the one that
+    ``exact_dot_form`` names at its B."""
+    if launches["exact_dot"] <= 0 or launches[f"exact_dot_{form}"] != \
+            launches["exact_dot"]:
+        raise AssertionError(f"{label}: exact_dot launched other than the "
+                             f"{form} form alone: {launches}")
 
 
 def _resident_only(launches, label: str) -> None:
@@ -1345,14 +1563,16 @@ def _resident_only(launches, label: str) -> None:
 def _reset(kernels, index=None) -> None:
     """Every launch count of ``kernels`` (and ``index``'s search counts) to
     0."""
-    from radad_tpu_torch.ops.attention import fused_mha, reset_launches
+    from radad_tpu_torch.ops import attention, rerank
 
     if index is not None:
         index.searches = index.fallbacks = 0
 
     for w in kernels:
-        if w is fused_mha:
-            reset_launches()
+        if w is attention.fused_mha:
+            attention.reset_launches()
+        elif w is rerank.exact_dot:
+            rerank.reset_launches()
         else:
             w.launches = 0
 
@@ -1725,6 +1945,7 @@ def _serve_checked(torch, pipe, q_paths, batch64, kernels, label: str,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} serving path")
+    _exact_dot_form_only(launches, label, "split")  # B = 1, 8, 64
     attn = launches["fused_mha"] + launches["fused_mha_bf16"]
     if launches["flat_topk"] or bool(attn) != fused:
         raise AssertionError(f"{label}: want fused_mha {'' if fused else 'not '}"
@@ -2334,6 +2555,7 @@ def train_phase(torch, dev, tmp: str):
     if launches["fused_mha"] or launches["flat_topk"]:
         raise AssertionError(f"the training path launched an opt-in kernel: "
                              f"{launches}")
+    _exact_dot_form_only(launches, "train", "per_query")  # B = 128, 256
 
     # the step's own retrieval against the f64 scan: a train batch (batch
     # exclusion, the last one with its pad rows) and an eval batch
@@ -2473,6 +2695,7 @@ def _train_bf16(torch, dev, tmp: str):
         raise AssertionError(f"the bf16 training path launched an f32 "
                              f"attention or flat_topk: {launches}")
     _resident_only(launches, "train_bf16")
+    _exact_dot_form_only(launches, "train_bf16", "per_query")
 
     fresh = _resumed(torch, pipe, cfg, dev)
     print(f"train bf16 resume: optimizer state, step {pipe.step} and f32 "
@@ -2544,6 +2767,11 @@ def main() -> int:
                    bound_rate=r["bound_rate"], launches_by_path=per_path,
                    **_pick(r, ("ms_source", "plain_ms_source",
                                "library_ms_source")))
+        if name == "exact_dot":
+            rec["launches_by_form"] = {
+                form: sum(n.get(f"exact_dot_{form}", 0)
+                          for n in by_path.values())
+                for form in ("per_query", "split")}
         if name in ("exact_dot", "extract_candidates"):
             # a launch answers only where its search was certified
             searches = {p: (by_path[p]["searches"], by_path[p]["fallbacks"])
@@ -2563,7 +2791,8 @@ def main() -> int:
             rec["max_rel_err"] = r["max_rel_err"]
             rec["no_bias"] = _pick(r["no_bias"], (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "max_rel_err", "streamed_ms"))
+                "max_abs_err", "max_rel_err", "streamed_ms",
+                "resident_mma_ms"))
         if "streamed_ms" in r:
             rec["streamed_ms"] = r["streamed_ms"]
             rec["launches_by_form"] = {

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Device time of ``csrc/fused_mha.cu``'s bf16 bodies and of variants of
-them, on one GPU: the resident form at the WavLM serving shape (q, k, v
-[128, 99, 768] bf16, 12 heads of 64; gate [128, 99, 12], pos_bias
-[12, 99, 99]) and at head width 80 ([16, 99, 1280], 16 heads); the
-streamed form at whisper-base's padded shapes ([16 | 128, 1500, 512], 8
-heads of 64, bias-free).
+them, on one GPU: the resident form's ``mma.sync`` kernel at the WavLM
+serving shape (q, k, v [128, 99, 768] bf16, 12 heads of 64; gate
+[128, 99, 12], pos_bias [12, 99, 99]) and at head width 80 ([16, 99,
+1280], 16 heads); the resident form's ``wgmma`` kernel (head width 64
+without bias) at [128, 99, 768] and at trimmed whisper-base's [16 | 128,
+100, 512]; the streamed form at whisper-base's padded shapes ([16 | 128,
+1500, 512], 8 heads of 64, bias-free).
 
 Each variant is the committed source with a few lines replaced, built by
 its own ``nvcc`` (the port's flags) into
 ``radad_tpu_torch/build/variants/`` and called through its C entry
-``radad_fused_mha_bf16`` with the form it names. Resident form:
+``radad_fused_mha_bf16`` with the form it names. The resident form's
+``mma.sync`` kernel (form 2: also at head width 64 without bias, where the
+wrapper's form runs the ``wgmma`` kernel):
 
-* ``as_built``: the resident form as it is (one pass at T <= 128: Q, K
+* ``as_built``: the kernel as it is (one pass at T <= 128: Q, K
   and V of a (batch row, head) in shared memory, S in registers, the exact
   row max and sum, ``ldmatrix`` fragments, ex2 and one reciprocal a row;
   grid (heads, row groups) sized to one wave, each block walking its batch
@@ -28,6 +32,24 @@ its own ``nvcc`` (the port's flags) into
 * ``expf_div``: e = expf(s - m) and p = e / l;
 * ``staged_store``: O staged in bf16 through the warp's own Q rows, then
   16-byte stores of whole rows.
+
+The resident form's ``wgmma`` kernel (``RESIDENT_WGMMA_VARIANTS``, rows
+``rw/...``):
+
+* ``as_built``: TMA loads of a batch row's Q, K and V boxes into a ring of
+  2 rows, one thread issuing, an mbarrier reporting the bytes; S and O by
+  ``wgmma``; O staged in bf16 in the warpgroups' own Q rows and written by
+  one thread's TMA stores after the block's barrier; the next row's K and
+  V reloaded then, its Q after the following row's S;
+* ``mma_sync``: the ``mma.sync`` kernel on the same inputs (form 2);
+* ``store_wait``: each warpgroup stores its own rows by TMA and waits for
+  the store to read them before the block's barrier, then Q, K and V are
+  reloaded at once;
+* ``direct_store``: O stored from the accumulator's registers by 4-byte
+  stores to device memory (the kernel's first design), Q, K and V
+  reloaded at once;
+* ``l2_256``: the loads' L2 promotion at 256 bytes (a head's 128-byte row
+  and its neighbour's).
 
 Streamed form at head width 64 (``STREAMED_VARIANTS``):
 
@@ -69,7 +91,10 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-RESIDENT, STREAMED = 1, 0  # the C entry's form codes
+# the C entry's form codes: the resident form (at head width 64 without
+# bias: its wgmma kernel), the streamed form, and the resident form's
+# mma.sync kernel at every head width (the variants of that kernel below)
+RESIDENT, STREAMED, RESIDENT_MMA = 1, 0, 2
 
 # one (batch row, head) a block: a block never prefetches, one buffer
 ROWS1 = (("constexpr int kResBuffers = 2;", "constexpr int kResBuffers = 1;"),
@@ -172,15 +197,96 @@ STREAMED_VARIANTS = {
     "two_s": "fused_mha_wgmma_two_s.cuh",  # the body's section replaced
 }
 VARIANTS = {  # name -> (form, (old text, new text) swaps)
-    "as_built": (RESIDENT, ()),
+    "as_built": (RESIDENT_MMA, ()),
     "streamed": (STREAMED, ()),  # the as_built library's streamed form
-    "rows1": (RESIDENT, ROWS1),
-    "regs255": (RESIDENT, (("constexpr int kResMinBlocks = 2;",
-                            "constexpr int kResMinBlocks = 1;"),)),
-    "warps8": (RESIDENT, WARPS8),
-    "scalar_reads": (RESIDENT, SCALAR_READS),
-    "expf_div": (RESIDENT, EXPF_DIV),
-    "staged_store": (RESIDENT, STAGED_STORE),
+    "rows1": (RESIDENT_MMA, ROWS1),
+    "regs255": (RESIDENT_MMA, (("constexpr int kResMinBlocks = 2;",
+                                "constexpr int kResMinBlocks = 1;"),)),
+    "warps8": (RESIDENT_MMA, WARPS8),
+    "scalar_reads": (RESIDENT_MMA, SCALAR_READS),
+    "expf_div": (RESIDENT_MMA, EXPF_DIV),
+    "staged_store": (RESIDENT_MMA, STAGED_STORE),
+}
+
+# the resident form's wgmma kernel (head width 64, no bias): designs that
+# lost, as swaps of the committed source
+_DEFERRED_Q = ("    if (tid == 0 && i > 0 && b + stride < n_rows) {\n"
+               "      tma_store_wait_read();\n"
+               "      load(0, b + stride, slot ^ 1);\n"
+               "    }\n", "")
+_OWN_STORE = ("""    fence_async_smem();  // the writes before the stores' reads (async proxy)
+    __syncthreads();     // ... everyone's; the slot's K and V are read
+    if (tid == 0) {
+      const bf16* qs = ring + slot * 3 * kRwTile;
+      tma_store(&to, qs, 64 * h, 0, b);
+      tma_store(&to, qs + 64 * 64, 64 * h, 64, b);
+      if (b + kRwRing * stride < n_rows) {
+        mbar_expect_tx(smem_u32(&full[slot]), bytes);
+        load(1, b + kRwRing * stride, slot);
+        load(2, b + kRwRing * stride, slot);
+      }
+    }
+""", """    fence_async_smem();
+    asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wg) : "memory");
+    if (tid % 128 == 0) {
+      tma_store(&to, qw, 64 * h, 64 * wg, b);
+      tma_store_wait_read();
+    }
+    __syncthreads();
+    if (tid == 0 && b + kRwRing * stride < n_rows) {
+      mbar_expect_tx(smem_u32(&full[slot]), bytes);
+      for (int j = 0; j < 3; ++j) load(j, b + kRwRing * stride, slot);
+    }
+""")
+
+
+def _direct_store(src: str):
+    """Swaps that store O from the accumulator's registers by 4-byte
+    stores to global memory (rows < T), the kernel's first design, and
+    reload a slot's Q, K and V at once after the block's barrier."""
+    start = src.index("    // O in bf16 into the warpgroup's own Q rows")
+    end = src.index('  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;')
+    body = """    __syncthreads();
+    if (tid == 0 && b + kRwRing * stride < n_rows) {
+      mbar_expect_tx(smem_u32(&full[slot]), bytes);
+      for (int j = 0; j < 3; ++j) load(j, b + kRwRing * stride, slot);
+    }
+    bf16* ob = out + static_cast<int64_t>(b) * t_len * d_model + 64 * h;
+    const int t_lo = 16 * warp + g, t_hi = t_lo + 8;
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      const int col = 8 * f + 2 * c;
+      if (t_lo < t_len)
+        *reinterpret_cast<uint32_t*>(ob + static_cast<int64_t>(t_lo) * d_model + col) =
+            pack_bf16(o[4 * f], o[4 * f + 1]);
+      if (t_hi < t_len)
+        *reinterpret_cast<uint32_t*>(ob + static_cast<int64_t>(t_hi) * d_model + col) =
+            pack_bf16(o[4 * f + 2], o[4 * f + 3]);
+    }
+  }
+"""
+    swaps = [_DEFERRED_Q, (src[start:end], body),
+             ("const __grid_constant__ CUtensorMap to, int n_rows, int t_len) {",
+              "const __grid_constant__ CUtensorMap to, int n_rows, int t_len, "
+              "bf16* out, int d_model) {"),
+             ("int launch_resident_wgmma_n(const CUtensorMap (&maps)[4], "
+              "int64_t b, int t, int heads,",
+              "int launch_resident_wgmma_n(const CUtensorMap (&maps)[4], "
+              "bf16* out, int d, int64_t b, int t, int heads,"),
+             ("maps[0], maps[1], maps[2], maps[3], static_cast<int>(b), t);",
+              "maps[0], maps[1], maps[2], maps[3], static_cast<int>(b), t, "
+              "out, d);")]
+    swaps += [(f"launch_resident_wgmma_n<{n}>(maps, b, t, heads, stream);",
+               f"launch_resident_wgmma_n<{n}>(maps, out, d, b, t, heads, "
+               f"stream);") for n in (64, 104, 128)]
+    return tuple(swaps)
+
+
+RESIDENT_WGMMA_VARIANTS = {  # name -> swaps, or a function of the source
+    "store_wait": (_DEFERRED_Q, _OWN_STORE),
+    "direct_store": _direct_store,
+    "l2_256": (("CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                "CU_TENSOR_MAP_L2_PROMOTION_L2_256B"),),
 }
 
 
@@ -250,6 +356,11 @@ def build_variants(parent: str = "") -> dict:
                 _swapped(src, name, swaps),
                 ["mha_bf16_wgmma_kernelILb0E",
                  "mha_bf16_streamed_kernelILi64ELb0E"])
+    for name, swaps in RESIDENT_WGMMA_VARIANTS.items():
+        if callable(swaps):
+            swaps = swaps(src)
+        jobs[f"rw_{name}"] = (_swapped(src, name, swaps),
+                              ["mha_bf16_resident_wgmma_kernelILi104E"])
     if parent:
         jobs["streamed_parent"] = (open(os.path.join(
             parent, "radad_tpu_torch", "csrc", "fused_mha.cu")).read(), [])
@@ -262,6 +373,10 @@ def build_variants(parent: str = "") -> dict:
         if name.startswith("streamed_"):
             libs["streamed/" + name[len("streamed_"):]] = (STREAMED,
                                                            built[name])
+    libs["rw/as_built"] = (RESIDENT, libs["as_built"][1])
+    libs["rw/mma_sync"] = (RESIDENT_MMA, libs["as_built"][1])
+    for name in RESIDENT_WGMMA_VARIANTS:
+        libs[f"rw/{name}"] = (RESIDENT, built[f"rw_{name}"])
     return libs
 
 
@@ -372,7 +487,7 @@ def main() -> int:
                  + (f" err {errs[n]:.3e}" if n in errs else "")
                  for n, x in row.items()))
 
-    resident = [n for n in libs if not n.startswith("streamed/")]
+    resident = [n for n in libs if "/" not in n]
     for shape in ((128, 99, 768, 12), (16, 99, 1280, 16)):
         tensors = inputs(*shape)
         call = _caller(torch, _native, tensors, *shape)
@@ -386,6 +501,14 @@ def main() -> int:
                 emit(f"  as_built by B ({'bias' if bias else 'no bias'}): "
                      + ", ".join(f"B={r} {ms:.4f} ms"
                                  for r, ms in sweep.items()))
+        del tensors
+    # the resident form at head width 64 without bias (its wgmma kernel):
+    # the WavLM / wav2vec2 serving shape and trimmed whisper-base's
+    wgmma_resident = [n for n in libs if n.startswith("rw/")]
+    for shape in ((128, 99, 768, 12), (128, 100, 512, 8), (16, 100, 512, 8)):
+        tensors = inputs(*shape)
+        compare(wgmma_resident, _caller(torch, _native, tensors, *shape),
+                tensors, shape, False, False)
         del tensors
     streamed = [n for n in libs if n.startswith("streamed/")]
     for shape in ((16, 1500, 512, 8), (128, 1500, 512, 8)):

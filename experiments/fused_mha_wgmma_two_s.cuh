@@ -50,11 +50,14 @@ template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// (the resident form's wgmma kernel, which follows this section, uses it)
+__device__ __forceinline__ void wg_wait_all() { wg_wait<0>(); }
 // keeps the compiler from moving reads or writes of an accumulator across a
 // wgmma wait or issue
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&d)[K]) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
+  for (int e = 0; e < K; ++e) asm volatile("" : "+f"(d[e])::"memory");
 }
 // this thread's writes to shared memory (cp.async) visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {

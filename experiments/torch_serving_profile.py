@@ -100,8 +100,10 @@ def main() -> int:
             out_lines.append(line)
             events.sort(key=lambda e: -e.device_time_total)
             ours = ("gather_rows_kernel", "exact_dot_kernel",
-                    "extract_candidates_kernel", "mha_kernel",
-                    "mha_bf16_kernel", "mha_bf16_resident_kernel",
+                    "exact_dot_split_kernel", "extract_candidates_kernel",
+                    "mha_kernel", "mha_bf16_wgmma_kernel",
+                    "mha_bf16_streamed_kernel", "mha_bf16_resident_kernel",
+                    "mha_bf16_resident_wgmma_kernel",
                     "flat_topk")  # its bf16 body, q rounding and f32 body
             for e in events:
                 if events.index(e) < 12 or any(o in e.key for o in ours):

@@ -111,7 +111,29 @@
 //   adds. At T <= 112, at most 128 registers, so 2 blocks of 7 warps an SM
 //   (8 warps at T > 112: one block, no register cap). What bounds it: the
 //   issue of its instructions and the latency of each warp's dependent
-//   chains at 14 warps an SM, more than the byte rate (PERF.md).
+//   chains at 14 warps an SM, more than the byte rate (PERF.md). It keeps
+//   the bias body and the other head widths.
+//   - HD 64 without bias (mha_bf16_resident_wgmma_kernel: wav2vec2's fused
+//     check, train_bf16, trimmed Whisper): the same arithmetic on wgmma. A
+//     persistent block of 2 warpgroups covers all 128 query rows of a
+//     (batch row, head) and walks batch rows of its head. One thread asks
+//     TMA for each row's Q, K and V boxes (tensor maps over [B, T, D], box
+//     [1, tp, 64], rows past T zero-filled) into 128B-swizzled tiles, a
+//     ring of 2 rows whose mbarrier reports the bytes landed, so the next
+//     row's copies take no issue slots and run while this row computes.
+//     S = Q K^T is one m64nNk16 wgmma a k16 step (N = T rounded up to 64,
+//     104 or 128: 104 at T = 99 and 100), Q and K by descriptor, so K is
+//     read from shared memory once a warpgroup, not once a warp; the exact
+//     row max and sum, p = e * (1 / l) rounded to bf16 in registers as
+//     above; O = P V by wgmma with P from registers and V as the transposed
+//     B operand, summed in one accumulator over ceil(N / 16) k16 steps (its
+//     truncating adds cost at most ~T / 16 x 2^-23 relative, far below the
+//     output's bf16 rounding). O goes in bf16 into the warpgroups' own Q
+//     rows (dead after S) and out by one thread's TMA stores (rows past T
+//     are not written); the slot's K and V are reloaded at that barrier,
+//     its Q after the next row's S, once the stores have read it. 4-byte
+//     stores from the accumulator's registers were slower (PERF.md). 96 KB
+//     of ring a block, so 2 blocks an SM; the time is the data path's.
 // - Streamed form (T > 128, and HD 128 at any T, whose resident form would
 //   not fit in shared memory): one pass over the keys in 64-key tiles with
 //   an online softmax, so Q K^T runs once a logit. Per tile: S = Q K^T in
@@ -155,6 +177,7 @@
 // shape in bf16: 78.4 MB of q, k, v, out, gate and pos_bias, 0.0234 ms at
 // 3.35 TB/s, against 3.85 GFLOP at 989 TFLOP/s: bound by bytes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1251,9 +1274,10 @@ __device__ __forceinline__ void wg_wait_all() {
 }
 // keeps the compiler from moving reads or writes of an accumulator across a
 // wgmma wait or issue
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&d)[K]) {
 #pragma unroll
-  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
+  for (int e = 0; e < K; ++e) asm volatile("" : "+f"(d[e])::"memory");
 }
 // this thread's writes to shared memory (cp.async) visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {
@@ -1532,14 +1556,409 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* gate, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// --------------- bf16 resident body on wgmma (HD 64, no bias, T <= 128)
+
+constexpr int kFormResidentMma = 2;  // the C entry's `form`: mha_bf16_resident_kernel also
+                                     // where the wgmma one below runs (to time the two
+                                     // side by side; the wrapper never passes it)
+constexpr int kRwThreads = 256;      // 2 warpgroups: the 128 query rows of a batch row
+constexpr int kRwRing = 2;           // batch rows in the TMA ring
+constexpr int kRwTile = kResMaxT * 64;  // bf16 of a Q, K or V tile: 128 rows of 128 bytes
+// the ring ([kRwRing][Q, K, V]) and 1,024 bytes to align it to the swizzle pattern
+constexpr size_t kRwSmem = sizeof(bf16) * kRwRing * 3 * kRwTile + 1024;
+
+// d += A (64 x 16) . B (16 x 104), both K-major in shared memory by descriptor
+__device__ __forceinline__ void wgmma_ss104(float (&d)[52], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51}, %52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d += A (64 x 16) . B (16 x 128), both K-major in shared memory by descriptor
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// S += Q K^T for one k16 step at N keys (64, 104 or 128)
+template <int N>
+__device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (N == 64)
+    wgmma_ss<true>(d, desc_a, desc_b);
+  else if constexpr (N == 104)
+    wgmma_ss104(d, desc_a, desc_b);
+  else
+    wgmma_ss128(d, desc_a, desc_b);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the mbarrier at `bar` has
+// completed; a copy that never lands traps (an error the wrapper raises)
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == (1u << 24)) __trap();
+  }
+}
+
+// TMA store: shared memory at src into the box at (c0, c1, c2) of the
+// tensor map (elements out of its bounds are not written), in a bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const bf16* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// TMA: the box at (c0, c1, c2) of the tensor map into shared memory at dst,
+// completion reported to the mbarrier at `bar` (as transaction bytes)
+__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// grid (heads, row groups): block (h, y) takes batch rows y, y + gridDim.y,
+// ... of head h, all 128 query rows of each (2 warpgroups of 64). The tensor
+// maps view q, k and v as [B, T, D] with a box of [1, tp, 64] (one head's
+// columns of tp = T rounded up to 16 rows; rows past T come zero-filled)
+// and the 128B swizzle that wgmma reads. N: the keys of S (T rounded up to
+// 64, 104 or 128). Written as mha_bf16_wgmma_kernel's loop is, for ptxas:
+// no branch around a wgmma or its wait, nothing in flight across the loop's
+// back edge, the accumulators settled before each issue, <= 128 registers.
+template <int N>
+__global__ void __launch_bounds__(kRwThreads, 2)
+mha_bf16_resident_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap to, int n_rows, int t_len) {
+  constexpr int NF = N / 8;          // n8 key fragments of S
+  constexpr int NP = (N + 15) / 16;  // k16 steps of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kRwRing];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const int h = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int wg = warp / 4, r_lo = 16 * (warp % 4) + g;  // the lane's rows r_lo, r_lo + 8 of its
+                                                        // warpgroup's 64
+  const uint32_t bytes = 3u * res_keys(t_len) * 128u;  // a batch row's three boxes
+
+  // every tile zero once, so every value wgmma reads is finite: K and V
+  // rows past a box's tp rows stay zero (V rows past T meet weights of 0);
+  // Q rows past tp hold zeros or an earlier row's O (rows not stored)
+  for (int i = tid; i < kRwRing * 3 * kRwTile / 8; i += kRwThreads)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kRwRing; ++s) mbar_init(smem_u32(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async_smem();  // the zeros before the copies (async proxy)
+  __syncthreads();
+
+  const int stride = gridDim.y;
+  const CUtensorMap* maps[3] = {&tq, &tk, &tv};
+  // thread 0: box j (0 Q, 1 K, 2 V) of batch row b into ring slot `slot`
+  auto load = [&](int j, int b, int slot) {
+    tma_load(ring + (3 * slot + j) * kRwTile, maps[j], 64 * h, 0, b, smem_u32(&full[slot]));
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kRwRing; ++s) {
+      if (blockIdx.y + s * stride < n_rows) {
+        mbar_expect_tx(smem_u32(&full[s]), bytes);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) load(j, blockIdx.y + s * stride, s);
+      }
+    }
+  }
+
+  int i = 0;
+  for (int b = blockIdx.y; b < n_rows; b += stride, ++i) {
+    const int slot = i % kRwRing;
+    mbar_wait(smem_u32(&full[slot]), (i / kRwRing) & 1);
+    bf16* qw = ring + slot * 3 * kRwTile + wg * 64 * 64;  // the warpgroup's rows of Q
+    const bf16* kt = ring + slot * 3 * kRwTile + kRwTile;
+    const bf16* vt = kt + kRwTile;
+
+    // S = Q K^T over every key at once: four k16 steps, 32 bytes further
+    // along the rows of Q and of K each; s[4 f + e] is the mma.sync body's
+    // s[f][e]: keys 8 f + 2 c (+ 1) of rows g (e < 2) and g + 8
+    float s[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) s[e] = 0.f;
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_s<N>(s, sw128_desc(qw + 16 * kk), sw128_desc(kt + 16 * kk));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+    // the next row's Q box, into the other slot's Q rows once the stores of
+    // the last row's O have read them (long done: a row's S came between)
+    if (tid == 0 && i > 0 && b + stride < n_rows) {
+      tma_store_wait_read();
+      load(0, b + stride, slot ^ 1);
+    }
+
+    // keys >= T to -inf, the exact row max: the lane's fragments, then the quad
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      float* sf = s + 4 * f;
+      const int key = 8 * f + 2 * c;
+      if (8 * f + 8 > t_len) {  // the fragment holds keys >= T (uniform)
+        if (key >= t_len) sf[0] = sf[2] = -INFINITY;
+        if (key + 1 >= t_len) sf[1] = sf[3] = -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(sf[0], sf[1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sf[2], sf[3]));
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(kFull, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(kFull, mx_hi, 2));
+
+    // e = exp(s - m) in place and the row sum l: the lane's fragments in
+    // order (a pair, then added), then the quad
+    const float ms_lo = res_scale_max(mx_lo), ms_hi = res_scale_max(mx_hi);
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      float* sf = s + 4 * f;
+      sf[0] = res_exp(sf[0], ms_lo);
+      sf[1] = res_exp(sf[1], ms_lo);
+      sf[2] = res_exp(sf[2], ms_hi);
+      sf[3] = res_exp(sf[3], ms_hi);
+      sum_lo += sf[0] + sf[1];
+      sum_hi += sf[2] + sf[3];
+    }
+    sum_lo += __shfl_xor_sync(kFull, sum_lo, 1);
+    sum_lo += __shfl_xor_sync(kFull, sum_lo, 2);
+    sum_hi += __shfl_xor_sync(kFull, sum_hi, 1);
+    sum_hi += __shfl_xor_sync(kFull, sum_hi, 2);
+    const float n_lo = res_norm(sum_lo), n_hi = res_norm(sum_hi);
+
+    // the normalized weights rounded to bf16, as the A operands of P V: k16
+    // step kk takes fragments 2 kk and 2 kk + 1 (0 past N)
+    uint32_t pa[NP][4];
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk) {
+      const float* s0 = s + 8 * kk;
+      pa[kk][0] = pack_bf16(res_weight(s0[0], n_lo), res_weight(s0[1], n_lo));
+      pa[kk][1] = pack_bf16(res_weight(s0[2], n_hi), res_weight(s0[3], n_hi));
+      if (2 * kk + 1 < NF) {
+        pa[kk][2] = pack_bf16(res_weight(s0[4], n_lo), res_weight(s0[5], n_lo));
+        pa[kk][3] = pack_bf16(res_weight(s0[6], n_hi), res_weight(s0[7], n_hi));
+      } else {
+        pa[kk][2] = pa[kk][3] = 0u;
+      }
+    }
+
+    // O = P V in one accumulator across the k16 steps, V's keys 16 kk on
+    // (2,048 bytes a step), read as the transposed B operand
+    float o[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] = 0.f;
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(pa[kk][e])::"memory");
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk) wgmma_rs_t(o, pa[kk], sw128_desc(vt + 16 * kk * 64));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(o);
+
+    // O in bf16 into the warpgroup's own Q rows (dead since S), in the
+    // swizzled layout; thread 0 stores each warpgroup's 64 rows by TMA
+    // (rows >= T fall outside the tensor map and are not written) and
+    // loads row b + 2 stride's K and V into the slot (its Q follows the
+    // next row's S, above)
+#pragma unroll
+    for (int f = 0; f < 8; ++f) {
+      *reinterpret_cast<uint32_t*>(qw + sw128(r_lo, f) + 2 * c) = pack_bf16(o[4 * f], o[4 * f + 1]);
+      *reinterpret_cast<uint32_t*>(qw + sw128(r_lo + 8, f) + 2 * c) =
+          pack_bf16(o[4 * f + 2], o[4 * f + 3]);
+    }
+    fence_async_smem();  // the writes before the stores' reads (async proxy)
+    __syncthreads();     // ... everyone's; the slot's K and V are read
+    if (tid == 0) {
+      const bf16* qs = ring + slot * 3 * kRwTile;
+      tma_store(&to, qs, 64 * h, 0, b);
+      tma_store(&to, qs + 64 * 64, 64 * h, 64, b);
+      if (b + kRwRing * stride < n_rows) {
+        mbar_expect_tx(smem_u32(&full[slot]), bytes);
+        load(1, b + kRwRing * stride, slot);
+        load(2, b + kRwRing * stride, slot);
+      }
+    }
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled (a driver function) through the runtime's entry
+// point query, so the library needs no -lcuda; null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <int N>
+int launch_resident_wgmma_n(const CUtensorMap (&maps)[4], int64_t b, int t, int heads,
+                            cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(mha_bf16_resident_wgmma_kernel<N>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(kRwSmem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(mha_bf16_resident_wgmma_kernel<N>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mha_bf16_resident_wgmma_kernel<N>, kRwThreads, kRwSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // one wave: the blocks the card holds, spread over the heads
+  const int64_t per_head = (static_cast<int64_t>(sms) * per_sm + heads - 1) / heads;
+  const dim3 grid(heads, static_cast<unsigned>(per_head < b ? per_head : b));
+  mha_bf16_resident_wgmma_kernel<N><<<grid, kRwThreads, kRwSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<int>(b), t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resident form at HD 64 without bias: q, k, v [B, T, D] as 3-D tensor
+// maps (D innermost), boxes of 64 columns x tp rows x 1 batch row; out with
+// boxes of 64 rows (a warpgroup's)
+int launch_resident_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int64_t b,
+                          int t, int d, int heads, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(t) * d * sizeof(bf16)};
+  const cuuint32_t box_in[3] = {64, static_cast<cuuint32_t>(res_keys(t)), 1};
+  const cuuint32_t box_out[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  CUtensorMap maps[4];
+  const bf16* src[4] = {q, k, v, out};
+  for (int j = 0; j < 4; ++j) {
+    const CUresult r = encode(&maps[j], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                              const_cast<bf16*>(src[j]), dims, strides,
+                              j < 3 ? box_in : box_out, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (t <= 64) return launch_resident_wgmma_n<64>(maps, b, t, heads, stream);
+  if (t <= 104) return launch_resident_wgmma_n<104>(maps, b, t, heads, stream);
+  return launch_resident_wgmma_n<128>(maps, b, t, heads, stream);
+}
+
 template <int HD, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* gate,
                 const bf16* pos, bf16* out, int64_t b, int t, int d, int heads, int form,
                 cudaStream_t stream) {
-  if (form == kFormResident) {
+  if (form == kFormResident || form == kFormResidentMma) {
     if constexpr (HD <= kResMaxHD) {
-      if (t <= kResMaxT)
+      if (t <= kResMaxT) {
+        if constexpr (HD == 64 && !BIAS) {
+          if (form == kFormResident)
+            return launch_resident_wgmma(q, k, v, out, b, t, d, heads, stream);
+        }
         return launch_resident<HD, BIAS>(q, k, v, gate, pos, out, b, t, d, heads, stream);
+      }
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1583,7 +2002,9 @@ extern "C" int radad_fused_mha(const float* q, const float* k, const float* v,
 // pos [heads, T, T] all bf16 (raw 16-bit values), q, k, v 16-byte aligned.
 // `form` picks the body: 0 the streamed body (one pass over key tiles, any
 // T), 1 the resident body (T <= 128 and HD <= 80; cudaErrorInvalidValue
-// elsewhere, as for any other form).
+// elsewhere, as for any other form): mha_bf16_resident_wgmma_kernel at HD 64
+// without bias, mha_bf16_resident_kernel otherwise; 2 the latter also at
+// HD 64 without bias (to time the two side by side).
 extern "C" int radad_fused_mha_bf16(const void* q, const void* k, const void* v,
                                     const void* gate, const void* pos, void* out,
                                     int64_t b, int t, int d, int heads, int form,

@@ -35,7 +35,9 @@ wrapper picks by shape (``bf16_form``) and passes to the C entry: at
 T <= 128 and head width <= 80 (every shipped encoder's 2 s window, T = 99)
 the resident form holds a row's whole key range in shared memory and its
 logits in registers, and takes the exact row max and sum in one pass
-(e = exp(s − m) by ex2, p = e · (1/l)); above (Whisper's T = 1,500) and
+(e = exp(s − m) by ex2, p = e · (1/l); at head width 64 without bias on
+``wgmma`` with TMA copies, P·V summed in one accumulator,
+``tests/test_torch_attention_resident_wgmma.py``); above (Whisper's T = 1,500) and
 at head width 128, the streamed form makes one pass over 64-key tiles with
 an online softmax (on ``wgmma`` at head width 64, ``mma.sync`` at the
 others): per tile the row max m, O and l rescaled by

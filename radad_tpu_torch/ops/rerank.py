@@ -7,7 +7,11 @@ Counterpart: ``radad_tpu/ops/rerank.py`` (Pallas ``exact_dot`` and
 its ``[N, D/128, 128]`` gather layout; here ``q`` and ``x`` stay 2-D.
 
 ``exact_dot`` launches the kernel for CUDA tensors and runs
-``exact_dot_plain`` only for CPU tensors.
+``exact_dot_plain`` only for CPU tensors. The kernel has two forms, which
+the wrapper picks by shape (``exact_dot_form``) and passes to the C entry:
+"per_query" (one block a query, q staged in shared memory) and "split"
+(one block a (query, candidate row), for small B). Both sum in a fixed
+order, so two calls on the same inputs give bitwise-equal dots.
 """
 
 from __future__ import annotations
@@ -19,6 +23,21 @@ import torch
 from radad_tpu_torch.ops import _native
 
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the kernel's forms, by their code in radad_exact_dot
+FORMS = ("per_query", "split")
+SPLIT_MAX_B = 64  # the split form's largest B (measured on the card, PERF.md)
+
+
+def exact_dot_form(b: int, r: int, d: int) -> str:
+    """The kernel's form for ``b`` queries of ``r`` candidates of width
+    ``d``: "split" (a block a candidate row) at B <= SPLIT_MAX_B, where one
+    block a query leaves most SMs idle and a call is bound by its launch and
+    round trips; "per_query" above, where it reads q once a query and
+    reaches most of the byte rate. Measured at R = 32: split is faster at
+    B <= 64 and per_query at B = 256 at both D = 3,584 and 5,376; at
+    B = 128 per_query is 19 % faster at D = 3,584 and 2–3 % slower at
+    D = 5,376, so the threshold is left independent of ``r`` and ``d``."""
+    return "split" if b <= SPLIT_MAX_B else "per_query"
 
 
 def exact_dot_plain(q: torch.Tensor, x: torch.Tensor,
@@ -66,16 +85,32 @@ def exact_dot(q: torch.Tensor, x: torch.Tensor,
     out = torch.empty((b, r), dtype=torch.float32, device=q.device)
     if b == 0 or r == 0:
         return out
-    fn = _native.library("exact_dot").radad_exact_dot
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), x.data_ptr(), idx.data_ptr(), out.data_ptr(), b,
-            x.shape[0], d, r, kind, _native.stream_of(q))
+    form = exact_dot_form(b, r, d)
+    rc = _entry()(q.data_ptr(), x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                  b, x.shape[0], d, r, kind, FORMS.index(form),
+                  _native.stream_of(q))
     _native.check_launch("exact_dot", rc)
     exact_dot.launches += 1
+    exact_dot.form_launches[form] += 1
     return out
 
 
+def _entry():
+    """The C entry ``radad_exact_dot`` with its argument types."""
+    fn = _native.library("exact_dot").radad_exact_dot
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 exact_dot.launches = 0  # kernel launches (never the CPU plain version)
+exact_dot.form_launches = dict.fromkeys(FORMS, 0)  # the same, per form
+
+
+def reset_launches() -> None:
+    """Set ``exact_dot``'s counts to 0 (every form)."""
+    exact_dot.launches = 0
+    exact_dot.form_launches = dict.fromkeys(FORMS, 0)

@@ -76,6 +76,42 @@ def test_exact_dot_kernel_on_card(cuda):
         exact_dot(q[:, :5375].contiguous(), x[:, :5375].contiguous(), idx)
 
 
+@pytest.mark.parametrize("d", [3584, 5376])
+@pytest.mark.parametrize("b", [1, 8, 64, 128, 256])
+def test_exact_dot_forms_on_card(cuda, b, d):
+    """The form the wrapper picks (``exact_dot_form``: split at B <= 64,
+    per_query above), counted once a call in ``form_launches``, for f32,
+    bf16 and int8 rows at the serving widths, with ids out of range and -1
+    (clamped), within 1e-5 * sum_d |q_d x_d| of the plain version; two
+    calls give bitwise-equal dots (a fixed summation order, no atomics)."""
+    from radad_tpu_torch.ops.rerank import exact_dot_form
+
+    g = torch.Generator(device=cuda).manual_seed(b + d)
+    n = 3000
+    q = torch.randn((b, d), generator=g, device=cuda)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    idx = torch.randint(-5, n + 5, (b, 32), generator=g, device=cuda,
+                        dtype=I32)
+    idx[0, :3] = torch.tensor([-1, n, n - 1], dtype=I32)
+    form = exact_dot_form(b, 32, d)
+    assert form == ("split" if b <= 64 else "per_query")
+    for src in (x, x.to(torch.bfloat16),
+                torch.randint(-127, 128, x.shape, generator=g, device=cuda,
+                              dtype=torch.int8)):
+        forms = dict(exact_dot.form_launches)
+        got = exact_dot(q, src, idx)
+        again = exact_dot(q, src, idx)
+        want = exact_dot_plain(q, src, idx)
+        torch.cuda.synchronize()
+        forms[form] += 2
+        assert exact_dot.form_launches == forms, (b, d, src.dtype)
+        assert torch.equal(got, again), (b, d, src.dtype)
+        safe = idx.long().clamp(0, n - 1)
+        scale = (src[safe].float().abs() * q.abs()[:, None]).sum(-1)
+        assert bool(((got - want).abs() <= 1e-5 * scale).all()), (
+            b, d, src.dtype, float((got - want).abs().max()))
+
+
 def test_extract_candidates_kernel_on_card(cuda):
     """Equal to the plain version (values as floats, so a zero maximum may
     differ in sign; rows and leftover exactly), ties, -inf tiles and a -0
@@ -223,6 +259,45 @@ def test_fused_mha_bf16_kernel_on_card(cuda, t, saturate):
             err = (got.float() - want.float()).abs()
             assert bool((err <= BF16_TOL * (1 + want.float().abs())).all()), (
                 t, hd, body, float(err.max()))
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 64, 99, 100, 104, 112, 113,
+                               128])
+def test_fused_mha_bf16_resident_wgmma_on_card(cuda, t):
+    """The resident form's wgmma kernel (head width 64 without bias: T
+    rounded up to 64, 104 or 128 keys of S, TMA loads and stores) against
+    fused_mha_plain within BF16_TOL * (1 + |plain|), through the wrapper's
+    own pick (one launch, counted as the resident form). B = 70 rows of 12
+    heads, so each persistent block (2 an SM, spread over the heads) walks
+    several batch rows through its 2-row ring; the logits saturate (each
+    query row's dominant key at 80 / 64 |k|^2, anywhere in the row, in the
+    last key fragment for every third batch row)."""
+    from radad_tpu_torch.ops.attention import BF16_TOL, fused_mha_plain
+
+    g = torch.Generator(device=cuda).manual_seed(t)
+    b, h, hd = 70, 12, 64
+    d = h * hd
+    k = torch.randn((b, t, d), generator=g, device=cuda)
+    v = torch.randn((b, t, d), generator=g, device=cuda)
+    kh = k.view(b, t, h, hd)
+    kh = kh * (hd ** 0.5 / kh.norm(dim=-1, keepdim=True))
+    k = kh.reshape(b, t, d).contiguous()
+    rows = torch.arange(t, device=cuda)
+    last = 8 * ((t - 1) // 8)
+    top = torch.where(torch.arange(b, device=cuda)[:, None] % 3 == 0,
+                      last + rows % (t - last), (37 * rows) % t)  # [b, t]
+    q = torch.stack([kh[i, top[i]] for i in range(b)]) * (80 / hd)
+    q = q.reshape(b, t, d).contiguous()
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    forms = dict(fused_mha.form_launches)
+    got = fused_mha(q, k, v, h)
+    want = fused_mha_plain(q, k, v, h)
+    torch.cuda.synchronize()
+    forms["resident"] += 1
+    assert fused_mha.form_launches == forms, t
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= BF16_TOL * (1 + want.float().abs())).all()), (
+        t, float(err.max()))
 
 
 @pytest.mark.parametrize("bias", [False, True])
