@@ -4,11 +4,12 @@ NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
-1. prints the card's name and power limit, the precision flags, and builds
-   the five CUDA kernels from ``radad_tpu_torch/csrc`` (one ``nvcc`` each,
-   in parallel): ``gather_rows``, ``exact_dot``, ``extract_candidates``,
-   ``fused_mha`` and ``flat_topk``, with ptxas's registers and spills of
-   each template instance;
+1. prints the card's name and power limit, the precision flags, builds
+   the native audio decoder (``radad_tpu_torch/native``, host g++; it must
+   load) and the five CUDA kernels from ``radad_tpu_torch/csrc`` (one
+   ``nvcc`` each, in parallel): ``gather_rows``, ``exact_dot``,
+   ``extract_candidates``, ``fused_mha`` and ``flat_topk``, with ptxas's
+   registers and spills of each template instance;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes (``gather_rows`` at M = 5, 32, 40,
    256, 320, 640, 1,280 and 2,048 rows, each timed call reading its rows
@@ -18,7 +19,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B <= 64; ``per_query``) on f32, bf16 and int8 rows, two calls bitwise
    equal, and timed beside gather + ``bmm``, the form the wrapper picks
    printed, at B = 8 as the median and spread of 21 profiler samples;
-   ``extract_candidates`` at B = 1, 8, 64, 128 and 256 queries;
+   ``exact_dot`` on SQ8's int8 codes at R = 40 candidates, B = 1 .. 256,
+   beside gather + cast + ``bmm``; ``extract_candidates`` at B = 1, 8, 64,
+   128 and 256 queries, at T = 24, m = 8 and at SQ8's T = 8, m = 5;
    ``flat_topk`` at B = 64 and 8 also against the
    exact scores of its bf16 operands within the bound of its tensor-core
    summation order, with a control that an unrounded scan fails;
@@ -63,7 +66,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    give on every row a logit within 1e-4 of the fusion model's on the
    default embedding with the same neighbors (``_compare_fused``);
 4. starts the port's HTTP server on localhost and posts 3 WAV uploads to
-   ``/api/predict``;
+   ``/api/predict``; then the SQ8 phase (``sq8_phase``): the wav2vec2
+   phase's 25,600 x 5,376 table added in one call to an SQ8
+   ``DetectionPipeline`` at the shipped defaults, three ways (plain,
+   residual with nlist 1,024, int4-refined; build, save and load timed,
+   device bytes printed); each serves phase 3's calls (paths "sq8",
+   "sq8_residual", "sq8_refine": ``exact_dot`` on int8 rows in its split
+   form alone, ``extract_candidates`` at T = 8, m = 5 alone), trains one
+   epoch and evaluates (B = 128 / 256; paths "<variant>_train": the
+   per_query form alone) with step timings; every search is held to
+   ``retrieve_on_device_sq8`` on the CPU with the plain kernels, ids up to
+   ties within the f32 rounding of the dequantized rows and distances
+   within 1e-5 relative, and recall@5 against the f32 certified neighbors
+   and the stage times beside the f32 path's are printed;
 5. WavLM serving phase: a seeded random wavlm-base pipeline with
    ``use_pallas=True`` and ``RADAD_FUSED_ATTENTION=1`` on the same size of
    DB; the same calls must launch ``fused_mha``'s bias body, ``flat_topk``
@@ -125,11 +140,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    relative, 32 bias-free launches.
 
 Each phase sets the launch counts to 0 just before its counted run and
-reads them just after. The last line is ``{"ok": true, "device": {...}}``;
-the line before it is the kernel table: for ``exact_dot`` and
-``extract_candidates`` also each path's searches and fallbacks and the
-launches whose search was certified (``launches_answering``); a time that
-the profiler could not take is marked ``<key>_source: "cuda_events"``.
+reads them just after; each serving path prints the audio decoder that
+ran and fails unless it was the native one. The last line is
+``{"ok": true, "device": {...}}``; the line before it is the kernel
+table: for ``exact_dot`` and ``extract_candidates`` also each path's
+searches and fallbacks and the launches whose search was certified
+(``launches_answering``), and their launches by row type and by shape; a
+time that the profiler could not take is marked ``<key>_source:
+"cuda_events"``.
 Any failure exits non-zero and prints no result. It imports nothing of
 JAX.
 """
@@ -173,6 +191,11 @@ RESIDENT_MMA = 2
 # and 64) and on the train and eval batches
 EXACT_DOT_SERVING_B = (1, 8, 64)
 EXACT_DOT_TRAIN_B = (128, 256)
+# SQ8's re-score: T = 8 tiles x m = 5 rounds of the tile select at k = 5
+SQ8_R = 40
+# the SQ8 phase's index variants: (path label, config fields)
+SQ8_VARIANTS = (("sq8", {}), ("sq8_residual", {"sq8_residual_nlist": 1024}),
+                ("sq8_refine", {"sq8_refine_bits": 4}))
 
 
 def _bf16_instance(form: str, hd: int, bias: bool) -> str:
@@ -334,6 +357,12 @@ def header(torch):
           f"{torch.backends.cudnn.allow_tf32} "
           "matmul.allow_bf16_reduced_precision_reduction="
           f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    from radad_tpu_torch import native
+
+    t0 = time.perf_counter()
+    decoder = native.load()  # raises if g++ or the build fails
+    print(f"native audio decoder: {os.path.relpath(decoder.path)} built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s")
     secs = _native.build()
     print(f"kernel build: {secs:.2f} s for {list(_native.SOURCES)}")
     for name in _native.SOURCES:
@@ -410,6 +439,18 @@ def kernel_phase(torch, dev):
                                   + 2 * b * r * 4, 2.0 * b * r * d)[0]
             print(f"exact_dot bf16 rows: {bf16_ms:.4f} ms on the device, "
                   f"bound {bf16_bound:.4f} ms")
+    # exact_dot on SQ8's int8 codes: R = 40 candidates (T = 8 tiles x m =
+    # 5), split at the serving B, per_query at the train and eval B
+    by_b_int8 = {}
+    for b in EXACT_DOT_TRAIN_B[::-1] + EXACT_DOT_SERVING_B[::-1]:
+        q = torch.randn((b, d), generator=g, device=dev)
+        cidx = torch.randint(0, n, (b, SQ8_R), generator=g, device=dev,
+                             dtype=torch.int32)
+        err = _exact_dot_err(torch, q, tables["int8"], cidx)
+        by_b_int8[b] = rec = _exact_dot_record(torch, q, tables["int8"], cidx)
+        rec["max_abs_err"] = err
+        _print_exact_dot(f"int8 D={d} R={SQ8_R} B={b}", rec,
+                         {f"{rec['form']} int8": err})
     del tables
     recs["exact_dot"] = dict(
         route="cuda", source="radad_tpu_torch/csrc/exact_dot.cu",
@@ -420,53 +461,31 @@ def kernel_phase(torch, dev):
         shape=f"q [256,{d}] f32, x [{n},{d}] f32, idx [256,{r}] (by_shape: "
               f"B = 1 .. 256; ms_by_form: each form on the same inputs)")
     recs["exact_dot"]["max_abs_err"] = max(
-        rec["max_abs_err"] for rec in by_b.values())
+        rec["max_abs_err"] for rec in (*by_b.values(), *by_b_int8.values()))
+    recs["exact_dot"]["sq8_int8"] = dict(
+        shape=f"q [B,{d}] f32, x [{n},{d}] int8, idx [B,{SQ8_R}] (SQ8's "
+              f"re-score; library: gather + cast + bmm)",
+        **_shape_table(by_b_int8, "B"))
 
-    # extract_candidates: B = 1, 8, 64, 256 queries, T = 24 tiles of 128
-    # lanes, m = 8 rounds, with exact ties, all-(-inf) tiles and a -0 at a
+    # extract_candidates: B = 1, 8, 64, 128, 256 queries at the certified
+    # search's T = 24 tiles of 128 lanes, m = 8 rounds, and at the SQ8
+    # route's T = 8, m = 5, with exact ties, all-(-inf) tiles and a -0 at a
     # lower lane than a +0 (the lower lane goes first)
-    t, mm, nt = 24, 8, n // 128
-    by_b = {}
-    for bb in (1, 8, 64, 128, 256):
-        cand = torch.randn((bb, t, 128), generator=g, device=dev)
-        cand[0, 0, :] = float("-inf")
-        cand[5 % bb, 3, :] = float("-inf")
-        cand[1 % bb, t - 1, 7] = cand[1 % bb, t - 1, 99]
-        cand[2 % bb, 4, :] = 0.5  # a whole tile tied
-        cand[3 % bb, 2, 10:20] = float("-inf")
-        cand[0, 1, :] = -1.0 - torch.rand(128, generator=g, device=dev)
-        cand[0, 1, 9], cand[0, 1, 40] = -0.0, 0.0
-        tsel = torch.randint(0, nt, (bb, t), generator=g, device=dev,
-                             dtype=torch.int32)
-        got = extract_candidates(cand, tsel, mm, nt)
-        want = extract_candidates_plain(cand, tsel, mm, nt)
-        torch.cuda.synchronize()
-        for gv, wv, what in zip(got, want, ("vals", "rows", "leftover")):
-            if not torch.equal(gv, wv):
-                raise AssertionError(f"extract_candidates B={bb} {what} "
-                                     f"differs from its plain version")
-        if int(got[1][0, 1]) != 9 * nt + int(tsel[0, 1]):
-            raise AssertionError("extract_candidates: the -0 at the lower "
-                                 "lane did not go first")
-        rec = timings(
-            torch, lambda c=cand, s=tsel: extract_candidates(c, s, mm, nt),
-            lambda c=cand, s=tsel: extract_candidates_plain(c, s, mm, nt),
-            lambda c=cand: torch.topk(c, mm, dim=-1))
-        # operations: per round and lane a max, a compare and a select
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            bb * t * 128 * 4 + bb * t * 4 + bb * mm * t * 8 + bb * t * 4,
-            3.0 * bb * t * 128 * mm)
-        by_b[bb] = rec
-        print(f"extract_candidates B={bb}: device {rec['ms']:.4f} ms, topk "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, "
-              f"plain {rec['plain_ms']:.4f} ms")
+    nt = n // 128
+    by_b = {bb: _extract_record(torch, g, bb, 24, 8, nt)
+            for bb in (1, 8, 64, 128, 256)}
+    sq8_select = {bb: _extract_record(torch, g, bb, 8, 5, nt)
+                  for bb in (1, 8, 64, 128, 256)}
+    t, mm = 24, 8
     recs["extract_candidates"] = dict(
         route="cuda", source="radad_tpu_torch/csrc/extract_candidates.cu",
         replaces="radad_tpu/ops/topk.py:338", max_abs_err=0.0,
         tolerance="equal (values as floats: a zero maximum is +0), rows and "
                   "leftover exact",
         **by_b[256], by_shape=_shape_table(by_b, "B"),
-        shape=f"cand [256,{t},128] f32, m={mm} (by_shape: B = 1 .. 256)")
+        shape=f"cand [256,{t},128] f32, m={mm} (by_shape: B = 1 .. 256)",
+        sq8=dict(shape="cand [B,8,128] f32, m=5, nt=200 (SQ8's select)",
+                 **_shape_table(sq8_select, "B")))
     recs["fused_mha"] = _fused_mha_record(torch, g)
     recs["fused_mha_bf16"] = _fused_mha_bf16_record(torch, g)
     recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
@@ -484,6 +503,48 @@ def kernel_phase(torch, dev):
     del table, table_bf16
     torch.cuda.empty_cache()
     return recs
+
+
+def _extract_record(torch, g, bb: int, t: int, mm: int, nt: int) -> dict:
+    """``extract_candidates`` on ``[bb, t, 128]`` seeded scores with exact
+    ties, all-(-inf) tiles, a tile of one value and a -0 at a lower lane
+    than a +0: equal to its plain version (the -0 goes first), timed beside
+    it and ``torch.topk``; bound: the inputs read and the outputs written
+    once, against a max, a compare and a select per round and lane."""
+    from radad_tpu_torch.ops.topk import (extract_candidates,
+                                          extract_candidates_plain)
+
+    dev = g.device
+    cand = torch.randn((bb, t, 128), generator=g, device=dev)
+    cand[0, 0, :] = float("-inf")
+    cand[5 % bb, 3 % t, :] = float("-inf")
+    cand[1 % bb, t - 1, 7] = cand[1 % bb, t - 1, 99]
+    cand[2 % bb, 4 % t, :] = 0.5  # a whole tile tied
+    cand[3 % bb, 2, 10:20] = float("-inf")
+    cand[0, 1, :] = -1.0 - torch.rand(128, generator=g, device=dev)
+    cand[0, 1, 9], cand[0, 1, 40] = -0.0, 0.0
+    tsel = torch.randint(0, nt, (bb, t), generator=g, device=dev,
+                         dtype=torch.int32)
+    got = extract_candidates(cand, tsel, mm, nt)
+    want = extract_candidates_plain(cand, tsel, mm, nt)
+    torch.cuda.synchronize()
+    for gv, wv, what in zip(got, want, ("vals", "rows", "leftover")):
+        if not torch.equal(gv, wv):
+            raise AssertionError(f"extract_candidates B={bb} T={t} m={mm} "
+                                 f"{what} differs from its plain version")
+    if int(got[1][0, 1]) != 9 * nt + int(tsel[0, 1]):
+        raise AssertionError("extract_candidates: the -0 at the lower lane "
+                             "did not go first")
+    rec = timings(torch, lambda: extract_candidates(cand, tsel, mm, nt),
+                  lambda: extract_candidates_plain(cand, tsel, mm, nt),
+                  lambda: torch.topk(cand, mm, dim=-1))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        bb * t * 128 * 4 + bb * t * 4 + bb * mm * t * 8 + bb * t * 4,
+        3.0 * bb * t * 128 * mm)
+    print(f"extract_candidates B={bb} T={t} m={mm}: device {rec['ms']:.4f} "
+          f"ms, topk {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+    return rec
 
 
 def _gather_record(torch, table, m: int, g) -> dict:
@@ -616,8 +677,10 @@ def _exact_dot_record(torch, q, table, cidx, samples: int = 0) -> dict:
     """``exact_dot`` of ``q [b, d]`` against rows ``cidx [b, r]`` of
     ``table``, timed beside its plain version and gather + ``bmm``, and
     each form on the same inputs (``ms_by_form``; ``form``: the wrapper's
-    pick); bound: each distinct candidate row read once, q and the ids
-    read, the output written, against 2 b r d operations at the f32 rate.
+    pick); bound: each distinct candidate row read once (at the table's
+    element size), q and the ids read, the output written, against 2 b r d
+    operations at the f32 rate. The library call casts the gathered rows to
+    f32 before the ``bmm`` (int8 rows; a no-op on f32).
     ``samples``: also that many profiler samples of each form and of
     gather + ``bmm`` (``device_ms_samples``), whose medians are the record's
     times."""
@@ -626,8 +689,8 @@ def _exact_dot_record(torch, q, table, cidx, samples: int = 0) -> dict:
 
     (b, d), r = q.shape, cidx.shape[1]
 
-    def library():
-        return torch.bmm(table[cidx.long()], q[:, :, None])
+    def library():  # gather + cast (a no-op on f32 rows) + bmm
+        return torch.bmm(table[cidx.long()].float(), q[:, :, None])
 
     rec = timings(torch, lambda: exact_dot(q, table, cidx),
                   lambda: exact_dot_plain(q, table, cidx), library)
@@ -649,7 +712,8 @@ def _exact_dot_record(torch, q, table, cidx, samples: int = 0) -> dict:
         rec["library_ms"] = rec["samples"]["library"]["median"]
     rows_read = int(torch.unique(cidx).numel())
     rec["bound_ms"], rec["bound_by"] = bound_ms(
-        rows_read * d * 4 + b * d * 4 + 2 * b * r * 4, 2.0 * b * r * d)
+        rows_read * d * table.element_size() + b * d * 4 + 2 * b * r * 4,
+        2.0 * b * r * d)
     return rec
 
 
@@ -1519,19 +1583,23 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
 
 
 def _launch_counts(kernels, index=None) -> dict:
-    """{kernel name: launches} of ``kernels``; fused_mha's count splits by
-    dtype: "fused_mha" (its f32 bodies), "fused_mha_bf16" (its bf16
-    bodies). With ``index``, its certified searches since ``_reset`` too:
-    "searches" and "fallbacks" (those that the certificate failed, whose
-    answer came from the full f32 scan and not from ``extract_candidates``
-    and ``exact_dot``)."""
+    """{kernel name: launches} of ``kernels``, with exact_dot's per form
+    and row type ("exact_dot_split", "exact_dot_int8", ...) and
+    extract_candidates' per shape ("extract_candidates_T=8 m=5");
+    fused_mha's count splits by dtype: "fused_mha" (its f32 bodies),
+    "fused_mha_bf16" (its bf16 bodies). With ``index``, its certified
+    searches since ``_reset`` too: "searches" and "fallbacks" (those that
+    the certificate failed, whose answer came from the full f32 scan and
+    not from ``extract_candidates`` and ``exact_dot``), and "route"."""
     from radad_tpu_torch.ops.attention import fused_mha
 
     out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
-    for w in kernels:  # exact_dot's launches per form
-        for form, n in getattr(w, "form_launches", {}).items():
-            if w is not fused_mha:
-                out[f"{w.__name__}_{form}"] = n
+    for w in kernels:  # exact_dot's per form and row type;
+        if w is fused_mha:  # extract_candidates' per "T=.. m=.."
+            continue
+        for attr in ("form_launches", "kind_launches", "shape_launches"):
+            for key, n in getattr(w, attr, {}).items():
+                out[f"{w.__name__}_{key}"] = n
     body = fused_mha.body_launches
     out["fused_mha"] = body["bias"] + body["no_bias"]
     out["fused_mha_bf16"] = body["bias_bf16"] + body["no_bias_bf16"]
@@ -1575,6 +1643,8 @@ def _reset(kernels, index=None) -> None:
             rerank.reset_launches()
         else:
             w.launches = 0
+            if hasattr(w, "shape_launches"):
+                w.shape_launches = {}
 
 
 def _counted_run(torch, pipe, q_paths, batch64, kernels):
@@ -1619,7 +1689,20 @@ def _report(lat, stages, pipe, launches, label):
     ix = pipe.index
     print(f"{label} serving path: {calls} calls, search route {ix.route}, "
           f"{ix.searches} searches, {ix.fallbacks} fallbacks to the full f32 "
-          f"scan; kernel launches {launches}")
+          f"scan; decoder {_decoder()}; kernel launches {launches}")
+
+
+def _decoder() -> str:
+    """The decoder that ``load_audio`` ran: the native library (its path);
+    raises if the pure-Python parser ran instead (the card's machine has
+    g++)."""
+    from radad_tpu_torch.data import audio
+
+    native = audio._try_load_native()
+    if not native:
+        raise AssertionError("load_audio ran the pure-Python WAV parser: "
+                             "the native decoder did not load")
+    return f"native ({os.path.relpath(native.path)})"
 
 
 def _compare_fused(torch, pipe, paths, fused, default, label: str) -> None:
@@ -1698,6 +1781,37 @@ def _compare_fused(torch, pipe, paths, fused, default, label: str) -> None:
           f"1e-4)")
 
 
+def _decode_compare(paths, reps: int = 5) -> None:
+    """Host ms of predict_batch's serial decode loop (``load_audio`` over
+    ``paths``) with the native decoder and with the pure-Python parser, in
+    turns (native, python, python, native, ...), the median of ``reps``
+    each; both must give the same samples."""
+    import numpy as np
+
+    from radad_tpu_torch.data import audio
+
+    native = audio._try_load_native()
+    times, waves = {"native": [], "python": []}, {}
+    try:
+        for i in range(2 * reps):
+            kind = ("native", "python")[(i + i // 2) % 2]
+            audio._native = native if kind == "native" else False
+            t0 = time.perf_counter()
+            waves[kind] = np.stack([audio.load_audio(p) for p in paths])
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        audio._native = native
+    if not np.array_equal(waves["native"], waves["python"]):
+        raise AssertionError("the native decoder's samples differ from the "
+                             "Python parser's")
+    print(f"decode of {len(paths)} clips (predict_batch's serial loop, host "
+          f"ms, median of {reps} in turns): native "
+          f"{float(np.median(times['native'])):.3f}, Python parser "
+          f"{float(np.median(times['python'])):.3f}; runs native "
+          f"{[round(t, 2) for t in times['native']]}, Python "
+          f"{[round(t, 2) for t in times['python']]}; samples equal")
+
+
 def serving_phase(torch, dev, tmp: str):
     """The wav2vec2 serving path at full width, certified search, default
     attention; then one predict_batch(8) with the fused attention switch.
@@ -1710,12 +1824,13 @@ def serving_phase(torch, dev, tmp: str):
     os.environ.pop("RADAD_FUSED_ATTENTION", None)
     torch.cuda.reset_peak_memory_stats()
     pipe, db_paths = _build_pipeline(torch, dev, tmp, "wav2vec2")
-    q_paths, _ = _write_clips(tmp, 64, SEED + 2, "query")
+    q_paths, q_labels = _write_clips(tmp, 64, SEED + 2, "query")
     batch64 = q_paths[:32] + db_paths[:32]  # half of them are DB clips
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                flat_topk)
     launches, outs, stages = _serve_checked(torch, pipe, q_paths, batch64,
                                             kernels, "wav2vec2", fused=False)
+    _decode_compare(batch64)
 
     # the same clips with the fused attention switch: bias-free body
     _reset(kernels, pipe.index)
@@ -1735,8 +1850,10 @@ def serving_phase(torch, dev, tmp: str):
     print(f"wav2vec2 with RADAD_FUSED_ATTENTION=1: launches "
           f"{fused_launches}, fused_mha per body {body}")
     # the f32 reference of the mixed-precision phase
-    ref = dict(q_paths=q_paths, **_f32_reference(
-        torch, pipe, _serving_sets(q_paths, batch64), outs, stages))
+    ref = dict(q_paths=q_paths, q_labels=q_labels, db_paths=db_paths,
+               batch64=batch64, **_f32_reference(
+                   torch, pipe, _serving_sets(q_paths, batch64), outs,
+                   stages))
     return pipe, {"wav2vec2": launches,
                   "wav2vec2_fused_attention": fused_launches}, q_paths, ref
 
@@ -1750,7 +1867,9 @@ def _serving_sets(q_paths, batch64) -> dict:
 def stage_ms(torch, pipe, paths, reps=5):
     """Median milliseconds per stage of one predict_batch's work on
     ``paths``, each stage ended by a device synchronize: decode, embed
-    (segment + encoder + TPP), search, neighbor gather, fusion model."""
+    (segment + encoder + TPP), search, neighbor gather, fusion model. An
+    SQ8 pipeline's search stage is ``retrieve_on_device_sq8``, whose
+    dequantized neighbors come with it (no gather stage)."""
     import numpy as np
 
     from radad_tpu_torch.data.audio import load_audio
@@ -1759,7 +1878,10 @@ def stage_ms(torch, pipe, paths, reps=5):
     from radad_tpu_torch.ops.gather import gather_rows
 
     cfg, ix = pipe.config, pipe.index
-    rows = {k: [] for k in ("decode", "embed", "search", "gather", "model")}
+    sq8 = pipe.is_quantized
+    stages = (("decode", "embed", "search", "model") if sq8
+              else ("decode", "embed", "search", "gather", "model"))
+    rows = {k: [] for k in stages}
     for _ in range(reps):
         t0 = time.perf_counter()
         waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
@@ -1774,24 +1896,30 @@ def stage_ms(torch, pipe, paths, reps=5):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with torch.inference_mode():
-            _, idx, _ = _search_device(
-                tpp, ix.vectors, ix.ids, excl, cfg.top_k, metric=ix.metric,
-                n_valid=ix.ntotal, xsq=ix.norms_sq, scan_bf16=ix.scan_bf16,
-                resid_bf16=ix.resid_bf16, exclude_mode="self",
-                use_pallas=ix.use_pallas)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            nb = gather_rows(ix.vectors, idx.clamp_min(0).reshape(-1))
-            nb = nb.reshape(idx.shape + (ix.dimension,))
-            torch.cuda.synchronize()
-            t4 = time.perf_counter()
+            if sq8:
+                nb = pipe._retrieve(tpp, excl, "self")[0]
+                torch.cuda.synchronize()
+                t3 = t4 = time.perf_counter()
+            else:
+                _, idx, _ = _search_device(
+                    tpp, ix.vectors, ix.ids, excl, cfg.top_k,
+                    metric=ix.metric, n_valid=ix.ntotal, xsq=ix.norms_sq,
+                    scan_bf16=ix.scan_bf16, resid_bf16=ix.resid_bf16,
+                    exclude_mode="self", use_pallas=ix.use_pallas)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                nb = gather_rows(ix.vectors, idx.clamp_min(0).reshape(-1))
+                nb = nb.reshape(idx.shape + (ix.dimension,))
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
             pipe.model(nb, tpp)
             torch.cuda.synchronize()
             t5 = time.perf_counter()
         for k, a, b in (("decode", t0, t1), ("embed", t1, t2),
                         ("search", t2, t3), ("gather", t3, t4),
                         ("model", t4, t5)):
-            rows[k].append((b - a) * 1e3)
+            if k in rows:
+                rows[k].append((b - a) * 1e3)
     return {k: float(np.median(v)) for k, v in rows.items()}
 
 
@@ -2236,6 +2364,283 @@ def fused_forward_phase(torch, dev, tmp: str, kind: str, model_name: str,
     gc.collect()
     torch.cuda.empty_cache()
     return {f"{label}_fused_attention": launches}
+
+
+def _sq8_cpu(ix) -> dict:
+    """The SQ8 index's arrays copied to the CPU, by
+    ``retrieve_on_device_sq8``'s keyword names."""
+    names = ("codes", "scales", "norm_sq", "labels", "ids", "centroids",
+             "cells", "codes2", "scales2")
+    return {n: None if getattr(ix, n) is None else getattr(ix, n).cpu()
+            for n in names}
+
+
+def _sq8_hold(torch, pipe, cpu, tpp, excl, mode, got_idx, got_d):
+    """An SQ8 search on the card (``got_idx``, ``got_d``: neighbor rows and
+    distances of the path) against the same function,
+    ``retrieve_on_device_sq8``, run on the CPU with the plain kernels on
+    the same embeddings ``tpp`` and index arrays (``cpu``). Ids must be
+    identical, except that neighbors may swap where the f64 distances of
+    the two lists' dequantized rows agree rank by rank within twice the f32
+    rounding of the distance's sums, from the inputs alone: sqrt(D) 2^-24
+    (|q|^2 + |x̂|^2 + 2 sum |q_d x̂_d|) over both lists' rows. Distances
+    within 1e-5 relative plus that rounding. → (rows with identical ids,
+    the largest relative distance error, the largest share of its bound
+    that a gap took)."""
+    from radad_tpu_torch.index.quantized import (_dequantize,
+                                                 retrieve_on_device_sq8)
+
+    ix, k = pipe.index, pipe.config.top_k
+    _, _, d_cpu, i_cpu = retrieve_on_device_sq8(
+        tpp.float().cpu(), cpu["codes"], cpu["scales"], cpu["norm_sq"],
+        cpu["labels"], cpu["ids"], excl.cpu(), k=k, metric=ix.metric,
+        n_valid=ix.ntotal, accel=ix.build_accel, exclude_mode=mode,
+        centroids=cpu["centroids"], cells=cpu["cells"],
+        codes2=cpu["codes2"], scales2=cpu["scales2"])
+    got_idx, i_cpu = got_idx.cpu().long(), i_cpu.long()
+    got_d = got_d.cpu().double()
+    ok = i_cpu >= 0
+    if not torch.equal(got_idx >= 0, ok):
+        raise AssertionError("SQ8: the card and the CPU return different "
+                             "numbers of neighbors")
+    q = tpp.float().cpu().double()
+
+    def recon(rows):
+        x = _dequantize(rows.clamp_min(0).reshape(-1), cpu["codes"],
+                        cpu["scales"], cpu["centroids"], cpu["cells"],
+                        cpu["codes2"], cpu["scales2"])
+        return x.double().reshape(rows.shape + (-1,))
+
+    xg, xc = recon(got_idx), recon(i_cpu)
+    both = torch.cat([xg, xc], 1)
+    terms = (q.square().sum(-1)[:, None] + both.square().sum(-1)
+             + 2.0 * (both.abs() * q.abs()[:, None]).sum(-1)).amax(-1)
+    tol = 2.0 * q.shape[-1] ** 0.5 * 2.0 ** -24 * terms  # [B]
+    want = d_cpu.double()
+    err = (got_d - want).abs().masked_fill(~ok, 0.0)
+    if not bool((err <= 1e-5 * want.abs().masked_fill(~ok, 0.0)
+                 + tol[:, None]).all()):
+        raise AssertionError(f"SQ8: distances on the card differ from the "
+                             f"CPU's beyond 1e-5 relative: {float(err.max())}")
+    rel = float((err / want.abs().masked_fill(~ok, 1.0)).max())
+
+    def f64(x):  # the pipeline's SQ8 index is L2
+        return (x - q[:, None]).square().sum(-1).masked_fill(~ok, 0.0)
+
+    gap = (f64(xg).sort(-1).values - f64(xc).sort(-1).values).abs().amax(-1)
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"SQ8: neighbors on the card differ from the "
+                             f"CPU's beyond f32 rounding (excess "
+                             f"{float((gap - tol).max()):.3e})")
+    return (int((got_idx == i_cpu).all(-1).sum()), rel,
+            float((gap / tol).max()))
+
+
+def _sq8_search_cost(torch, pipe, tpp, excl):
+    """(call ms of one SQ8 search on the CUDA-event clock, each call
+    ended by a synchronize as the caller reads its result; device ms of
+    the kernels and copies it runs, ``timed_ms``)."""
+    def search():
+        with torch.inference_mode():
+            pipe._retrieve(tpp, excl, "self")
+
+    def call():
+        search()
+        torch.cuda.synchronize()
+
+    return time_ms(torch, call, 10), timed_ms(torch, search)[0]
+
+
+def _sq8_held_text(held) -> str:
+    same, rel, share = held
+    return (f"ids identical on {same} (the rest swap neighbors tied within "
+            f"f32 rounding); largest relative distance error {rel:.3e}; "
+            f"largest gap {share:.3f} of its bound")
+
+
+def _sq8_only(launches, label: str, form: str) -> None:
+    """The path launched exact_dot on int8 rows alone, in ``form`` alone,
+    and extract_candidates at T = 8, m = 5 alone; no opt-in kernel."""
+    _exact_dot_form_only(launches, label, form)
+    if launches["exact_dot_int8"] != launches["exact_dot"]:
+        raise AssertionError(f"{label}: exact_dot ran on other than int8 "
+                             f"rows: {launches}")
+    sel = launches["extract_candidates"]
+    if sel <= 0 or launches.get("extract_candidates_T=8 m=5") != sel:
+        raise AssertionError(f"{label}: extract_candidates ran other than "
+                             f"at T = 8, m = 5 alone: {launches}")
+    if launches["fused_mha"] + launches["fused_mha_bf16"] \
+            or launches["flat_topk"]:
+        raise AssertionError(f"{label}: an opt-in kernel ran: {launches}")
+
+
+def _sq8_build(torch, dev, tmp, label, base, kw):
+    """An SQ8 DetectionPipeline at the shipped defaults on ``base``'s
+    encoder and embedding cache whose index holds ``base``'s f32 table
+    (25,600 rows) in one add; saved and loaded back (arrays equal). Prints
+    the build, save and load times and the device bytes."""
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    root = os.path.join(tmp, label)
+    cfg = Config().replace(
+        data_root=root, vector_db_path=os.path.join(root, "vdb"),
+        train_data_path=os.path.join(root, "clips"), random_seed=SEED,
+        num_epochs=1, vector_db_index_type="SQ8", **kw)
+    sq = DetectionPipeline(cfg, encoder=base.encoder, device=dev)
+    sq._embedding_cache = base._embedding_cache
+    flat = base.index
+    n = flat.ntotal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sq.index.add(flat.vectors[:n], flat.labels[:n].tolist(),
+                 list(flat.paths), metadata=list(flat.metadata),
+                 ids=flat.ids[:n].tolist())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built = sq.index
+    names = [n_ for n_ in ("codes", "scales", "norm_sq", "labels", "ids",
+                           "centroids", "cells", "codes2", "scales2")
+             if getattr(built, n_) is not None]
+    nbytes = sum(getattr(built, n_).numel() * getattr(built, n_)
+                 .element_size() for n_ in names)
+    t0 = time.perf_counter()
+    built.save(cfg.vector_db_path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not sq.load_vector_database():
+        raise AssertionError(f"{label}: the saved SQ8 DB did not load")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for n_ in names:
+        if not torch.equal(getattr(sq.index, n_), getattr(built, n_)):
+            raise AssertionError(f"{label}: {n_} differs after save -> load")
+    ix = sq.index
+    print(f"{label}: SQ8 index {ix.ntotal} x {ix.dimension} (residual_nlist "
+          f"{ix.residual_nlist}, refine_bits {ix.refine_bits}), capacity "
+          f"{ix.codes.shape[0]}: add (host quantization, k-means, norms, "
+          f"upload) {build_s:.2f} s, save {save_s:.2f} s, load {load_s:.2f} "
+          f"s; device bytes {nbytes} ({nbytes / 2**20:.1f} MiB; the f32 "
+          f"table {n * ix.dimension * 4 / 2**20:.1f} MiB)")
+    return sq
+
+
+def sq8_phase(torch, dev, tmp: str, base, ref):
+    """The SQ8 index at full width on the wav2vec2 serving phase's table
+    (``base``: its pipeline, 25,600 x 5,376 rows, embedded clips plus
+    seeded rows; ``ref``: its clips and f32 results), in three variants:
+    plain, residual (nlist 1,024) and int4-refined. Each is built, saved
+    and loaded (``_sq8_build``), then serves ``_counted_run``'s calls
+    (predict, predict_batch at 8 and 64, self exclusion; path "<variant>"),
+    trains one epoch and evaluates at the shipped defaults (B = 128 / 256;
+    path "<variant>_train"), and runs ``_step_times``. Every search is
+    held to the CPU (``_sq8_hold``); recall@5 against the f32 certified
+    neighbors and the stage times beside the f32 path's are printed.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.index.quantized import quantize_rows
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    flat = base.index
+    table = flat.vectors[: flat.ntotal].cpu().numpy()
+    t0 = time.perf_counter()
+    quantize_rows(table)
+    print(f"SQ8 host quantization of the {table.shape[0]} x {table.shape[1]}"
+          f" table (numpy, quantize_rows): {time.perf_counter() - t0:.2f} s")
+    del table
+    q_paths, batch64 = ref["q_paths"], ref["batch64"]
+    sets = _serving_sets(q_paths, batch64)
+    db_paths = ref["db_paths"]
+    train_m = _manifest(db_paths, flat.labels[: len(db_paths)].tolist())
+    val_m = _manifest(q_paths, ref["q_labels"])
+    by_path = {}
+    for label, kw in SQ8_VARIANTS:
+        sq = _sq8_build(torch, dev, tmp, label, base, kw)
+        cpu = _sq8_cpu(sq.index)
+        lat, stages, outs, launches, _ = _counted_run(torch, sq, q_paths,
+                                                      batch64, kernels)
+        _sq8_only(launches, label, "split")  # B = 1, 8, 64
+        _report(lat, stages, sq, launches, label)
+        for name, paths in sets.items():
+            tpp = _embed_paths(torch, sq, paths)
+            excl = torch.as_tensor([file_id(p) for p in paths],
+                                   dtype=torch.int32, device=dev)
+            rows = _rows_of(torch, sq, outs[name])
+            dists = torch.as_tensor([[r["distance"] for r in o["retrieved"]]
+                                     for o in outs[name]])
+            held = _sq8_hold(torch, sq, cpu, tpp, excl, "self", rows, dists)
+            hits = [len(set(a) & set(b)) for a, b in zip(
+                (o["retrieved_files"] for o in outs[name]),
+                ref["files"][name])]
+            k = sq.config.top_k
+            st = stage_ms(torch, sq, paths)
+            search_ms, busy_ms = _sq8_search_cost(torch, sq, tpp, excl)
+            print(f"{label} {name}: against the CPU's plain route on all "
+                  f"{len(paths)} rows, {_sq8_held_text(held)}; recall@{k} "
+                  f"against the f32 certified neighbors "
+                  f"{sum(hits) / (k * len(hits)):.4f}; stages (median of "
+                  f"5, ms) " + ", ".join(f"{s} {v:.3f}" for s, v in
+                                         st.items())
+                  + "; f32 certified " + ", ".join(
+                      f"{s} {v:.3f}" for s, v in ref["stages"][name].items())
+                  + f"; the search alone: call {search_ms:.3f} ms (CUDA "
+                  f"events, synchronized), device {busy_ms:.4f} ms "
+                  f"(profiler), busy {busy_ms / search_ms:.3f}")
+        by_path[label] = launches
+
+        # training: one epoch + evaluate at B = 128 / 256, counted
+        torch.cuda.synchronize()
+        _reset(kernels, sq.index)
+        t0 = time.perf_counter()
+        sq.train(train_m, val_m)
+        result = sq.evaluate(val_m)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tl = _launch_counts(kernels, sq.index)
+        rows_ = [r for r in sq.writer.rows if r["epoch"] != "eval"]
+        want_steps = -(-len(train_m) // sq.config.batch_size)
+        if sq.step != want_steps or not np.isfinite(
+                [rows_[-1]["train_loss"], result["loss"]]).all():
+            raise AssertionError(f"{label}_train: {sq.step} steps, want "
+                                 f"{want_steps}; rows {rows_}, {result}")
+        _sq8_only(tl, f"{label}_train", "per_query")  # B = 128, 256
+        print(f"{label}_train: 1 epoch ({sq.step} steps at B = "
+              f"{sq.config.batch_size}) + evaluate ({result['num_samples']} "
+              f"clips at B = {sq.config.eval_batch_size}) in {secs:.2f} s, "
+              f"train loss {rows_[-1]['train_loss']:.6f}, eval loss "
+              f"{result['loss']:.6f}; {sq.index.searches} searches, route "
+              f"{sq.index.route}; kernel launches {tl}")
+        by_path[f"{label}_train"] = tl
+        cfg = sq.config
+        train_batch = list(sq._query_batches(train_m, cfg.batch_size,
+                                             shuffle=True, seed=SEED))[-1]
+        eval_batch = next(iter(sq._query_batches(val_m, cfg.eval_batch_size,
+                                                 shuffle=False)))
+        for what, (tpp, _, ids, _) in (("train B=128", train_batch),
+                                       ("eval B=256", eval_batch)):
+            _, _, d, i = sq._retrieve(tpp, ids, "batch")
+            held = _sq8_hold(torch, sq, cpu, tpp, ids, "batch", i, d)
+            print(f"{label}_train retrieval {what}: against the CPU's plain "
+                  f"route on all {tpp.shape[0]} rows, {_sq8_held_text(held)}")
+        medians, steps_per_s, busy, wall_ms = _step_times(torch, sq, train_m)
+        print(f"{label}_train step at B = {cfg.batch_size}: median ms "
+              f"retrieve {medians['retrieve']:.3f}, forward+backward "
+              f"{medians['forward_backward']:.3f}, update "
+              f"{medians['update']:.3f} (CUDA-synchronized, 12 steps); "
+              f"{steps_per_s:.2f} steps/s over an epoch of train_step; "
+              f"device busy {busy:.3f} of one profiled step "
+              f"({wall_ms:.2f} ms)")
+        del sq, cpu
+        torch.cuda.empty_cache()
+    return by_path
 
 
 def server_phase(pipe, q_paths) -> None:
@@ -2732,6 +3137,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="radad_smoke_") as tmp:
         pipe, by_path, q_paths, ref = serving_phase(torch, dev, tmp)
         server_phase(pipe, q_paths)
+        # the SQ8 index (plain, residual, int4-refined) on the same table
+        by_path.update(sq8_phase(torch, dev, tmp, pipe, ref))
         del pipe  # free the first pipeline before building the second
         for phase in (lambda: wavlm_phase(torch, dev, tmp),
                       lambda: fused_forward_phase(
@@ -2772,6 +3179,18 @@ def main() -> int:
                 form: sum(n.get(f"exact_dot_{form}", 0)
                           for n in by_path.values())
                 for form in ("per_query", "split")}
+            rec["launches_by_kind"] = {
+                kind: sum(n.get(f"exact_dot_{kind}", 0)
+                          for n in by_path.values())
+                for kind in ("f32", "bf16", "int8")}
+        if name == "extract_candidates":
+            shapes = {}
+            for n in by_path.values():
+                for key, v in n.items():
+                    if key.startswith("extract_candidates_T="):
+                        shape = key[len("extract_candidates_"):]
+                        shapes[shape] = shapes.get(shape, 0) + v
+            rec["launches_by_shape"] = shapes
         if name in ("exact_dot", "extract_candidates"):
             # a launch answers only where its search was certified
             searches = {p: (by_path[p]["searches"], by_path[p]["fallbacks"])
@@ -2802,7 +3221,7 @@ def main() -> int:
             rec["hmma"] = r["hmma"]
         if "max_bf16_steps" in r:
             rec["max_bf16_steps"] = r["max_bf16_steps"]
-        for key in ("by_shape", "hd80", "whisper"):
+        for key in ("by_shape", "hd80", "whisper", "sq8_int8", "sq8"):
             if key in r:
                 rec[key] = r[key]
         kernels.append(rec)

@@ -1,12 +1,13 @@
 """Host-side audio decode: WAV → float32 mono @ target sample rate.
 
-Counterpart: ``radad_tpu/data/audio.py``, copied without its native C++
-decoder (``radad_tpu/native``, a later slice of the port). Decoding is:
+Counterpart: ``radad_tpu/data/audio.py``. Decoding is:
 
-  1. a pure-Python WAV parser (stdlib ``wave`` + numpy), with
+  1. the native C++ decoder (``radad_tpu_torch/native``, built at first use
+     by the host g++ and loaded with ctypes) where it builds and loads;
+  2. a pure-Python WAV parser (stdlib ``wave`` + numpy) otherwise, with
      ``scipy.io.wavfile`` for IEEE-float WAVs;
-  2. for non-WAV formats, an ``ffmpeg`` CLI pipe when ffmpeg is on PATH;
-  3. zero-fill on any failure, matching the reference loader
+  3. for non-WAV formats, an ``ffmpeg`` CLI pipe when ffmpeg is on PATH;
+  4. zero-fill on any failure, matching the reference loader
      (dataset.py:151-153).
 
 Resampling is polyphase (``scipy.signal.resample_poly``).
@@ -23,6 +24,25 @@ from typing import Optional
 import numpy as np
 
 logger = logging.getLogger(__name__)
+
+_native = None  # the loaded C++ decoder, False where it cannot load
+
+
+def _try_load_native():
+    """The native decoder, or False where it does not build or load (no
+    toolchain): the pure-Python parser is then used."""
+    global _native
+    if _native is not None:
+        return _native
+    try:
+        from radad_tpu_torch.native import load
+
+        _native = load()
+    except Exception as e:  # no g++, failed build: pure-Python decoder
+        logger.info("native audio decoder unavailable (%s); using the "
+                    "Python WAV parser", e)
+        _native = False
+    return _native
 
 
 def _decode_wav_python(path: str) -> tuple[np.ndarray, int]:
@@ -148,10 +168,14 @@ def load_audio(
                 and have_ffmpeg()):
             audio, sr = _decode_ffmpeg(path, sample_rate, duration)
         else:
-            try:
-                audio, sr = _decode_wav_python(path)
-            except Exception:
-                audio, sr = _decode_scipy(path)
+            native = _try_load_native()
+            if native:
+                audio, sr = native.decode(path)
+            else:
+                try:
+                    audio, sr = _decode_wav_python(path)
+                except Exception:
+                    audio, sr = _decode_scipy(path)
         if duration is not None:
             # Truncate *before* resampling to bound the filter cost, with a
             # small guard so polyphase edge effects don't shorten the clip.

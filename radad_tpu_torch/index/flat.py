@@ -2,7 +2,9 @@
 
 Counterpart: ``radad_tpu/index/flat.py`` (``FlatIndex`` for L2, IP and
 COSINE; ``_hier_candidates``, ``_search_fast_exact``, ``_search_device``,
-``_rerank_exact``). IVF waits for a later slice and raises.
+``_rerank_exact``, ``_assign_cells``; ``search_overfetch``,
+``reconstruct_batch``, ``labels_for``). The SQ8 index is
+``index/quantized.py``; IVF waits for a later slice and raises.
 
 Search is the JAX package's certified fast-exact route on every device:
 one bf16 scan with a hi/lo query split and a bf16 residual term (f32
@@ -263,6 +265,49 @@ class FlatIndex:
         self.searches += 1
         self.fallbacks += int(fell_back)
 
+    def search_overfetch(self, queries, k: int, exclude_basenames=None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Reference-parity retrieval (reference pipeline.py:478-515):
+        over-fetch k + 10, drop rows whose file basename is excluded on the
+        host, truncate / pad to k. It exists to hold the device-side masked
+        search (the production path) to the reference's semantics."""
+        exclude = set(exclude_basenames or ())
+        k_search = min(k + (10 if exclude else 0), max(self.n, 1))
+        dists, idxs = self.search(queries, k_search)
+        b = dists.shape[0]
+        out_d = np.full((b, k), np.inf, np.float32)
+        out_i = np.full((b, k), -1, np.int64)
+        for row in range(b):
+            kept = 0
+            for dd, ii in zip(dists[row], idxs[row]):
+                if ii < 0 or (exclude and os.path.basename(
+                        self.paths[int(ii)]) in exclude):
+                    continue
+                out_d[row, kept] = dd
+                out_i[row, kept] = ii
+                kept += 1
+                if kept == k:
+                    break
+        return out_d, out_i
+
+    def reconstruct_batch(self, indices) -> np.ndarray:
+        """Stored rows by index as f32 (a gather, where the reference loops
+        over ``index.reconstruct``, pipeline.py:503); index -1 gives a zero
+        vector."""
+        idx = torch.as_tensor(np.asarray(indices, np.int64),
+                              device=self.device)
+        out = self.vectors[idx.clamp_min(0).reshape(-1)].float().reshape(
+            idx.shape + (self.dimension,))
+        return torch.where((idx >= 0)[..., None], out,
+                           torch.zeros_like(out)).cpu().numpy()
+
+    def labels_for(self, indices) -> np.ndarray:
+        """Stored labels by index; index -1 gives 0."""
+        idx = np.asarray(indices)
+        lab = self.labels.cpu().numpy()[np.maximum(idx, 0).reshape(-1)
+                                        ].reshape(idx.shape)
+        return np.where(idx >= 0, lab, 0.0).astype(np.float32)
+
     # ------------------------------------------------------------------
     def save(self, directory: str) -> None:
         """The JAX package's files, each written atomically."""
@@ -320,6 +365,16 @@ class FlatIndex:
 
 
 # ----------------------------------------------------------------------
+def _assign_cells(vectors: torch.Tensor,
+                  centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid of each row → [N] int32, in exact f32 (TF32 off;
+    FAISS assigns in f32 too), the lower cell on ties."""
+    v = vectors.float()
+    d = (v.square().sum(-1, keepdim=True) - 2.0 * (v @ centroids.t())
+         + centroids.square().sum(-1)[None, :])
+    return d.argmin(-1).to(torch.int32)
+
+
 def _hier_candidates(scores: torch.Tensor, k: int, tiles_hint: int = None,
                      per_tile_hint: int = None):
     """Exact hierarchical candidate selection over masked scores

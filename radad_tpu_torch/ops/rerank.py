@@ -23,6 +23,8 @@ import torch
 from radad_tpu_torch.ops import _native
 
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the row types, by their code in radad_exact_dot
+KINDS = ("f32", "bf16", "int8")
 # the kernel's forms, by their code in radad_exact_dot
 FORMS = ("per_query", "split")
 SPLIT_MAX_B = 64  # the split form's largest B (measured on the card, PERF.md)
@@ -92,6 +94,7 @@ def exact_dot(q: torch.Tensor, x: torch.Tensor,
     _native.check_launch("exact_dot", rc)
     exact_dot.launches += 1
     exact_dot.form_launches[form] += 1
+    exact_dot.kind_launches[KINDS[kind]] += 1
     return out
 
 
@@ -108,9 +111,11 @@ def _entry():
 
 exact_dot.launches = 0  # kernel launches (never the CPU plain version)
 exact_dot.form_launches = dict.fromkeys(FORMS, 0)  # the same, per form
+exact_dot.kind_launches = dict.fromkeys(KINDS, 0)  # the same, per row type
 
 
 def reset_launches() -> None:
-    """Set ``exact_dot``'s counts to 0 (every form)."""
+    """Set ``exact_dot``'s counts to 0 (every form and row type)."""
     exact_dot.launches = 0
     exact_dot.form_launches = dict.fromkeys(FORMS, 0)
+    exact_dot.kind_launches = dict.fromkeys(KINDS, 0)

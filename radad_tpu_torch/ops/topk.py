@@ -106,10 +106,16 @@ def extract_candidates(cand: torch.Tensor, tsel: torch.Tensor, m: int,
             _native.stream_of(cand))
     _native.check_launch("extract_candidates", rc)
     extract_candidates.launches += 1
+    shape = f"T={t} m={m}"
+    extract_candidates.shape_launches[shape] = (
+        extract_candidates.shape_launches.get(shape, 0) + 1)
     return vals, rows, left
 
 
 extract_candidates.launches = 0  # kernel launches (never the CPU plain version)
+# the same, per "T=<tiles> m=<rounds>": the certified search's T = 24, m = 8
+# at k = 5; SQ8's T = 8, m = 5
+extract_candidates.shape_launches = {}
 
 
 # ----------------------------------------------------------------------

@@ -342,12 +342,14 @@ class Handler(BaseHTTPRequestHandler):
         if path == "/api/dbinfo":
             idx = st.pipeline.index if st.pipeline else None
             vdb_path = st.config.vector_db_path
+            prefix = ("sq8" if st.config.vector_db_index_type.upper()
+                      == "SQ8" else "index")
             return self._json({
                 "vector_db_path": vdb_path,
                 "index_file_exists": os.path.exists(
-                    os.path.join(vdb_path, "index_arrays.npz")),
+                    os.path.join(vdb_path, f"{prefix}_arrays.npz")),
                 "metadata_file_exists": os.path.exists(
-                    os.path.join(vdb_path, "index_meta.json")),
+                    os.path.join(vdb_path, f"{prefix}_meta.json")),
                 "has_index": idx is not None and idx.ntotal > 0,
                 "ntotal": idx.ntotal if idx else 0,
                 "sample_vector_files": [
@@ -547,6 +549,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="whisper: encode real frames only instead of the "
                         "reference's 30 s padding (must match how the "
                         "vector DB was built)")
+    p.add_argument("--index_type", type=str, default="L2",
+                   help="the saved vector DB's index type: L2, IP, COSINE "
+                        "or SQ8 (its residual and refine settings are read "
+                        "from sq8_meta.json)")
     return p
 
 
@@ -565,6 +571,7 @@ def config_from_args(args):
         feature_extractor_type=args.feature_extractor,
         max_duration=args.max_duration,
         use_mixed_precision=args.mixed_precision,
+        vector_db_index_type=args.index_type.upper(),
         use_batch_norm=False, use_layer_norm=True, **over)
 
 

@@ -5,7 +5,10 @@ Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
 ``DetectionPipeline``'s ``build_vector_database``, ``train``,
 ``evaluate_with_scores``, ``evaluate``, ``load_vector_database``,
 ``predict``, ``predict_batch``, ``save_models``, ``load_models``,
-``print_dataset_statistics``). SQ8, IVF and meshes come in later slices.
+``print_dataset_statistics``), with the SQ8 index
+(``index/quantized.py``: ``vector_db_index_type="SQ8"``, plain, residual
+or int4-refined; ``retrieve_on_device_sq8`` in serving and in the train
+step). IVF and meshes come in later slices.
 
 A predict call runs embed (segment → encoder → TPP → mean over windows)
 → flat search → neighbor gather (``ops.gather.gather_rows``) → fusion
@@ -51,6 +54,8 @@ from radad_tpu_torch.data.loader import iterate_batches
 from radad_tpu_torch.data.manifest import (Manifest, file_id,
                                            validate_no_leakage)
 from radad_tpu_torch.index.flat import FlatIndex, _search_device
+from radad_tpu_torch.index.quantized import (QuantizedIndex,
+                                             retrieve_on_device_sq8)
 from radad_tpu_torch.models.encoder import FrozenEncoder, build_encoder
 from radad_tpu_torch.models.fusion import build_radad_model
 from radad_tpu_torch.ops.gather import gather_rows
@@ -267,9 +272,9 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
 
 def check_ported(config: Config) -> None:
     """Raise NotImplementedError for a configuration the port cannot run
-    yet (SQ8 and IVF indexes)."""
+    yet (the IVF index)."""
     metric = config.vector_db_index_type.upper()
-    if metric in ("SQ8", "IVF"):
+    if metric == "IVF":
         raise NotImplementedError(f"{metric} index: not yet ported")
 
 
@@ -281,11 +286,13 @@ class DetectionPipeline:
                  encoder: Optional[FrozenEncoder] = None,
                  use_pallas: bool = False, device="cuda"):
         """``use_pallas``: search with the ``flat_topk`` kernel + exact
-        re-rank instead of the certified route (``FlatIndex``)."""
+        re-rank instead of the certified route (``FlatIndex``; the SQ8
+        index has no such route and ignores it)."""
         self.device = resolve_device(device)
         check_ported(config)
         self.config = config
         self.use_pallas = use_pallas
+        self.is_quantized = config.vector_db_index_type.upper() == "SQ8"
         self.encoder = (encoder if encoder is not None
                         else build_encoder(config, device=self.device))
         self.tpp_dim = tpp_output_dim(config.tpp_levels,
@@ -305,8 +312,16 @@ class DetectionPipeline:
         # device (config.cache_embeddings)
         self._embedding_cache: Dict[Tuple, torch.Tensor] = {}
 
-    def _make_index(self) -> FlatIndex:
+    def _make_index(self):
         cfg = self.config
+        if self.is_quantized:
+            # JAX: an L2 QuantizedIndex, build_accel without a mesh
+            return QuantizedIndex(
+                self.tpp_dim, "L2", build_accel=True,
+                residual_nlist=cfg.sq8_residual_nlist,
+                kmeans_iters=cfg.vector_db_kmeans_iters,
+                refine_bits=cfg.sq8_refine_bits,
+                rerank_depth=cfg.sq8_rerank_depth, device=self.device)
         return FlatIndex(self.tpp_dim, cfg.vector_db_index_type,
                          use_float16=cfg.use_float16,
                          add_batch_size=cfg.vector_add_batch_size,
@@ -427,7 +442,7 @@ class DetectionPipeline:
             self.build_vector_database(manifest, save=save)
             return self.index.ntotal
         if self.index.ntotal == 0 and os.path.exists(os.path.join(
-                self.config.vector_db_path, "index_meta.json")):
+                self.config.vector_db_path, self._meta_name)):
             self.load_vector_database()
         existing = {os.path.basename(p) for p in self.index.paths}
         new_idx = [i for i, b in enumerate(manifest.basenames)
@@ -444,8 +459,22 @@ class DetectionPipeline:
         return len(sub)
 
     # ------------------------------------------------------------------
+    @property
+    def _meta_name(self) -> str:
+        return "sq8_meta.json" if self.is_quantized else "index_meta.json"
+
     def _retrieve(self, tpp, exclude, exclude_mode):
         ix = self.index
+        if self.is_quantized:
+            out = retrieve_on_device_sq8(
+                tpp, ix.codes, ix.scales, ix.norm_sq, ix.labels, ix.ids,
+                exclude, k=self.config.top_k, metric=ix.metric,
+                n_valid=ix.ntotal, accel=ix.build_accel,
+                exclude_mode=exclude_mode, centroids=ix.centroids,
+                cells=ix.cells, codes2=ix.codes2, scales2=ix.scales2,
+                rerank_depth=ix.rerank_depth)
+            ix.count_search()
+            return out
         out = retrieve_on_device(
             tpp, ix.vectors, ix.labels, ix.ids, exclude, k=self.config.top_k,
             metric=ix.metric, n_valid=ix.ntotal, xsq=ix.norms_sq,
@@ -865,7 +894,7 @@ class DetectionPipeline:
 
     def load_vector_database(self) -> bool:
         path = self.config.vector_db_path
-        meta_path = os.path.join(path, "index_meta.json")
+        meta_path = os.path.join(path, self._meta_name)
         if not os.path.exists(meta_path):
             logger.warning("no saved vector DB at %s", path)
             return False
@@ -877,7 +906,13 @@ class DetectionPipeline:
                 f"the configured encoder produces {self.tpp_dim}-d "
                 f"embeddings; rebuild the DB or use the encoder it was "
                 f"built with")
-        self.index = FlatIndex.load(path, use_pallas=self.index.use_pallas,
+        if self.is_quantized:
+            self.index = QuantizedIndex.load(path, build_accel=True,
+                                             device=self.device)
+            # a serving knob, not stored with the index
+            self.index.rerank_depth = self.config.sq8_rerank_depth
+            return True
+        self.index = FlatIndex.load(path, use_pallas=self.use_pallas,
                                     build_accel=True,  # as _make_index
                                     device=self.device)
         return True

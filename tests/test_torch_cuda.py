@@ -533,3 +533,88 @@ def test_whisper_fused_attention_on_card(cuda, pad, monkeypatch):
     assert forms == {f: 2 if f == want else 0 for f in forms}, forms
     assert rel(card32, cpu32) <= 1e-4
     assert rel(card16, cpu32) <= 2 * rel(cpu16, cpu32)
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 33, 64, 256])
+def test_int8_scan_on_card(cuda, b):
+    """torch._int_mm through int8_scan: exact int32 against an int64
+    product at every serving and training B (the batch padded to at least
+    32 rows, then sliced); a D or a capacity off a multiple of 8 raises,
+    never a float product."""
+    from radad_tpu_torch.index.quantized import int8_scan
+
+    g = torch.Generator(device=cuda).manual_seed(b)
+    q8 = torch.randint(-127, 128, (b, 5376), generator=g, device=cuda,
+                       dtype=torch.int8)
+    codes = torch.randint(-127, 128, (2048, 5376), generator=g, device=cuda,
+                          dtype=torch.int8)
+    q8[0], codes[3] = 127, 127
+    got = int8_scan(q8, codes)
+    assert got.dtype == torch.int32 and got.shape == (b, 2048)
+    want = q8.cpu().long() @ codes.cpu().long().t()
+    assert torch.equal(got.cpu().long(), want)
+    with pytest.raises(ValueError):
+        int8_scan(q8[:, :5372].contiguous(), codes[:, :5372].contiguous())
+    with pytest.raises(ValueError):
+        int8_scan(q8, codes[:2044])
+
+
+@pytest.mark.parametrize("variant", ["plain", "residual", "refine"])
+@pytest.mark.parametrize("b", [8, 128])
+def test_sq8_search_on_card_matches_cpu(cuda, variant, b):
+    """The SQ8 index's accelerated route on the card (int8 scan, tile
+    select at T = 8, m = 5, exact_dot on int8 rows in the form the wrapper
+    picks) against the same index on the CPU with the plain kernels:
+    distances within 1e-5 relative (queries off the stored rows), ids equal
+    up to neighbors tied within f32 rounding;
+    each search launches exact_dot once on int8 rows and
+    extract_candidates once at T = 8, m = 5."""
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.index.quantized import QuantizedIndex
+    from radad_tpu_torch.ops import rerank
+
+    g = torch.Generator().manual_seed(3)
+    n, d = 3000, 512
+    centres = 3.0 * torch.randn((16, d), generator=g)
+    x = centres[torch.randint(0, 16, (n,), generator=g)] + torch.randn(
+        (n, d), generator=g)
+    q = x[:b] + 0.5 * torch.randn((b, d), generator=g)
+    kw = {"plain": {}, "residual": dict(residual_nlist=32),
+          "refine": dict(refine_bits=4)}[variant]
+    paths = [f"r{i}.wav" for i in range(n)]
+    idx_cpu = QuantizedIndex(d, "L2", device="cpu", **kw)
+    idx_cpu.add(x, [0.0] * n, paths)
+    idx_gpu = QuantizedIndex(d, "L2", device=cuda, **kw)
+    if variant == "residual":  # the CPU's codebook: no training on the card
+        idx_gpu.centroids = idx_cpu.centroids.to(cuda)
+        idx_gpu._centroids_host = idx_cpu._centroids_host
+    idx_gpu.add(x, [0.0] * n, paths)
+    for name in ("codes", "scales", "norm_sq", "cells", "codes2"):
+        if getattr(idx_cpu, name) is not None:
+            assert torch.equal(getattr(idx_gpu, name).cpu(),
+                               getattr(idx_cpu, name)), name
+    rerank.reset_launches()
+    before = (extract_candidates.launches,
+              extract_candidates.shape_launches.get("T=8 m=5", 0))
+    ex = [file_id(p) for p in paths[:b]]
+    d_gpu, i_gpu = idx_gpu.search(q.numpy(), 5, exclude_ids=ex)
+    d_cpu, i_cpu = idx_cpu.search(q.numpy(), 5, exclude_ids=ex)
+    assert abs(d_gpu - d_cpu).max() <= 1e-5 * abs(d_cpu).max()
+    # ids may differ only between neighbors whose f64 distances to the
+    # dequantized rows tie within twice the f32 rounding of the distance's
+    # sums, sqrt(D) 2^-24 (|q|^2 + |x|^2 + 2 sum |q_d x_d|)
+    qd = q.double()
+    for row in (i_gpu != i_cpu).any(-1).nonzero()[0]:
+        xs = [torch.as_tensor(idx_cpu.reconstruct_batch(i[row])).double()
+              for i in (i_gpu, i_cpu)]
+        both = torch.cat(xs)
+        tol = 2 * d ** 0.5 * 2.0 ** -24 * float(
+            (qd[row] @ qd[row] + both.square().sum(-1)
+             + 2 * (both.abs() @ qd[row].abs())).max())
+        g, w = ((x - qd[row]).square().sum(-1).sort().values for x in xs)
+        assert float((g - w).abs().max()) <= tol, (row, g, w, tol)
+    form = "split" if b <= 64 else "per_query"
+    assert exact_dot.kind_launches["int8"] == 1 == exact_dot.launches
+    assert exact_dot.form_launches[form] == 1
+    assert (extract_candidates.launches - before[0],
+            extract_candidates.shape_launches["T=8 m=5"] - before[1]) == (1, 1)
