@@ -78,7 +78,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``retrieve_on_device_sq8`` on the CPU with the plain kernels, ids up to
    ties within the f32 rounding of the dequantized rows and distances
    within 1e-5 relative, and recall@5 against the f32 certified neighbors
-   and the stage times beside the f32 path's are printed;
+   and the stage times beside the f32 path's are printed; then the IVF
+   phase (``ivf_phase``): the same table in one add to an IVF pipeline at
+   the shipped defaults (nlist 4,096, nprobe 32; k-means, the assignment
+   and the inverted lists timed apart, save -> load without k-means,
+   device bytes), serving ``_counted_run``'s calls (path "ivf": each call
+   kind's route must be the one the JAX package's gate, 2 B budget chunk
+   < n, picks from the index's own state, at least one the gather route;
+   gather results held to the same search on the CPU, ids up to ties
+   within f32 rounding and probes flipped only within the rounding of the
+   centroid distances (``_ivf_hold``); unprobed results held to the f64
+   scan; ``exact_dot``, ``extract_candidates`` and ``gather_rows`` launched
+   on the unprobed calls, never ``flat_topk``; recall@5 against the f32
+   certified neighbors), ``FlatIndex.search`` at B = 64 with
+   ``gather=False`` at nprobe 8, 32 and 128 (path "ivf_masked", held to an
+   f64 scan of the probed rows; recall@5, call and device ms), both
+   gather searches forced at B = 1 and 8 (held to the CPU), a
+   ``use_pallas`` index (no ``flat_topk``), and one epoch + evaluate
+   (path "ivf_train": the unprobed search's kernels, ``exact_dot`` in its
+   per-query form alone); after the wav2vec2 pipeline is freed, IVF at
+   capacity scale (``ivf_capacity_phase``), twice: 1,048,576 seeded rows
+   near a rank-64 subspace, then of 2,048 skewed isotropic components, made
+   on the card and added in one call (k-means on the first 50,000), the gather
+   and masked routes at B = 1, 8 and 64 (paths "ivf_capacity" and
+   "ivf_capacity_skewed"),
+   call and device ms beside their byte bounds, the gather route's
+   neighbors held to the masked route's;
 5. WavLM serving phase: a seeded random wavlm-base pipeline with
    ``use_pallas=True`` and ``RADAD_FUSED_ATTENTION=1`` on the same size of
    DB; the same calls must launch ``fused_mha``'s bias body, ``flat_topk``
@@ -196,6 +221,21 @@ SQ8_R = 40
 # the SQ8 phase's index variants: (path label, config fields)
 SQ8_VARIANTS = (("sq8", {}), ("sq8_residual", {"sq8_residual_nlist": 1024}),
                 ("sq8_refine", {"sq8_refine_bits": 4}))
+# IVF at the shipped defaults (radad_tpu/config.py: vector_db_nlist,
+# vector_db_nprobe); the masked route's nprobe sweep; the capacity step's
+# rows, of wav2vec2-base's TPP width
+IVF_NLIST, IVF_NPROBE = 4096, 32
+IVF_MASKED_NPROBES = (8, 32, 128)
+IVF_CAPACITY_ROWS, IVF_CAPACITY_DIM = 1_048_576, 5376
+# the capacity step's rows: (path, how they are made). "latent": a seeded
+# rank-64 Gaussian latent mapped to D, plus small noise: rows near a
+# low-dimensional subspace, as embeddings lie, whose k-means cells come out
+# near their mean size. "blobs": 2,048 components of isotropic unit noise
+# with lognormal(0, 1) weights; in 5,376 dimensions k-means cannot split
+# such a component, and the points of components without a centroid of
+# their own all fall in one cell (the gather route's worst case)
+IVF_CAPACITY_DATA = (("ivf_capacity", "latent"),
+                     ("ivf_capacity_skewed", "blobs"))
 
 
 def _bf16_instance(form: str, hd: int, bias: bool) -> str:
@@ -286,6 +326,29 @@ def timed_ms(torch, fn, iters: int = 20):
     except NoDeviceEvents as e:
         print(f"timed_ms: {e}; timed on CUDA events")
         return time_ms(torch, fn, iters), "cuda_events"
+
+
+def _kernel_breakdown(torch, fn, iters: int = 10, top: int = 8) -> str:
+    """The device ms a call of ``fn`` spends in each of its ``top`` most
+    costly kernels and copies (``torch.profiler`` over ``iters`` calls),
+    and in all of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    dev.sort(key=lambda e: -e.device_time_total)
+    total = sum(e.device_time_total for e in dev) / 1e3 / iters
+    return f"{total:.4f} ms in {sum(e.count for e in dev) / iters:.0f} " \
+        f"launches: " + "; ".join(
+            f"{e.key[:48]} x{e.count / iters:.0f} "
+            f"{e.device_time_total / 1e3 / iters:.4f}" for e in dev[:top])
 
 
 def timings(torch, kernel, plain, library, iters: int = 20) -> dict:
@@ -1590,7 +1653,9 @@ def _launch_counts(kernels, index=None) -> dict:
     "fused_mha_bf16" (its bf16 bodies). With ``index``, its certified
     searches since ``_reset`` too: "searches" and "fallbacks" (those that
     the certificate failed, whose answer came from the full f32 scan and
-    not from ``extract_candidates`` and ``exact_dot``), and "route"."""
+    not from ``extract_candidates`` and ``exact_dot``), and "route"; an
+    IVF index's gather-route searches also ("gather_searches",
+    "gather_fallbacks": those over their chunk budget)."""
     from radad_tpu_torch.ops.attention import fused_mha
 
     out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
@@ -1608,6 +1673,9 @@ def _launch_counts(kernels, index=None) -> dict:
     if index is not None:
         out["searches"], out["fallbacks"] = index.searches, index.fallbacks
         out["route"] = index.route
+        if getattr(index, "metric", "") == "IVF":  # its gather route apart
+            out["gather_searches"] = index.ivf_gather_searches
+            out["gather_fallbacks"] = index.ivf_gather_fallbacks
     return out
 
 
@@ -1635,6 +1703,8 @@ def _reset(kernels, index=None) -> None:
 
     if index is not None:
         index.searches = index.fallbacks = 0
+        if hasattr(index, "ivf_gather_searches"):
+            index.ivf_gather_searches = index.ivf_gather_fallbacks = 0
 
     for w in kernels:
         if w is attention.fused_mha:
@@ -1868,8 +1938,9 @@ def stage_ms(torch, pipe, paths, reps=5):
     """Median milliseconds per stage of one predict_batch's work on
     ``paths``, each stage ended by a device synchronize: decode, embed
     (segment + encoder + TPP), search, neighbor gather, fusion model. An
-    SQ8 pipeline's search stage is ``retrieve_on_device_sq8``, whose
-    dequantized neighbors come with it (no gather stage)."""
+    SQ8 or IVF pipeline's search stage is its own dispatch (``_retrieve``
+    as predict_batch calls it: ``retrieve_on_device_sq8``, or IVF's gather
+    route or unprobed search), neighbors included (no gather stage)."""
     import numpy as np
 
     from radad_tpu_torch.data.audio import load_audio
@@ -1878,8 +1949,9 @@ def stage_ms(torch, pipe, paths, reps=5):
     from radad_tpu_torch.ops.gather import gather_rows
 
     cfg, ix = pipe.config, pipe.index
-    sq8 = pipe.is_quantized
-    stages = (("decode", "embed", "search", "model") if sq8
+    # SQ8 and IVF: the pipeline's own dispatch, neighbors included
+    fused = pipe.is_quantized or ix.metric == "IVF"
+    stages = (("decode", "embed", "search", "model") if fused
               else ("decode", "embed", "search", "gather", "model"))
     rows = {k: [] for k in stages}
     for _ in range(reps):
@@ -1896,8 +1968,9 @@ def stage_ms(torch, pipe, paths, reps=5):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with torch.inference_mode():
-            if sq8:
-                nb = pipe._retrieve(tpp, excl, "self")[0]
+            if fused:
+                nb = pipe._retrieve(tpp, excl, "self",
+                                    prefer_ivf_gather=True)[0]
                 torch.cuda.synchronize()
                 t3 = t4 = time.perf_counter()
             else:
@@ -2643,6 +2716,599 @@ def sq8_phase(torch, dev, tmp: str, base, ref):
     return by_path
 
 
+def _ivf_cpu(ix) -> dict:
+    """The IVF index's arrays copied to the CPU."""
+    names = ("vectors", "norms_sq", "ids", "centroids", "cells", "ivf_table",
+             "ivf_overflow", "ivf_chunk_rows", "ivf_cell_chunks")
+    return {n: getattr(ix, n).cpu() for n in names}
+
+
+def _ivf_gather(ix, arrays, q, excl, mode, table, k, nprobe=None):
+    """``ivf_gather_search`` (``table="span"``) or the chunked one on
+    ``arrays`` (the index's own, or ``_ivf_cpu``'s), as ``FlatIndex``
+    calls them. → (dists, rows)."""
+    from radad_tpu_torch.index.ivf_gather import (ivf_gather_search,
+                                                  ivf_gather_search_chunked)
+
+    a = arrays
+    np_eff = min(ix.nprobe if nprobe is None else nprobe,
+                 ix.nlist_effective)
+    head = (q, a["vectors"], a["norms_sq"], a["ids"], excl, a["centroids"])
+    if table == "span":
+        return ivf_gather_search(*head, a["ivf_table"], a["ivf_overflow"], k,
+                                 nprobe=np_eff, exclude_mode=mode)
+    return ivf_gather_search_chunked(
+        *head, a["ivf_chunk_rows"], a["ivf_cell_chunks"], a["cells"], k,
+        nprobe=np_eff, budget=ix.chunk_budget(np_eff), n_valid=ix.ntotal,
+        exclude_mode=mode)[:2]
+
+
+def _centroid_rounding(torch, ix, q):
+    """[B, nlist] f64: the f32 rounding bound of each query's expanded
+    centroid distance |q|^2 - 2 q.c + |c|^2, from the inputs alone, as
+    ``_hold_to_f64``'s: 2^-21 (|q|^2 + max |c|^2) + sqrt(D) 2^-24 (|c|^2 +
+    2 sum_d |q_d c_d|)."""
+    q64, c64 = q.double(), ix.centroids.double()
+    csq = c64.square().sum(-1)
+    return (2.0 ** -21 * (q64.square().sum(-1)[:, None] + csq.max())
+            + q.shape[-1] ** 0.5 * 2.0 ** -24
+            * (csq[None, :] + 2.0 * q64.abs() @ c64.abs().t()))
+
+
+def _ivf_hold(torch, ix, cpu, q, excl, mode, got_idx, got_d, table,
+              nprobe=None):
+    """A gather-route search on the card (rows ``got_idx``, distances
+    ``got_d``) against the same search run on the CPU with the plain path
+    on the same queries ``q`` and index arrays (``cpu``). Each query's
+    probed cells must be the same on both, except where the centroid
+    distances that decide a flipped probe lie within twice their f32
+    rounding of each other (``_centroid_rounding``); such rows are counted
+    and their neighbors not compared. On the others, ids must be
+    identical except for neighbors whose f64 distances agree rank by rank
+    within the score's f32 rounding (``_hold_to_f64``'s bound), and the
+    distances must agree within 1e-5 relative plus that bound. → (rows
+    with identical ids, rows whose probe flipped, the largest relative
+    distance error, the largest share of its bound that a gap took)."""
+    from radad_tpu_torch.index.flat import probe_cells
+
+    k = got_idx.shape[1]
+    np_eff = min(ix.nprobe if nprobe is None else nprobe,
+                 ix.nlist_effective)
+    d_cpu, i_cpu = _ivf_gather(ix, cpu, q.float().cpu(), excl.cpu(), mode,
+                               table, k, nprobe)
+    qd = q.float()
+    p_card = probe_cells(qd, ix.centroids, np_eff).sort(-1).values
+    p_cpu = probe_cells(qd.cpu(), cpu["centroids"], np_eff).sort(
+        -1).values.to(q.device)
+    flipped = (p_card != p_cpu).any(-1)
+    if bool(flipped.any()):
+        c64 = ((qd.double()[:, None, :] - ix.centroids.double()[None])
+               .square().sum(-1))  # [B, nlist]
+        tol_c = _centroid_rounding(torch, ix, qd)
+        for r in flipped.nonzero()[:, 0].tolist():
+            edge = c64[r].sort().values[np_eff - 1]
+            diff = set(p_card[r].tolist()) ^ set(p_cpu[r].tolist())
+            for c in diff:
+                if float((c64[r, c] - edge).abs()) > 2.0 * float(
+                        tol_c[r, c] + tol_c[r].max()):
+                    raise AssertionError(
+                        f"IVF: row {r}'s probe flipped cell {c} on the card "
+                        f"beyond the f32 rounding of its centroid distance")
+    keep = ~flipped
+    got = got_idx.to(q.device).long()[keep]
+    want = i_cpu.to(q.device).long()[keep]
+    ok = want >= 0
+    if not torch.equal(got >= 0, ok):
+        raise AssertionError("IVF: the card and the CPU return different "
+                             "numbers of neighbors")
+    qk = qd[keep]
+    rows = torch.cat([got, want], 1).clamp_min(0)
+    tol = (2.0 ** -21 * (qk.double().square().sum(-1)
+                         + ix.norms_sq[: ix.n].max().double())
+           + 2.0 * _dot_rounding(torch, ix, qk, rows))  # [B']
+    gd = got_d.to(q.device).double()[keep]
+    wd = d_cpu.to(q.device).double()[keep]
+    err = (gd - wd).abs().masked_fill(~ok, 0.0)
+    if not bool((err <= 1e-5 * wd.abs().masked_fill(~ok, 0.0)
+                 + tol[:, None]).all()):
+        raise AssertionError(f"IVF: distances on the card differ from the "
+                             f"CPU's beyond 1e-5 relative: {float(err.max())}")
+    rel = float((err / wd.abs().masked_fill(~ok, 1.0)).max()) if len(err) \
+        else 0.0
+
+    def f64(r):
+        x = ix.vectors[r.clamp_min(0)].double()
+        return (x - qk.double()[:, None]).square().sum(-1).masked_fill(
+            ~ok, 0.0)
+
+    gap = (f64(got).sort(-1).values - f64(want).sort(-1).values).abs()
+    gap = gap.amax(-1) if gap.numel() else gap.new_zeros((0,))
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"IVF: neighbors on the card differ from the "
+                             f"CPU's beyond f32 rounding (excess "
+                             f"{float((gap - tol).max()):.3e})")
+    share = float((gap / tol).max()) if gap.numel() else 0.0
+    return (int((got == want).all(-1).sum()), int(flipped.sum()), rel,
+            share)
+
+
+def _ivf_held_text(held) -> str:
+    same, flipped, rel, share = held
+    return (f"ids identical on {same} (the rest swap neighbors tied within "
+            f"f32 rounding), {flipped} rows with a probe flipped within "
+            f"rounding; largest relative distance error {rel:.3e}; largest "
+            f"gap {share:.3f} of its bound")
+
+
+def _ivf_gate(ix, b: int):
+    """JAX's single-device dispatch for a predict batch of ``b`` clips
+    (``radad_tpu/train/pipeline.py:660-689``): → ("gather" or "unprobed",
+    2 b budget chunk)."""
+    np_eff = min(ix.nprobe, ix.ivf_cell_chunks.shape[0])
+    touched = 2 * b * ix.chunk_budget(np_eff) * ix.ivf_chunk_rows.shape[1]
+    return ("gather" if touched < ix.ntotal else "unprobed"), touched
+
+
+def _ivf_tables_text(ix) -> str:
+    counts = ix.ivf_counts
+    return (f"nlist_effective {ix.nlist_effective}, nprobe {ix.nprobe}, "
+            f"span {ix.ivf_table.shape[1]}, overflow "
+            f"{int((ix.ivf_overflow >= 0).sum())} rows, chunk "
+            f"{ix.ivf_chunk_rows.shape[1]} rows x {ix.ivf_chunk_rows.shape[0]}"
+            f" chunks, chunk_budget({ix.nprobe}) "
+            f"{ix.chunk_budget(min(ix.nprobe, ix.nlist_effective))}, "
+            f"{int((counts == 0).sum())} empty cells, largest cell "
+            f"{int(counts.max())} rows, mean {ix.ntotal / len(counts):.2f}, "
+            f"count-weighted mean {float((counts.astype('f8') ** 2).sum()) / ix.ntotal:.2f}")
+
+
+def _ivf_bytes(torch, ix) -> int:
+    names = ("vectors", "labels", "ids", "norms_sq", "scan_bf16",
+             "resid_bf16", "centroids", "cells", "ivf_table", "ivf_overflow",
+             "ivf_chunk_rows", "ivf_cell_chunks")
+    return sum(getattr(ix, n).numel() * getattr(ix, n).element_size()
+               for n in names if getattr(ix, n) is not None)
+
+
+def _ivf_build_times(torch, ix, card):
+    """Times the parts of an IVF build on ``ix`` again: k-means (25 Lloyd
+    steps) on its training rows, the assignment of every row, the gather
+    tables; prints them and whether k-means gave the same centroids."""
+    from radad_tpu_torch.index.flat import _assign_cells
+    from radad_tpu_torch.index.ivf import kmeans
+
+    n = ix.ntotal
+    train = ix.vectors[: min(n, 50_000)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cents, _ = kmeans(train, ix.nlist_effective, iters=ix.kmeans_iters,
+                      seed=0, balance=ix.ivf_balance)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    same = torch.equal(cents, ix.centroids)
+    del cents
+    t0 = time.perf_counter()
+    for lo in range(0, n, 131_072):
+        hi = min(n, lo + 131_072)
+        cells = _assign_cells(ix.vectors[lo:hi], ix.centroids)
+        if not torch.equal(cells, ix.cells[lo:hi]):
+            raise AssertionError("IVF: the assignment differs on a rerun")
+    torch.cuda.synchronize()
+    as_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix._build_gather_tables()
+    torch.cuda.synchronize()
+    tb_s = time.perf_counter() - t0
+    flops = 2 * 2 * train.shape[0] * ix.nlist_effective * ix.dimension
+    print(f"IVF build parts on {n} x {ix.dimension} ({card}): k-means "
+          f"({ix.kmeans_iters} Lloyd steps on {train.shape[0]} rows, nlist "
+          f"{ix.nlist_effective}; two {flops / 2e12:.3f} TFLOP f32 products "
+          f"a step, TF32 off) {km_s:.3f} s "
+          f"({flops * ix.kmeans_iters / km_s / 1e12:.1f} TFLOP/s), same "
+          f"centroids on a rerun: {same}; assignment of every row "
+          f"{as_s:.3f} s; gather tables (host numpy) {tb_s:.3f} s")
+
+
+def ivf_phase(torch, dev, tmp: str, base, ref, card):
+    """The IVF index at full width on the wav2vec2 serving phase's table
+    (``base``: 25,600 x 5,376 rows; ``ref``: its clips and f32 results) at
+    the shipped defaults (nlist 4,096, nprobe 32, balance 0, retrain on
+    add). Build (its parts timed by ``_ivf_build_times``), save and load;
+    serving (path "ivf": ``_counted_run``'s calls, each call kind's route
+    against JAX's gate, gather-route results held to the CPU by
+    ``_ivf_hold``, unprobed ones to the f64 scan, recall@5 against the f32
+    certified neighbors); ``FlatIndex.search`` with ``gather=False`` at
+    nprobe 8 / 32 / 128 (path "ivf_masked", held to an f64 scan of the
+    probed rows); both gather searches forced at B = 1 and 8; a
+    ``use_pallas`` index (no ``flat_topk``); 1 epoch + evaluate (path
+    "ivf_train"). Returns {path: launches}."""
+    import numpy as np
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.index.flat import FlatIndex, probe_cells, probe_mask
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    root = os.path.join(tmp, "ivf")
+    cfg = Config().replace(
+        data_root=root, vector_db_path=os.path.join(root, "vdb"),
+        train_data_path=os.path.join(root, "clips"), random_seed=SEED,
+        num_epochs=1, vector_db_index_type="IVF")
+    pipe = DetectionPipeline(cfg, encoder=base.encoder, device=dev)
+    pipe._embedding_cache = base._embedding_cache
+    flat = base.index
+    n = flat.ntotal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.index.add(flat.vectors[:n], flat.labels[:n].tolist(),
+                   list(flat.paths), metadata=list(flat.metadata),
+                   ids=flat.ids[:n].tolist())
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    built = pipe.index
+    print(f"ivf: IVF index {n} x {built.dimension} in one add (k-means, "
+          f"assignment, tables) {add_s:.2f} s ({card}); "
+          f"{_ivf_tables_text(built)}")
+    _ivf_build_times(torch, built, card)
+    t0 = time.perf_counter()
+    built.save(cfg.vector_db_path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not pipe.load_vector_database():
+        raise AssertionError("ivf: the saved IVF DB did not load")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ix = pipe.index
+    for name in ("vectors", "ids", "centroids", "ivf_table", "ivf_overflow",
+                 "ivf_chunk_rows", "ivf_cell_chunks"):
+        if not torch.equal(getattr(ix, name), getattr(built, name)):
+            raise AssertionError(f"ivf: {name} differs after save -> load")
+    if not torch.equal(ix.cells[:n], built.cells[:n]):
+        raise AssertionError("ivf: cells differ after save -> load")
+    nbytes = _ivf_bytes(torch, ix)
+    print(f"ivf: save {save_s:.2f} s, load (no k-means) {load_s:.2f} s; "
+          f"device bytes {nbytes} ({nbytes / 2**20:.1f} MiB; of it the "
+          f"quantizer and tables "
+          f"{(nbytes - _ivf_bytes(torch, flat)) / 2**20:.1f} MiB)")
+    del built
+    cpu = _ivf_cpu(ix)
+    k = cfg.top_k
+    q_paths, batch64 = ref["q_paths"], ref["batch64"]
+    sets = _serving_sets(q_paths, batch64)
+    by_path = {}
+
+    # serving: the counted run, then each call kind's route
+    lat, stages, outs, launches, _ = _counted_run(torch, pipe, q_paths,
+                                                  batch64, kernels)
+    if launches["gather_searches"] <= 0:
+        raise AssertionError(f"ivf: no serving call took the gather route: "
+                             f"{launches}")
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
+            raise AssertionError(f"ivf: {name} not launched by the unprobed "
+                                 f"calls: {launches}")
+    _exact_dot_form_only(launches, "ivf", "split")
+    if launches["flat_topk"] or launches["fused_mha"] \
+            or launches["fused_mha_bf16"]:
+        raise AssertionError(f"ivf: an opt-in kernel ran: {launches}")
+    _report(lat, stages, pipe, launches, "ivf")
+    by_path["ivf"] = launches
+    for name, paths in sets.items():
+        want, touched = _ivf_gate(ix, len(paths))
+        _reset(kernels, ix)
+        if name == "predict_1":
+            outs[name] = [pipe.predict(paths[0])]
+        else:
+            outs[name] = pipe.predict_batch(paths)
+        torch.cuda.synchronize()
+        took = ("gather" if ix.ivf_gather_searches and not ix.searches
+                else "unprobed" if ix.searches and not ix.ivf_gather_searches
+                else f"{ix.ivf_gather_searches} gather + {ix.searches} "
+                     f"unprobed")
+        if took != want:
+            raise AssertionError(f"ivf {name}: took the {took} route, JAX's "
+                                 f"gate picks {want}")
+        tpp = _embed_paths(torch, pipe, paths)
+        excl = torch.as_tensor([file_id(p) for p in paths],
+                               dtype=torch.int32, device=dev)
+        if took == "gather":
+            rows = _rows_of(torch, pipe, outs[name])
+            dists = torch.as_tensor([[r["distance"] for r in o["retrieved"]]
+                                     for o in outs[name]])
+            mode = "batch" if name == "predict_1" else "self"
+            held = _ivf_held_text(_ivf_hold(torch, ix, cpu, tpp, excl, mode,
+                                            rows, dists, "chunked"))
+            held = f"against the CPU's plain route: {held}"
+        else:
+            held = ("against the f64 full scan: "
+                    + _held_text(_check_against_full_scan(
+                        torch, pipe, paths, outs[name])))
+        hits = [len(set(a) & set(b)) for a, b in zip(
+            (o["retrieved_files"] for o in outs[name]), ref["files"][name])]
+        st = stage_ms(torch, pipe, paths)
+        print(f"ivf {name}: route {took} (JAX's gate: 2 B budget chunk = "
+              f"{touched} against n = {ix.ntotal}), {len(paths)} rows held "
+              f"{held}; recall@{k} against the f32 certified neighbors "
+              f"{sum(hits) / (k * len(hits)):.4f}; stages (median of 5, ms) "
+              + ", ".join(f"{s} {v:.3f}" for s, v in st.items())
+              + "; f32 certified " + ", ".join(
+                  f"{s} {v:.3f}" for s, v in ref["stages"][name].items()))
+        if took == "gather":
+            mode = "batch" if name == "predict_1" else "self"
+
+            def search():
+                with torch.inference_mode():
+                    pipe._retrieve(tpp, excl, mode, prefer_ivf_gather=True)
+
+            def call():
+                search()
+                torch.cuda.synchronize()
+
+            call_ms, dev_ms = time_ms(torch, call, 10), timed_ms(
+                torch, search)[0]
+            print(f"ivf {name}: the gather route alone: call {call_ms:.4f} ms"
+                  f" (CUDA events, synchronized), device {dev_ms:.4f} ms "
+                  f"(profiler), busy {dev_ms / call_ms:.3f} ({card}); "
+                  f"device ms by kernel: {_kernel_breakdown(torch, search)}")
+
+    # FlatIndex.search's masked route at B = 64, nprobe 8 / 32 / 128
+    tpp = _embed_paths(torch, pipe, batch64)
+    excl = torch.as_tensor([file_id(p) for p in batch64], dtype=torch.int32,
+                           device=dev)
+    base_mask = _exclusion_mask(torch, ix, excl, "self")
+    _reset(kernels, ix)
+    results = {}
+    for nprobe in IVF_MASKED_NPROBES:
+        results[nprobe] = ix.search(tpp, k, exclude_ids=excl.cpu().numpy(),
+                                    nprobe=nprobe, gather=False,
+                                    _exclude_mode="self")
+    torch.cuda.synchronize()
+    masked = _launch_counts(kernels, ix)
+    for name in ("exact_dot", "extract_candidates"):
+        if masked[name] <= 0:
+            raise AssertionError(f"ivf_masked: {name} not launched: {masked}")
+    if masked["flat_topk"] or masked["gather_searches"]:
+        raise AssertionError(f"ivf_masked: not the masked route: {masked}")
+    by_path["ivf_masked"] = masked
+    for nprobe, (_, rows) in results.items():
+        got = torch.as_tensor(rows, device=dev)
+        mask = base_mask | ~probe_mask(probe_cells(tpp, ix.centroids, nprobe),
+                                       ix.cells, ix.nlist_effective)
+        held = _hold_to_f64(torch, ix, tpp, mask, got, k)
+        names = [[os.path.basename(ix.paths[r]) for r in row]
+                 for row in rows.tolist()]
+        hits = [len(set(a) & set(b)) for a, b in zip(
+            names, ref["files"]["predict_batch_64"])]
+
+        def search(nprobe=nprobe):
+            ix.search(tpp, k, exclude_ids=excl.cpu().numpy(), nprobe=nprobe,
+                      gather=False, _exclude_mode="self")
+
+        call_ms, dev_ms = time_ms(torch, search, 10), timed_ms(
+            torch, search, 10)[0]
+        print(f"ivf_masked nprobe {nprobe}, B = 64: held to an f64 scan of "
+              f"the probed rows, {_held_text(held)}; recall@{k} against the "
+              f"f32 certified neighbors {sum(hits) / (k * len(hits)):.4f}; "
+              f"call {call_ms:.4f} ms (CUDA events), device {dev_ms:.4f} ms "
+              f"(profiler) ({card})")
+    print(f"ivf_masked: {masked}")
+
+    # both gather searches forced, B = 1 and 8, held to the CPU
+    for b in (1, 8):
+        q = _embed_paths(torch, pipe, q_paths[8:8 + b])
+        ex = torch.as_tensor([file_id(p) for p in q_paths[8:8 + b]],
+                             dtype=torch.int32, device=dev)
+        for table in ("span", "chunked"):
+            arrays = {n_: getattr(ix, n_) for n_ in cpu}
+            d_, i_ = _ivf_gather(ix, arrays, q, ex, "self", table, k)
+            held = _ivf_hold(torch, ix, cpu, q, ex, "self", i_, d_, table)
+
+            def run(table=table, q=q, ex=ex, arrays=arrays):
+                _ivf_gather(ix, arrays, q, ex, "self", table, k)
+
+            print(f"ivf forced {table} gather, B = {b}: against the CPU's "
+                  f"plain route, {_ivf_held_text(held)}; device "
+                  f"{timed_ms(torch, run, 10)[0]:.4f} ms (profiler) ({card})")
+
+    # use_pallas: IVF keeps the certified route
+    pallas = FlatIndex.load(cfg.vector_db_path, use_pallas=True, device=dev)
+    _reset(kernels, pallas)
+    pallas.search(tpp, k, exclude_ids=excl.cpu().numpy(), gather=False,
+                  _exclude_mode="self")
+    pallas.search(tpp[:1], k, exclude_ids=excl[:1].cpu().numpy())
+    torch.cuda.synchronize()
+    pl = _launch_counts(kernels, pallas)
+    if pl["flat_topk"] or pl["exact_dot"] <= 0 or pallas.route != "certified":
+        raise AssertionError(f"ivf use_pallas: flat_topk ran or the "
+                             f"certified route did not: {pl}")
+    print(f"ivf use_pallas=True: route {pallas.route}, launches {pl}")
+    del pallas
+
+    # training: one epoch + evaluate at B = 128 / 256, counted
+    db_paths = ref["db_paths"]
+    train_m = _manifest(db_paths, flat.labels[: len(db_paths)].tolist())
+    val_m = _manifest(q_paths, ref["q_labels"])
+    torch.cuda.synchronize()
+    _reset(kernels, ix)
+    t0 = time.perf_counter()
+    pipe.train(train_m, val_m)
+    result = pipe.evaluate(val_m)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tl = _launch_counts(kernels, pipe.index)
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if tl[name] <= 0:
+            raise AssertionError(f"ivf_train: {name} not launched: {tl}")
+    _exact_dot_form_only(tl, "ivf_train", "per_query")  # B = 128, 256
+    if tl["flat_topk"] or tl["gather_searches"]:
+        raise AssertionError(f"ivf_train: not the unprobed route: {tl}")
+    rows_ = [r for r in pipe.writer.rows if r["epoch"] != "eval"]
+    if not np.isfinite([rows_[-1]["train_loss"], result["loss"]]).all():
+        raise AssertionError(f"ivf_train: non-finite loss {rows_}")
+    eval_batch = next(iter(pipe._query_batches(val_m, cfg.eval_batch_size,
+                                               shuffle=False)))
+    etpp, _, eids, _ = eval_batch
+    got = pipe._retrieve(etpp, eids, "batch")[3]
+    held = _hold_to_f64(torch, ix, etpp,
+                        _exclusion_mask(torch, ix, eids, "batch"), got, k)
+    print(f"ivf_train: 1 epoch ({pipe.step} steps at B = {cfg.batch_size}) "
+          f"+ evaluate ({result['num_samples']} clips at B = "
+          f"{cfg.eval_batch_size}) in {secs:.2f} s, train loss "
+          f"{rows_[-1]['train_loss']:.6f}, eval loss {result['loss']:.6f}; "
+          f"eval batch's retrieval (B = {etpp.shape[0]}, unprobed) against "
+          f"the f64 full scan: {_held_text(held)}; kernel launches {tl}")
+    by_path["ivf_train"] = tl
+    del pipe, cpu
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _capacity_rows(torch, g, kind: str, d: int):
+    """A maker of seeded rows ``m -> [m, d]`` on ``g``'s device, of the
+    IVF_CAPACITY_DATA kind ``kind``."""
+    dev = g.device
+    if kind == "latent":
+        basis = torch.randn((64, d), generator=g, device=dev) / 8.0
+
+        def make(m):
+            z = torch.randn((m, 64), generator=g, device=dev)
+            return z @ basis + 0.1 * torch.randn((m, d), generator=g,
+                                                 device=dev)
+        return make
+    weights = torch.randn((2048,), generator=g, device=dev).exp()
+    centers = 1.5 * torch.randn((2048, d), generator=g, device=dev)
+
+    def make(m):
+        comp = torch.multinomial(weights, m, replacement=True, generator=g)
+        return centers[comp] + torch.randn((m, d), generator=g, device=dev)
+    return make
+
+
+def ivf_capacity_phase(torch, dev, card, label: str, kind: str):
+    """IVF at capacity scale: ``FlatIndex(5376, "IVF")`` at nlist 4,096 and
+    nprobe 32 over IVF_CAPACITY_ROWS seeded rows of the IVF_CAPACITY_DATA
+    kind ``kind``, made on the device and added in one call (no host copy; capacity grows once): the
+    f32 table and its bf16 scan and residual copies, 45 GB of the 80.
+    Build parts timed; B = 1 / 8 / 64 on the gather route and the masked
+    route (path ``label``: each route once a B, counted), call ms on CUDA
+    events and device ms (profiler) with their byte bounds, the kernels of
+    the gather route at B = 1; the gather route's neighbors held to the
+    masked route's. → {label: launches}."""
+    import numpy as np
+
+    from radad_tpu_torch.index.flat import FlatIndex
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    n, d, k = IVF_CAPACITY_ROWS, IVF_CAPACITY_DIM, 5
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    make = _capacity_rows(torch, g, kind, d)
+    rows = torch.empty((n, d), device=dev)
+    for lo in range(0, n, 65_536):
+        rows[lo:lo + 65_536] = make(min(65_536, n - lo))
+    queries = make(64)
+    del make
+    ix = FlatIndex(d, "IVF", nlist=IVF_NLIST, nprobe=IVF_NPROBE, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ix.add(rows, np.zeros((n,), np.float32),
+           [f"cap_{i:07d}.wav" for i in range(n)],
+           ids=np.arange(n, dtype=np.int32))
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    del rows
+    torch.cuda.empty_cache()
+    print(f"{label}: {kind} rows, {n} x {d} f32 rows ({n * d * 4 / 1e9:.1f} GB) in "
+          f"one add (k-means on the first 50,000, assignment, tables) "
+          f"{add_s:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; index "
+          f"bytes {_ivf_bytes(torch, ix) / 2**30:.2f} GiB ({card}); "
+          f"{_ivf_tables_text(ix)}")
+    _ivf_build_times(torch, ix, card)
+    np_eff = min(ix.nprobe, ix.nlist_effective)
+    budget, chunk = ix.chunk_budget(np_eff), ix.ivf_chunk_rows.shape[1]
+    span_rows = np_eff * ix.ivf_table.shape[1] + ix.ivf_overflow.shape[0]
+    _reset(kernels, ix)
+    out = {}
+    for b in (1, 8, 64):
+        q = queries[:b]
+        out[b] = {r: ix.search(q, k, gather=(r == "gather"))
+                  for r in ("gather", "masked")}
+    torch.cuda.synchronize()
+    launches = _launch_counts(kernels, ix)
+    for name in ("exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} not launched: "
+                                 f"{launches}")
+    if launches["flat_topk"] or launches["gather_searches"] != 3:
+        raise AssertionError(f"{label}: routes not as asked: {launches}")
+    print(f"{label}: launches {launches}")
+    cent_bytes = ix.centroids.numel() * 4
+    for b in (1, 8, 64):
+        q = queries[:b]
+        table = "chunked" if b * budget * chunk <= b * span_rows else "span"
+        g_rows = b * (budget * chunk if table == "chunked" else span_rows)
+        for r in ("gather", "masked"):
+            def search(r=r, q=q):
+                ix.search(q, k, gather=(r == "gather"))
+
+            call_ms = time_ms(torch, search, 10)
+            dev_ms = timed_ms(torch, search, 10)[0]
+            if r == "gather":
+                nbytes = g_rows * d * 4 + cent_bytes
+                what = (f"{table} table, {g_rows} candidate rows + the "
+                        f"centroids")
+            else:
+                nbytes = n * d * 2 * 2  # the bf16 scan copy and residual
+                what = "the bf16 scan copy and residual of every row"
+            bnd = bound_ms(nbytes)[0]
+            if r == "gather" and b == 1:
+                print(f"{label} gather B = 1, device ms by kernel: "
+                      f"{_kernel_breakdown(torch, search)}")
+            print(f"{label} {r} B = {b}: call {call_ms:.4f} ms (CUDA "
+                  f"events), device {dev_ms:.4f} ms (profiler); byte bound "
+                  f"{bnd:.4f} ms ({what}: {nbytes / 1e9:.3f} GB at 3.35 "
+                  f"TB/s) ({card})")
+        (gd, gi), (md, mi) = out[b]["gather"], out[b]["masked"]
+        gi_t, mi_t = (torch.as_tensor(a, device=dev) for a in (gi, mi))
+        qd = q.double()
+
+        def f64(r_):
+            return (ix.vectors[r_.clamp_min(0)].double() - qd[:, None]
+                    ).square().sum(-1)
+
+        tol = (2.0 ** -21 * (qd.square().sum(-1)
+                             + ix.norms_sq[:n].max().double())
+               + 2.0 * _dot_rounding(torch, ix, q,
+                                     torch.cat([gi_t, mi_t], 1)))
+        gap = f64(gi_t).sort(-1).values - f64(mi_t).sort(-1).values
+        # the gather set holds the masked set (the chunk table: equals it)
+        worse = gap.amax(-1) if table == "span" else gap.abs().amax(-1)
+        if not bool((worse <= tol).all()):
+            raise AssertionError(f"{label} B = {b}: the gather route's "
+                                 f"neighbors differ from the masked route's "
+                                 f"beyond f32 rounding")
+        print(f"{label} B = {b}: gather ids identical to the masked "
+              f"route's on {int((gi_t == mi_t).all(-1).sum())} of {b} rows "
+              f"(the rest within f32 rounding), largest gap "
+              f"{float((worse / tol).max()):.3f} of its bound")
+    del ix, queries
+    torch.cuda.empty_cache()
+    return {label: launches}
+
+
 def server_phase(pipe, q_paths) -> None:
     """The port's HTTP server on localhost: 3 WAV uploads to /api/predict."""
     import threading
@@ -3139,8 +3805,12 @@ def main() -> int:
         server_phase(pipe, q_paths)
         # the SQ8 index (plain, residual, int4-refined) on the same table
         by_path.update(sq8_phase(torch, dev, tmp, pipe, ref))
+        # the IVF index on the same table, then at capacity scale
+        by_path.update(ivf_phase(torch, dev, tmp, pipe, ref, card))
         del pipe  # free the first pipeline before building the second
-        for phase in (lambda: wavlm_phase(torch, dev, tmp),
+        for phase in (*(lambda m=m: ivf_capacity_phase(torch, dev, card, *m)
+                        for m in IVF_CAPACITY_DATA),
+                      lambda: wavlm_phase(torch, dev, tmp),
                       lambda: fused_forward_phase(
                           torch, dev, tmp, "hubert",
                           "facebook/hubert-xlarge-ls960-ft", "hubert_xlarge"),
@@ -3227,6 +3897,10 @@ def main() -> int:
         kernels.append(rec)
     print("search route by path: " + json.dumps(
         {p: n["route"] for p, n in by_path.items() if "route" in n}))
+    print("IVF gather-route searches (and their fallbacks) by path: "
+          + json.dumps({p: (n["gather_searches"], n["gather_fallbacks"])
+                        for p, n in by_path.items()
+                        if "gather_searches" in n}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))

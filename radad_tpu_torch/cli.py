@@ -1,9 +1,9 @@
 """Command-line entry point of the port: train, evaluate, predict and
 build_db.
 
-Counterpart: ``radad_tpu/cli.py`` (same flag names, SQ8's included; the
-mesh and IVF flags wait for their slices, and a configuration the port
-cannot run raises "not yet ported"). ``--device`` defaults to ``cuda``
+Counterpart: ``radad_tpu/cli.py`` (same flag names, SQ8's and IVF's
+included; ``--data_shards`` / ``--index_shards`` set the config's mesh
+sizes, and a mesh the port cannot run yet raises "not yet ported"). ``--device`` defaults to ``cuda``
 and the run fails when no GPU is present unless ``--device cpu`` is
 given.
 
@@ -57,7 +57,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--index_type", type=str, default=None,
-                   help="L2, IP, COSINE or SQ8")
+                   help="L2, IP, COSINE, IVF or SQ8")
+    p.add_argument("--nprobe", type=int, default=None,
+                   help="IVF cells probed per search (reference "
+                        "config.py:53/76 vector_db_nprobe)")
+    p.add_argument("--ivf_balance", type=float, default=None,
+                   help="IVF centroid split-refinement strength (0 = plain "
+                        "Lloyd, FAISS's; ~1.0 balances cell sizes for a "
+                        "cheaper gather-probed search)")
+    p.add_argument("--ivf_no_retrain_on_add", action="store_true",
+                   help="IVF: never retrain the coarse quantizer on an add; "
+                        "assign the new rows to the trained cells (FAISS "
+                        "IndexIVFFlat.add; for --mode build_db ingestion)")
     p.add_argument("--sq8_residual_nlist", type=int, default=None,
                    help="SQ8 residual-encoding codebook size (0 = plain "
                         "per-row SQ8; ~1024 recovers recall on clustered "
@@ -68,6 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "~12-bit re-score and neighbor fidelity)")
     p.add_argument("--weights_dir", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--data_shards", type=int, default=0,
+                   help="mesh 'data' axis size (0 = single device; a mesh "
+                        "is not yet ported)")
+    p.add_argument("--index_shards", type=int, default=1,
+                   help="mesh 'index' axis size (DB row sharding; not yet "
+                        "ported)")
     p.add_argument("--use_float16", action="store_true",
                    help="store the vector DB in bf16")
     p.add_argument("--rebuild_db", action="store_true",
@@ -114,8 +131,17 @@ def config_from_args(args):
         over[f"{args.feature_extractor.lower()}_model_name"] = args.model_name
     if args.whisper_fast:
         over["whisper_pad_seconds"] = None
+    if args.nprobe is not None:
+        over["vector_db_nprobe"] = args.nprobe
     if args.index_type is not None:
         over["vector_db_index_type"] = args.index_type.upper()
+    if args.ivf_balance is not None:
+        over["vector_db_ivf_balance"] = args.ivf_balance
+    if args.ivf_no_retrain_on_add:
+        over["vector_db_ivf_retrain_on_add"] = False
+    if args.data_shards:  # the JAX package's CLI builds a mesh here
+        over.update(data_shards=args.data_shards,
+                    index_shards=args.index_shards)
     if args.sq8_residual_nlist is not None:
         over["sq8_residual_nlist"] = args.sq8_residual_nlist
     if args.sq8_refine_bits is not None:

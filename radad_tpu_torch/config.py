@@ -3,7 +3,7 @@
 Counterpart: ``radad_tpu/config.py``. The port keeps its own copy (it
 imports nothing of ``radad_tpu``) with the same field names and defaults,
 so a config written by either package loads in the other. Fields for
-parts not ported yet (IVF, meshes) are kept for that reason; the code that
+parts not ported yet (meshes) are kept for that reason; the code that
 reads them raises "not yet ported".
 Placement is not a config field: the port's entry points take a
 ``device`` argument.

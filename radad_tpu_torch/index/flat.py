@@ -1,10 +1,10 @@
 """Device-resident flat vector index with certified-exact search.
 
-Counterpart: ``radad_tpu/index/flat.py`` (``FlatIndex`` for L2, IP and
-COSINE; ``_hier_candidates``, ``_search_fast_exact``, ``_search_device``,
-``_rerank_exact``, ``_assign_cells``; ``search_overfetch``,
-``reconstruct_batch``, ``labels_for``). The SQ8 index is
-``index/quantized.py``; IVF waits for a later slice and raises.
+Counterpart: ``radad_tpu/index/flat.py`` (``FlatIndex`` for L2, IP,
+COSINE and IVF; ``_hier_candidates``, ``_search_fast_exact``,
+``_search_device``, ``_rerank_exact``, ``_assign_cells``;
+``search_overfetch``, ``reconstruct_batch``, ``labels_for``). The SQ8
+index is ``index/quantized.py``.
 
 Search is the JAX package's certified fast-exact route on every device:
 one bf16 scan with a hi/lo query split and a bf16 residual term (f32
@@ -32,6 +32,18 @@ Ties: ``jax.lax.top_k`` puts the lower index first among equal values, and
 ``torch.topk`` leaves their order unspecified on CUDA, so every select
 whose ids must match JAX is a stable descending sort, sliced.
 
+IVF (L2 with a k-means coarse quantizer, ``index/ivf.py``): every add
+retrains the quantizer on the first 50,000 rows (or, with
+``ivf_retrain_on_add=False``, assigns the new rows to the trained cells)
+and rebuilds the inverted lists of ``index/ivf_gather.py`` on the host.
+A search probes the ``nprobe`` nearest cells of each query (f32, TF32
+off, the lower cell first among ties). A small batch, whose probed cells
+hold far fewer rows than the index, takes the gather route
+(``ivf_gather.py``: only the probed cells' rows are read); any other batch
+takes the masked route: the probe mask joins the certified search's mask.
+IVF keeps the certified route under ``use_pallas``, as in JAX
+(``flat_topk`` has no probe mask).
+
 Persistence writes the JAX package's files (``index_arrays.npz``,
 ``index_meta.json``, ``index_host.pkl``), so an index saved by either
 package loads in the other. Paths and metadata stay host-side.
@@ -40,6 +52,7 @@ package loads in the other. Paths and metadata stay host-side.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import pickle
 from typing import List, Optional, Sequence, Tuple
@@ -47,13 +60,21 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from radad_tpu_torch.index.ivf import kmeans
 from radad_tpu_torch.ops.gather import gather_rows
 from radad_tpu_torch.ops.rerank import exact_dot
 from radad_tpu_torch.ops.topk import (LANES, NEG_INF, extract_candidates,
                                       flat_topk, top_k_stable)
 from radad_tpu_torch.utils.device import resolve_device
 
+logger = logging.getLogger(__name__)
+
 _PAD = 1024  # capacity quantum, as in the JAX package
+_IVF_TRAIN_ROWS = 50_000  # k-means trains on the first rows (FAISS's cap)
+_ASSIGN_ROWS = 131_072  # rows a step of the cell assignment
+# meta keys that FlatIndex's own attributes carry
+_META_KEYS = ("dimension", "metric", "n", "use_float16", "nlist", "nprobe",
+              "kmeans_iters", "ivf_balance", "ivf_retrain_on_add")
 
 
 def _round_up(n: int, m: int = _PAD) -> int:
@@ -71,28 +92,39 @@ def bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class FlatIndex:
-    """Brute-force (exact) index over clip embeddings.
+    """Brute-force (exact) index over clip embeddings, or IVF.
 
     Device state: ``vectors [cap, D]`` (f32, or bf16 with
     ``use_float16``), ``labels [cap] f32``, ``ids [cap] int32`` (basename
     id per row, for self-exclusion), ``norms_sq [cap] f32``, and the scan
     arrays ``scan_bf16`` / ``resid_bf16`` (None with ``build_accel=False``);
-    rows ``>= n`` are masked out of every search. Host state: paths and
-    metadata lists. ``route`` names the search every batch takes:
-    "certified" (the default), "full_scan" (``build_accel=False``: the
-    exact f32 scan, counted as a search and never as a fallback) or
-    "flat_topk" (``use_pallas``: ``flat_topk`` + exact re-rank, with or
-    without the scan arrays)."""
+    rows ``>= n`` are masked out of every search. IVF adds ``centroids
+    [nlist_effective, D]``, ``cells [cap] int32`` and the inverted lists
+    of ``ivf_gather.py`` (``ivf_table`` / ``ivf_overflow``, and
+    ``ivf_chunk_rows`` / ``ivf_cell_chunks`` with host copies). Host
+    state: paths and metadata lists. ``route`` names the search every
+    batch of ``_search_device`` takes: "certified" (the default, and IVF's
+    masked route), "full_scan" (``build_accel=False``: the exact f32 scan,
+    counted as a search and never as a fallback) or "flat_topk"
+    (``use_pallas`` outside IVF: ``flat_topk`` + exact re-rank); IVF's
+    gather route is counted apart (``ivf_gather_searches``)."""
 
-    metric_kinds = ("L2", "IP", "COSINE")
+    metric_kinds = ("L2", "IP", "COSINE", "IVF")
 
     def __init__(self, dimension: int, metric: str = "L2", *,
+                 nlist: int = 0, nprobe: int = 32, kmeans_iters: int = 25,
+                 ivf_balance: float = 0.0, ivf_retrain_on_add: bool = True,
                  use_float16: bool = False, add_batch_size: int = 10000,
                  use_pallas: bool = False, build_accel: bool = True,
                  device="cuda"):
+        """IVF knobs, as the JAX package's: ``nlist`` the configured cell
+        count (0: 4,096; each training clamps it to its rows and sets
+        ``nlist_effective``), ``nprobe`` the cells a search probes,
+        ``kmeans_iters`` Lloyd steps, ``ivf_balance`` k-means'
+        split-refinement strength, ``ivf_retrain_on_add`` whether an add
+        retrains the quantizer (True) or assigns the new rows to the
+        trained cells (False, FAISS's ``IndexIVFFlat.add``)."""
         metric = metric.upper()
-        if metric == "IVF":
-            raise NotImplementedError("IVF index: not yet ported")
         if metric not in self.metric_kinds:
             raise ValueError(f"Unknown index metric: {metric}")
         self.dimension = int(dimension)
@@ -105,6 +137,11 @@ class FlatIndex:
         # arrays)
         self.build_accel = bool(build_accel)
         self.device = resolve_device(device)
+        self.nlist = int(nlist)
+        self.nprobe = int(nprobe)
+        self.kmeans_iters = int(kmeans_iters)
+        self.ivf_balance = float(ivf_balance)
+        self.ivf_retrain_on_add = bool(ivf_retrain_on_add)
         self.n = 0
         self._cap = 0
         self.vectors: Optional[torch.Tensor] = None
@@ -115,12 +152,25 @@ class FlatIndex:
         self.resid_bf16: Optional[torch.Tensor] = None
         self.paths: List[str] = []
         self.metadata: List[dict] = []
-        # saved-meta keys this port does not use (IVF knobs), kept so a
-        # JAX-written index round-trips unchanged
+        # IVF state (rows are not reordered: a row's cell is cells[row])
+        self.nlist_effective = 0
+        self.centroids: Optional[torch.Tensor] = None
+        self.cells: Optional[torch.Tensor] = None
+        self.ivf_table: Optional[torch.Tensor] = None
+        self.ivf_overflow: Optional[torch.Tensor] = None
+        self.ivf_chunk_rows: Optional[torch.Tensor] = None
+        self.ivf_cell_chunks: Optional[torch.Tensor] = None
+        self._ivf_cell_chunks_host: Optional[np.ndarray] = None
+        self.ivf_counts: Optional[np.ndarray] = None
+        self._chunk_budget_cache: dict = {}  # nprobe -> chunk budget
+        # saved-meta keys this port does not use (single_buffer), kept so
+        # a JAX-written index round-trips unchanged
         self._meta_extra: dict = {}
         self.search_chunk = 2048
         self.searches = 0  # searches run through _search_device
         self.fallbacks = 0  # certified searches that failed the certificate
+        self.ivf_gather_searches = 0  # searches on IVF's gather route
+        self.ivf_gather_fallbacks = 0  # chunked ones over their budget
 
     @property
     def ntotal(self) -> int:
@@ -128,9 +178,9 @@ class FlatIndex:
 
     @property
     def route(self) -> str:
-        """The search every batch takes: "flat_topk", "certified" or
-        "full_scan"."""
-        if self.use_pallas:
+        """The search every batch of ``_search_device`` takes: "flat_topk",
+        "certified" or "full_scan". IVF never takes "flat_topk"."""
+        if self.use_pallas and self.metric != "IVF":
             return "flat_topk"
         return "certified" if self.build_accel else "full_scan"
 
@@ -139,7 +189,24 @@ class FlatIndex:
             metadata: Optional[Sequence[dict]] = None,
             ids: Optional[Sequence[int]] = None) -> None:
         """Append rows (reference vector_database.py:108-151). ``vectors``
-        is a numpy array or a tensor on any device."""
+        is a numpy array or a tensor on any device. IVF: the first add
+        trains the quantizer on its input rows; a later one retrains it on
+        the stored rows, or with ``ivf_retrain_on_add=False`` assigns only
+        the new rows (the JAX package's ``_install`` / ``add``)."""
+        old_n = self.n
+        vec = self._append(vectors, labels, paths, metadata, ids)
+        if self.metric != "IVF" or not len(vec):
+            return
+        if old_n == 0:
+            self._train_ivf(vec)
+        elif self.centroids is None or self.ivf_retrain_on_add:
+            self._train_ivf(self.vectors[: self.n])
+        else:
+            self._extend_ivf(old_n)
+
+    def _append(self, vectors, labels, paths, metadata, ids) -> torch.Tensor:
+        """Write the rows of an add; → them as f32 on the index's device
+        (normalized for COSINE)."""
         from radad_tpu_torch.data.manifest import file_id
 
         vec = torch.as_tensor(vectors).to(self.device, torch.float32)
@@ -168,6 +235,7 @@ class FlatIndex:
             self._write_rows(self.n + lo, vec[lo:hi], lab[lo:hi],
                              idc[lo:hi])
         self.n = need
+        return vec
 
     def _grow_to(self, cap: int) -> None:
         """Reallocate the device arrays at capacity ``cap`` (a multiple
@@ -191,6 +259,8 @@ class FlatIndex:
             self.scan_bf16 = grown(self.scan_bf16, (cap, d), torch.bfloat16)
             self.resid_bf16 = grown(self.resid_bf16, (cap, d),
                                     torch.bfloat16)
+        if self.cells is not None:
+            self.cells = grown(self.cells, (cap,), torch.int32)
         self._cap = cap
 
     def _write_rows(self, start: int, vec: torch.Tensor, lab: torch.Tensor,
@@ -212,14 +282,104 @@ class FlatIndex:
                 torch.bfloat16)
 
     # ------------------------------------------------------------------
+    def _train_ivf(self, rows: torch.Tensor) -> None:
+        """k-means on the first 50,000 of ``rows`` (FAISS's training cap),
+        ``nlist`` (4,096 when 0) clamped to the training rows, seed 0; then
+        every stored row assigned to its nearest centroid and the inverted
+        lists rebuilt."""
+        nlist = self.nlist or 4096
+        train = rows[: min(rows.shape[0], _IVF_TRAIN_ROWS)].float()
+        if nlist > train.shape[0]:
+            logger.info("IVF nlist %d > %d training rows; clamping", nlist,
+                        train.shape[0])
+            nlist = max(1, train.shape[0])
+        self.nlist_effective = nlist
+        self.centroids, _ = kmeans(train, nlist, iters=self.kmeans_iters,
+                                   seed=0, balance=self.ivf_balance)
+        self.cells = torch.zeros((self._cap,), dtype=torch.int32,
+                                 device=self.device)
+        self._extend_ivf(0)
+
+    def _restore_ivf(self, centroids: np.ndarray, cells: np.ndarray) -> None:
+        """Adopt a saved (centroids, cells) pair without k-means (FAISS's
+        write_index persists the trained quantizer too)."""
+        self.centroids = torch.as_tensor(np.asarray(centroids, np.float32),
+                                         device=self.device)
+        self.nlist_effective = int(centroids.shape[0])
+        self.cells = torch.zeros((self._cap,), dtype=torch.int32,
+                                 device=self.device)
+        self.cells[: self.n] = torch.as_tensor(
+            np.asarray(cells, np.int32)[: self.n], device=self.device)
+        self._build_gather_tables()
+
+    def _extend_ivf(self, start: int) -> None:
+        """Assign the stored rows ``start:n`` to their nearest trained
+        centroid (in chunks: the [N, nlist] distances of 1M rows would be
+        16 GB), then rebuild the inverted lists. A training assigns every
+        row; with ``ivf_retrain_on_add=False`` an add assigns only its own
+        rows (FAISS's ``IndexIVFFlat.add`` never retrains)."""
+        for lo in range(start, self.n, _ASSIGN_ROWS):
+            hi = min(self.n, lo + _ASSIGN_ROWS)
+            self.cells[lo:hi] = _assign_cells(self.vectors[lo:hi],
+                                              self.centroids)
+        self._build_gather_tables()
+
+    def _build_gather_tables(self) -> None:
+        """The span and chunk tables of ``ivf_gather.py``, built on the host
+        from the [n] cell ids (4 MB at 1M rows) and uploaded. The chunk
+        width is the largest power of two from 8 to 128 that is <= the mean
+        cell (128 at 1M rows and nlist 4,096; 8 on small indexes, where 128
+        would make budget x chunk fail the gather gate, 2 touched < n)."""
+        from radad_tpu_torch.index.ivf_gather import (build_cell_table,
+                                                      build_chunk_table)
+
+        cells = self.cells[: self.n].cpu().numpy()
+        nlist, dev = self.nlist_effective, self.device
+        table, _, overflow = build_cell_table(cells, self.n, nlist)
+        self.ivf_table = torch.as_tensor(table, device=dev)
+        self.ivf_overflow = torch.as_tensor(overflow, device=dev)
+        self._chunk_budget_cache = {}
+        mean_cell = max(1.0, self.n / max(1, nlist))
+        chunk = 8
+        while chunk * 2 <= min(128, mean_cell):
+            chunk *= 2
+        chunk_rows, cell_chunks, counts = build_chunk_table(
+            cells, self.n, nlist, chunk=chunk)
+        self.ivf_chunk_rows = torch.as_tensor(chunk_rows, device=dev)
+        self.ivf_cell_chunks = torch.as_tensor(cell_chunks, device=dev)
+        self._ivf_cell_chunks_host = cell_chunks
+        self.ivf_counts = counts
+
+    def chunk_budget(self, np_eff: int) -> int:
+        """The chunked gather's budget at ``np_eff`` probes, from the host
+        tables (never a device read per call), cached."""
+        from radad_tpu_torch.index.ivf_gather import default_chunk_budget
+
+        budget = self._chunk_budget_cache.get(np_eff)
+        if budget is None:
+            budget = default_chunk_budget(self._ivf_cell_chunks_host,
+                                          self.ivf_counts, np_eff)
+            self._chunk_budget_cache[np_eff] = budget
+        return budget
+
+    # ------------------------------------------------------------------
     def search(self, queries, k: int, *, exclude_ids=None,
+               nprobe: Optional[int] = None, gather: Optional[bool] = None,
                _ids=None, _exclude_mode: str = "batch"
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k: → (distances [B, k], row indices [B, k] int64). Missing
-        slots (k > matches) are index -1 with distance +inf (L2) or -inf
-        (IP/COSINE). ``exclude_ids [B]`` masks rows whose stored id is in
-        the batch's set (the reference's batch-global self-filter,
-        pipeline.py:461-463,494-501)."""
+        slots (k > matches) are index -1 with distance +inf (L2, IVF) or
+        -inf (IP/COSINE). ``exclude_ids [B]`` masks rows whose stored id is
+        in the batch's set (the reference's batch-global self-filter,
+        pipeline.py:461-463,494-501).
+
+        IVF: ``nprobe`` overrides the index's for this call (the
+        reference's per-search ``index.nprobe``, vector_database.py:
+        175-179). ``gather`` forces the gather route (True) or the masked
+        route (False); None picks the gather route when the rows it
+        touches, B (nprobe span + overflow) or B budget chunk, whichever
+        is fewer, are under half the index, and then the table that
+        touches fewer."""
         q = torch.as_tensor(queries).to(self.device, torch.float32)
         b = q.shape[0]
         if self.n == 0:
@@ -227,7 +387,10 @@ class FlatIndex:
                     np.full((b, k), -1, np.int64))
         if b > self.search_chunk:
             # one call-global exclusion union, folded into the id column
-            # once (the -3 sentinel), then fixed-size chunks in "self" mode
+            # once (the -3 sentinel), then chunks in "self" mode; the tail
+            # chunk is padded to search_chunk rows, as the JAX package's
+            # fixed-shape chunks are, so IVF's gather gate sees the same B
+            cs = self.search_chunk
             ids_use, ex_chunk = None, None
             if exclude_ids is not None:
                 ex = torch.as_tensor(np.asarray(exclude_ids, np.int32),
@@ -235,16 +398,18 @@ class FlatIndex:
                 ids_use = torch.where(torch.isin(self.ids, ex),
                                       torch.full_like(self.ids, -3),
                                       self.ids)
-                ex_chunk = np.full((self.search_chunk,), -3, np.int32)
+                ex_chunk = np.full((cs,), -3, np.int32)
             dd, ii = [], []
-            for lo in range(0, b, self.search_chunk):
-                d, i = self.search(q[lo:lo + self.search_chunk], k,
-                                   exclude_ids=None if ex_chunk is None
-                                   else ex_chunk[:min(self.search_chunk,
-                                                      b - lo)],
+            for lo in range(0, b, cs):
+                qc = q[lo:lo + cs]
+                rows = qc.shape[0]
+                if rows < cs:
+                    qc = torch.nn.functional.pad(qc, (0, 0, 0, cs - rows))
+                d, i = self.search(qc, k, exclude_ids=ex_chunk,
+                                   nprobe=nprobe, gather=gather,
                                    _ids=ids_use, _exclude_mode="self")
-                dd.append(d)
-                ii.append(i)
+                dd.append(d[:rows])
+                ii.append(i[:rows])
             return np.concatenate(dd), np.concatenate(ii)
         if self.metric == "COSINE":
             q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
@@ -253,17 +418,62 @@ class FlatIndex:
         else:
             ex = torch.as_tensor(np.asarray(exclude_ids, np.int32),
                                  device=self.device)
+        ids = self.ids if _ids is None else _ids
+        np_req = self.nprobe if nprobe is None else int(nprobe)
+        if self.metric == "IVF" and self.ivf_table is not None:
+            out = self._gather_search(q, ids, ex, k, np_req, gather,
+                                      _exclude_mode)
+            if out is not None:
+                return out
+        ivf = self.metric == "IVF"
         dists, idx, fell_back = _search_device(
-            q, self.vectors, self.ids if _ids is None else _ids, ex, k,
-            metric=self.metric, n_valid=self.n, xsq=self.norms_sq,
-            scan_bf16=self.scan_bf16, resid_bf16=self.resid_bf16,
-            exclude_mode=_exclude_mode, use_pallas=self.use_pallas)
+            q, self.vectors, ids, ex, k, metric=self.metric, n_valid=self.n,
+            xsq=self.norms_sq, scan_bf16=self.scan_bf16,
+            resid_bf16=self.resid_bf16, exclude_mode=_exclude_mode,
+            use_pallas=self.use_pallas,
+            centroids=self.centroids if ivf else None,
+            cells=self.cells if ivf else None, nprobe=np_req)
         self.count_search(fell_back)
+        return dists.cpu().numpy(), idx.cpu().numpy().astype(np.int64)
+
+    def _gather_search(self, q, ids, ex, k, nprobe, gather, exclude_mode):
+        """IVF's gather route where ``search`` takes it (JAX
+        ``flat.py:599-628``), else None."""
+        from radad_tpu_torch.index.ivf_gather import (
+            ivf_gather_search, ivf_gather_search_chunked)
+
+        b = q.shape[0]
+        np_eff = min(nprobe, self.ivf_table.shape[0])
+        # the overflow rides along with every query: B V rows, not V
+        touched_span = b * (np_eff * self.ivf_table.shape[1]
+                            + self.ivf_overflow.shape[0])
+        budget = self.chunk_budget(np_eff)
+        touched_chunk = b * budget * self.ivf_chunk_rows.shape[1]
+        if not (gather or (gather is None
+                           and 2 * min(touched_span, touched_chunk) < self.n)):
+            return None
+        fell_back = False
+        if touched_chunk <= touched_span:
+            dists, idx, fell_back = ivf_gather_search_chunked(
+                q, self.vectors, self.norms_sq, ids, ex, self.centroids,
+                self.ivf_chunk_rows, self.ivf_cell_chunks, self.cells, k,
+                nprobe=np_eff, budget=budget, n_valid=self.n,
+                exclude_mode=exclude_mode)
+        else:
+            dists, idx = ivf_gather_search(
+                q, self.vectors, self.norms_sq, ids, ex, self.centroids,
+                self.ivf_table, self.ivf_overflow, k, nprobe=np_eff,
+                exclude_mode=exclude_mode)
+        self.count_gather_search(fell_back)
         return dists.cpu().numpy(), idx.cpu().numpy().astype(np.int64)
 
     def count_search(self, fell_back: bool) -> None:
         self.searches += 1
         self.fallbacks += int(fell_back)
+
+    def count_gather_search(self, fell_back: bool) -> None:
+        self.ivf_gather_searches += 1
+        self.ivf_gather_fallbacks += int(fell_back)
 
     def search_overfetch(self, queries, k: int, exclude_basenames=None
                          ) -> Tuple[np.ndarray, np.ndarray]:
@@ -310,7 +520,8 @@ class FlatIndex:
 
     # ------------------------------------------------------------------
     def save(self, directory: str) -> None:
-        """The JAX package's files, each written atomically."""
+        """The JAX package's files, each written atomically; an IVF index
+        adds its trained ``centroids`` and the rows' ``cells``."""
         from radad_tpu_torch.utils.atomic_io import (atomic_json_dump,
                                                      atomic_pickle_dump,
                                                      atomic_savez)
@@ -324,15 +535,17 @@ class FlatIndex:
             labels=self.labels[:n].cpu().numpy() if n else empty,
             ids=(self.ids[:n].cpu().numpy() if n
                  else np.zeros((0,), np.int32)))
+        if self.centroids is not None:
+            arrays["centroids"] = self.centroids.cpu().numpy()
+            arrays["cells"] = self.cells[:n].cpu().numpy()
         atomic_savez(os.path.join(directory, "index_arrays.npz"), **arrays)
         meta = dict(self._meta_extra)
         meta.update(dimension=self.dimension, metric=self.metric, n=n,
-                    use_float16=self.use_float16)
-        for key, default in (("nlist", 0), ("nprobe", 32),
-                             ("single_buffer", False), ("kmeans_iters", 25),
-                             ("ivf_balance", 0.0),
-                             ("ivf_retrain_on_add", True)):
-            meta.setdefault(key, default)
+                    use_float16=self.use_float16, nlist=self.nlist,
+                    nprobe=self.nprobe, kmeans_iters=self.kmeans_iters,
+                    ivf_balance=self.ivf_balance,
+                    ivf_retrain_on_add=self.ivf_retrain_on_add)
+        meta.setdefault("single_buffer", False)
         atomic_json_dump(meta, os.path.join(directory, "index_meta.json"))
         atomic_pickle_dump({"paths": self.paths, "metadata": self.metadata},
                            os.path.join(directory, "index_host.pkl"))
@@ -340,27 +553,36 @@ class FlatIndex:
     @classmethod
     def load(cls, directory: str, *, use_pallas: bool = False,
              build_accel: bool = True, device="cuda") -> "FlatIndex":
+        """An index saved by either package; IVF's quantizer is restored
+        from the files, not trained again."""
         with open(os.path.join(directory, "index_meta.json")) as f:
             meta = json.load(f)
         idx = cls(meta["dimension"], meta["metric"],
+                  nlist=meta.get("nlist", 0), nprobe=meta.get("nprobe", 32),
+                  kmeans_iters=int(meta.get("kmeans_iters", 25)),
+                  ivf_balance=float(meta.get("ivf_balance", 0.0)),
+                  ivf_retrain_on_add=bool(meta.get("ivf_retrain_on_add",
+                                                   True)),
                   use_float16=meta.get("use_float16", False),
                   use_pallas=use_pallas, build_accel=build_accel,
                   device=device)
         idx._meta_extra = {k: v for k, v in meta.items()
-                           if k not in ("dimension", "metric", "n",
-                                        "use_float16")}
+                           if k not in _META_KEYS}
         data = np.load(os.path.join(directory, "index_arrays.npz"))
-        if "centroids" in data:
-            raise NotImplementedError("IVF index: not yet ported")
         # index_host.pkl is written by this package or the JAX package
         # beside the arrays; it is trusted like the rest of the directory
         with open(os.path.join(directory, "index_host.pkl"), "rb") as f:
             host = pickle.load(f)
         vectors = data["vectors"]
-        if len(vectors):
-            idx.add(vectors, data["labels"].tolist(), list(host["paths"]),
-                    metadata=list(host["metadata"]),
-                    ids=data["ids"].tolist())
+        if not len(vectors):
+            return idx
+        rows = (vectors, data["labels"].tolist(), list(host["paths"]),
+                list(host["metadata"]), data["ids"].tolist())
+        if "centroids" in data and "cells" in data:
+            idx._append(*rows)
+            idx._restore_ivf(data["centroids"], data["cells"])
+        else:
+            idx.add(*rows)
         return idx
 
 
@@ -513,30 +735,67 @@ def _rerank_exact(q, vectors, cand_scores, cand_idx, k, larger_better):
     return dists, idx.to(torch.int32)
 
 
+def fold_exclusion(ids, exclude_ids, b: int, exclude_mode: str):
+    """``exclude_mode="batch"``: ONE exclusion set from the whole query
+    batch's ids (reference parity, pipeline.py:461-463): every excluded
+    row's id becomes the -3 sentinel that each of the ``b`` queries
+    excludes, so the set's length need not be ``b``. ``"self"``: each query
+    excludes its own id. → (ids, exclude_ids [b])."""
+    if exclude_mode != "batch":
+        return ids, exclude_ids
+    ids = torch.where(torch.isin(ids, exclude_ids), torch.full_like(ids, -3),
+                      ids)
+    return ids, torch.full((b,), -3, dtype=torch.int32, device=ids.device)
+
+
+def probe_cells(q: torch.Tensor, centroids: torch.Tensor,
+                nprobe: int) -> torch.Tensor:
+    """IVF's coarse probe: the ``nprobe`` nearest centroids of each query by
+    |q|^2 - 2 q.c + |c|^2 in f32 (TF32 off: JAX's HIGHEST, FAISS's exact
+    f32), the lower cell first among equal values. → [B, nprobe]."""
+    qc = (q.square().sum(-1, keepdim=True) - 2.0 * (q @ centroids.t())
+          + centroids.square().sum(-1)[None, :])
+    return top_k_stable(-qc, min(int(nprobe), centroids.shape[0]))[1]
+
+
+def probe_mask(probe: torch.Tensor, cells: torch.Tensor,
+               nlist: int) -> torch.Tensor:
+    """[B, cap] True where a row's cell is among its query's probed cells:
+    a [B, nlist] membership scatter, then a per-row gather (cell ids
+    clamped into range, as ``jnp.take(mode="clip")``)."""
+    member = torch.zeros((probe.shape[0], nlist), dtype=torch.bool,
+                         device=probe.device)
+    member.scatter_(1, probe, True)
+    return member.index_select(1, cells.long().clamp(0, nlist - 1))
+
+
 def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
                    scan_bf16, resid_bf16=None, exclude_mode="batch",
-                   rerank_depth=None, use_pallas=False):
+                   rerank_depth=None, use_pallas=False, centroids=None,
+                   cells=None, nprobe=32):
     """Score + mask + k-select. → (dists [B, k], idx [B, k] int32,
     fell_back).
 
     Default: the certified search, ``fell_back`` when it ran the full f32
     scan; without ``scan_bf16`` (``FlatIndex(build_accel=False)``) the full
-    f32 scan alone, ``fell_back`` False. ``use_pallas``: ``flat_topk`` over-fetches ``max(4k, 32)``
-    candidates from a bf16 scan, ``_rerank_exact`` orders them (JAX
-    ``flat.py:1216-1224``, ``|x|^2`` from the gathered rows as there);
-    ``fell_back`` is False.
+    f32 scan alone, ``fell_back`` False. ``use_pallas`` (not IVF):
+    ``flat_topk`` over-fetches ``max(4k, 32)`` candidates from a bf16 scan,
+    ``_rerank_exact`` orders them (JAX ``flat.py:1216-1224``, ``|x|^2``
+    from the gathered rows as there); ``fell_back`` is False.
 
-    ``exclude_mode="batch"``: ONE exclusion set from the whole query
-    batch's ids (reference parity, pipeline.py:461-463); ``"self"``: each
-    query excludes only its own id."""
-    if exclude_mode == "batch":
-        ids = torch.where(torch.isin(ids, exclude_ids),
-                          torch.full_like(ids, -3), ids)
-        exclude_ids = torch.full((q.shape[0],), -3, dtype=torch.int32,
-                                 device=q.device)
+    IVF (L2) with ``centroids``: rows outside each query's ``nprobe``
+    probed cells are masked (``probe_cells``, ``probe_mask``), and the
+    probe mask joins the certified search's mask (JAX
+    ``flat.py:1172-1213``); IVF keeps that route under ``use_pallas``.
+    IVF without ``centroids`` searches every row (the pipeline's
+    unprobed retrieval).
+
+    ``exclude_mode``: see ``fold_exclusion``."""
+    ids, exclude_ids = fold_exclusion(ids, exclude_ids, q.shape[0],
+                                      exclude_mode)
     cap = vectors.shape[0]
     larger_better = metric in ("IP", "COSINE")
-    if use_pallas:
+    if use_pallas and metric != "IVF":
         r = min(max(4 * k, 32), cap)
         cand_scores, cand_idx = flat_topk(
             q.float().contiguous(), vectors, r, metric=metric,
@@ -547,6 +806,9 @@ def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
         return dists, idx, False
     invalid_row = torch.arange(cap, device=q.device) >= n_valid
     mask = invalid_row[None, :] | (ids[None, :] == exclude_ids[:, None])
+    if metric == "IVF" and centroids is not None:
+        mask = mask | ~probe_mask(probe_cells(q, centroids, nprobe), cells,
+                                  centroids.shape[0])
     if scan_bf16 is None:
         dists, idx = _full_scan(q, vectors, xsq, mask, k, larger_better)
         return dists, idx, False

@@ -466,8 +466,11 @@ class Handler(BaseHTTPRequestHandler):
 
 
 def load_pipeline(config, model_prefix: str = "final_model",
-                  device="cuda"):
-    """Startup model+index load (reference app.py:47-83)."""
+                  device="cuda", nprobe: int = None):
+    """Startup model+index load (reference app.py:47-83). ``nprobe``
+    overrides the probe count saved with an IVF index for this server's
+    lifetime (the reference sets ``index.nprobe`` per search,
+    vector_database.py:175-179)."""
     from radad_tpu_torch.train.pipeline import DetectionPipeline
 
     pipe = DetectionPipeline(config, device=device)
@@ -476,14 +479,18 @@ def load_pipeline(config, model_prefix: str = "final_model",
             raise RuntimeError("no trained checkpoint found")
     if not pipe.load_vector_database():
         raise RuntimeError("no saved vector database found")
+    if nprobe is not None:
+        pipe.index.nprobe = int(nprobe)
     return pipe
 
 
 def serve(config, *, host: str = "0.0.0.0", port: int = 5000,
-          pipeline=None, model_prefix: str = "final_model", device="cuda"):
+          pipeline=None, model_prefix: str = "final_model", device="cuda",
+          nprobe: int = None):
     """Build the server (``serve_forever`` is the caller's). Without a
-    ``pipeline`` it loads one on ``device``; a load failure is reported by
-    ``/api/predict`` as HTTP 500."""
+    ``pipeline`` it loads one on ``device`` (``nprobe``: see
+    ``load_pipeline``); a load failure is reported by ``/api/predict`` as
+    HTTP 500."""
     audio_dir = config.train_data_path
     upload_dir = os.path.join(config.data_root, "uploads")
     err = None
@@ -492,7 +499,8 @@ def serve(config, *, host: str = "0.0.0.0", port: int = 5000,
 
         resolve_device(device)  # no GPU: fail at startup, not per request
         try:
-            pipeline = load_pipeline(config, model_prefix, device=device)
+            pipeline = load_pipeline(config, model_prefix, device=device,
+                                     nprobe=nprobe)
         except Exception as e:
             logger.error("pipeline load failed: %s", e)
             pipeline, err = None, str(e)
@@ -550,9 +558,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's 30 s padding (must match how the "
                         "vector DB was built)")
     p.add_argument("--index_type", type=str, default="L2",
-                   help="the saved vector DB's index type: L2, IP, COSINE "
-                        "or SQ8 (its residual and refine settings are read "
-                        "from sq8_meta.json)")
+                   help="SQ8 for a saved SQ8 vector DB (its residual and "
+                        "refine settings are read from sq8_meta.json); any "
+                        "other DB's type (L2, IP, COSINE, IVF) is read from "
+                        "index_meta.json")
+    p.add_argument("--nprobe", type=int, default=None,
+                   help="IVF cells probed per query (serving-time override "
+                        "of the value saved with the index; the reference "
+                        "sets index.nprobe per search, "
+                        "vector_database.py:175-179)")
     return p
 
 
@@ -564,6 +578,8 @@ def config_from_args(args):
         over[f"{args.feature_extractor.lower()}_model_name"] = args.model_name
     if args.whisper_fast:
         over["whisper_pad_seconds"] = None
+    if args.nprobe is not None:
+        over["vector_db_nprobe"] = args.nprobe
     return Config().replace(
         train_data_path=args.data_path, test_data_path=args.data_path,
         data_root=args.data_root,
@@ -579,7 +595,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     httpd = serve(config_from_args(args), host=args.host, port=args.port,
-                  model_prefix=args.model_prefix, device=args.device)
+                  model_prefix=args.model_prefix, device=args.device,
+                  nprobe=args.nprobe)
     httpd.serve_forever()
 
 

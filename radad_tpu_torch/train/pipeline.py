@@ -8,7 +8,8 @@ Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
 ``print_dataset_statistics``), with the SQ8 index
 (``index/quantized.py``: ``vector_db_index_type="SQ8"``, plain, residual
 or int4-refined; ``retrieve_on_device_sq8`` in serving and in the train
-step). IVF and meshes come in later slices.
+step) and the IVF index (``retrieve_on_device_ivf_gather_chunked`` on the
+predict paths; see ``_retrieve``). Meshes come in a later slice.
 
 A predict call runs embed (segment → encoder → TPP → mean over windows)
 → flat search → neighbor gather (``ops.gather.gather_rows``) → fusion
@@ -54,6 +55,8 @@ from radad_tpu_torch.data.loader import iterate_batches
 from radad_tpu_torch.data.manifest import (Manifest, file_id,
                                            validate_no_leakage)
 from radad_tpu_torch.index.flat import FlatIndex, _search_device
+from radad_tpu_torch.index.ivf_gather import (ivf_gather_search,
+                                              ivf_gather_search_chunked)
 from radad_tpu_torch.index.quantized import (QuantizedIndex,
                                              retrieve_on_device_sq8)
 from radad_tpu_torch.models.encoder import FrozenEncoder, build_encoder
@@ -133,6 +136,47 @@ def retrieve_on_device(tpp, vectors, labels, ids, exclude_ids, *, k, metric,
                             torch.zeros_like(neighbors))
     nlabels = torch.where(ok, labels[safe.long()], torch.zeros_like(dists))
     return neighbors, nlabels, dists, idx, fell_back
+
+
+def retrieve_on_device_ivf_gather(tpp, vectors, xsq, labels, ids,
+                                  exclude_ids, centroids, table, overflow,
+                                  *, k, nprobe, exclude_mode="batch"):
+    """Gather-probed IVF retrieval over the span table
+    (``index/ivf_gather.py``): ``retrieve_on_device``'s output contract
+    (missing neighbors are zero vectors with label 0, distance +inf and
+    index -1), reading only the probed cells' rows."""
+    dists, idx = ivf_gather_search(
+        tpp, vectors, xsq, ids, exclude_ids, centroids, table, overflow, k,
+        nprobe=nprobe, exclude_mode=exclude_mode)
+    return _gathered_to_neighbors(vectors, labels, dists, idx)
+
+
+def retrieve_on_device_ivf_gather_chunked(
+        tpp, vectors, xsq, labels, ids, exclude_ids, centroids, chunk_rows,
+        cell_chunks, cells, *, k, nprobe, budget, n_valid,
+        exclude_mode="batch"):
+    """The same over the chunk table, with the dense masked probed scan
+    when the probed cells exceed ``budget`` chunks. → (neighbors, nlabels,
+    dists, idx, fell_back)."""
+    dists, idx, fell_back = ivf_gather_search_chunked(
+        tpp, vectors, xsq, ids, exclude_ids, centroids, chunk_rows,
+        cell_chunks, cells, k, nprobe=nprobe, budget=budget,
+        n_valid=n_valid, exclude_mode=exclude_mode)
+    return _gathered_to_neighbors(vectors, labels, dists, idx) + (fell_back,)
+
+
+def _gathered_to_neighbors(vectors, labels, dists, idx):
+    """Neighbor rows and labels of ``idx`` by ``index_select`` (JAX's XLA
+    take on this route, not the ``gather_rows`` kernel). → (neighbors
+    [B, k, D] f32, labels [B, k], dists, idx)."""
+    safe = idx.clamp_min(0).long()
+    neighbors = vectors.index_select(0, safe.reshape(-1)).float().reshape(
+        idx.shape + (vectors.shape[-1],))
+    ok = idx >= 0
+    neighbors = torch.where(ok[..., None], neighbors,
+                            torch.zeros_like(neighbors))
+    nlabels = torch.where(ok, labels[safe], torch.zeros_like(dists))
+    return neighbors, nlabels, dists, idx
 
 
 ACC_KEYS = ("loss_sum", "correct", "count", "nnz_sum", "gn_proj_sum",
@@ -272,10 +316,11 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
 
 def check_ported(config: Config) -> None:
     """Raise NotImplementedError for a configuration the port cannot run
-    yet (the IVF index)."""
-    metric = config.vector_db_index_type.upper()
-    if metric == "IVF":
-        raise NotImplementedError(f"{metric} index: not yet ported")
+    yet (a mesh: ``data_shards`` or ``index_shards`` > 1)."""
+    if config.data_shards > 1 or config.index_shards > 1:
+        raise NotImplementedError(
+            f"mesh (data_shards={config.data_shards}, index_shards="
+            f"{config.index_shards}): not yet ported")
 
 
 class DetectionPipeline:
@@ -323,6 +368,11 @@ class DetectionPipeline:
                 refine_bits=cfg.sq8_refine_bits,
                 rerank_depth=cfg.sq8_rerank_depth, device=self.device)
         return FlatIndex(self.tpp_dim, cfg.vector_db_index_type,
+                         nlist=cfg.vector_db_nlist,
+                         nprobe=cfg.vector_db_nprobe,
+                         kmeans_iters=cfg.vector_db_kmeans_iters,
+                         ivf_balance=cfg.vector_db_ivf_balance,
+                         ivf_retrain_on_add=cfg.vector_db_ivf_retrain_on_add,
                          use_float16=cfg.use_float16,
                          add_batch_size=cfg.vector_add_batch_size,
                          use_pallas=self.use_pallas,
@@ -463,7 +513,17 @@ class DetectionPipeline:
     def _meta_name(self) -> str:
         return "sq8_meta.json" if self.is_quantized else "index_meta.json"
 
-    def _retrieve(self, tpp, exclude, exclude_mode):
+    def _retrieve(self, tpp, exclude, exclude_mode,
+                  prefer_ivf_gather: bool = False):
+        """Search + neighbors by index kind → (neighbors, nlabels, dists,
+        idx).
+
+        IVF, as the JAX package's single-device dispatch
+        (``radad_tpu/train/pipeline.py:660-689``): the predict paths
+        (``prefer_ivf_gather``) take the chunked gather route when
+        2 B budget chunk < n; everything else (train, eval, larger predict
+        batches) takes ``retrieve_on_device`` without the centroids, the
+        certified search over every row, unprobed."""
         ix = self.index
         if self.is_quantized:
             out = retrieve_on_device_sq8(
@@ -475,6 +535,20 @@ class DetectionPipeline:
                 rerank_depth=ix.rerank_depth)
             ix.count_search()
             return out
+        if (prefer_ivf_gather and ix.metric == "IVF"
+                and ix.ivf_chunk_rows is not None):
+            nprobe = min(ix.nprobe, ix.ivf_cell_chunks.shape[0])
+            budget = ix.chunk_budget(nprobe)
+            if 2 * tpp.shape[0] * budget * ix.ivf_chunk_rows.shape[1] \
+                    < ix.ntotal:
+                out = retrieve_on_device_ivf_gather_chunked(
+                    tpp, ix.vectors, ix.norms_sq, ix.labels, ix.ids,
+                    exclude, ix.centroids, ix.ivf_chunk_rows,
+                    ix.ivf_cell_chunks, ix.cells, k=self.config.top_k,
+                    nprobe=nprobe, budget=budget, n_valid=ix.ntotal,
+                    exclude_mode=exclude_mode)
+                ix.count_gather_search(out[4])
+                return out[:4]
         out = retrieve_on_device(
             tpp, ix.vectors, ix.labels, ix.ids, exclude, k=self.config.top_k,
             metric=ix.metric, n_valid=ix.ntotal, xsq=ix.norms_sq,
@@ -502,14 +576,14 @@ class DetectionPipeline:
             idx = torch.full((b, k), -1, dtype=torch.int32, device=dev)
         else:
             ex = torch.as_tensor(np.asarray(exclude, np.int32), device=dev)
-            neighbors, nlabels, dists, idx = self._retrieve(tpp, ex,
-                                                            exclude_mode)
+            neighbors, nlabels, dists, idx = self._retrieve(
+                tpp, ex, exclude_mode, prefer_ivf_gather=True)
             # rows whose neighbors were all excluded retry without
             # exclusion, each on its own (reference pipeline.py:1051-1054)
             wiped = ~(idx >= 0).any(-1)  # [B]
             if bool(wiped.any()):
                 second = self._retrieve(tpp, torch.full_like(ex, -2),
-                                        exclude_mode)
+                                        exclude_mode, prefer_ivf_gather=True)
                 row = wiped[:, None]
                 neighbors = torch.where(row[..., None], second[0], neighbors)
                 nlabels = torch.where(row, second[1], nlabels)

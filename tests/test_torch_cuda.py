@@ -618,3 +618,75 @@ def test_sq8_search_on_card_matches_cpu(cuda, variant, b):
     assert exact_dot.form_launches[form] == 1
     assert (extract_candidates.launches - before[0],
             extract_candidates.shape_launches["T=8 m=5"] - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("route", ["span", "chunked", "masked"])
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_ivf_search_on_card_matches_cpu(cuda, tmp_path, route, b):
+    """An IVF index trained on the CPU and loaded on the card: each route
+    (the two gather searches, FlatIndex's masked route) against the same
+    search on the CPU with the plain path. The queries' probe margins
+    exceed 10 times the f32 rounding of the centroid distances, so both
+    probe the same cells; ids equal up to neighbors tied within f32
+    rounding, distances within 1e-5 relative; the gather routes launch
+    no kernel, the masked route exact_dot and extract_candidates."""
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.index.flat import FlatIndex
+    from radad_tpu_torch.index.ivf_gather import (ivf_gather_search,
+                                                  ivf_gather_search_chunked)
+
+    g = torch.Generator().manual_seed(5)
+    n, d, nlist, nprobe = 6000, 512, 64, 4
+    centres = 3.0 * torch.randn((48, d), generator=g)
+    x = centres[torch.randint(0, 48, (n,), generator=g)] + torch.randn(
+        (n, d), generator=g)
+    q = x[:b] + 0.5 * torch.randn((b, d), generator=g)
+    paths = [f"r{i}.wav" for i in range(n)]
+    cpu = FlatIndex(d, "IVF", nlist=nlist, nprobe=nprobe, device="cpu")
+    cpu.add(x, [0.0] * n, paths)
+    cpu.save(str(tmp_path))
+    card = FlatIndex.load(str(tmp_path), device=cuda)
+    # probe margins: the nprobe-th and next centroid distances (f64) apart
+    q64, c64 = q.double(), cpu.centroids.double()
+    dist = (q64[:, None] - c64[None]).square().sum(-1).sort(-1).values
+    csq = c64.square().sum(-1)
+    tol_c = (2.0 ** -21 * (q64.square().sum(-1) + csq.max())
+             + 2 * d ** 0.5 * 2.0 ** -24 * (csq[None] + 2 * q64.abs()
+                                            @ c64.abs().t()).amax(-1))
+    assert bool((dist[:, nprobe] - dist[:, nprobe - 1] > 10 * tol_c).all())
+    ex = torch.as_tensor([file_id(p) for p in paths[:b]], dtype=I32)
+    launches = (exact_dot.launches, extract_candidates.launches,
+                gather_rows.launches)
+
+    def run(ix, qq, ee):
+        if route == "masked":
+            return [torch.as_tensor(a) for a in ix.search(
+                qq.cpu().numpy(), 5, exclude_ids=ee.cpu().numpy(),
+                gather=False)]
+        head = (qq, ix.vectors, ix.norms_sq, ix.ids, ee, ix.centroids)
+        if route == "span":
+            return ivf_gather_search(*head, ix.ivf_table, ix.ivf_overflow, 5,
+                                     nprobe=nprobe)
+        return ivf_gather_search_chunked(
+            *head, ix.ivf_chunk_rows, ix.ivf_cell_chunks, ix.cells, 5,
+            nprobe=nprobe, budget=ix.chunk_budget(nprobe), n_valid=ix.n)[:2]
+
+    d_gpu, i_gpu = (a.cpu() for a in run(card, q.to(cuda), ex.to(cuda)))
+    torch.cuda.synchronize()
+    d_cpu, i_cpu = run(cpu, q, ex)
+    moved = [a - b_ for a, b_ in zip((exact_dot.launches,
+                                      extract_candidates.launches,
+                                      gather_rows.launches), launches)]
+    assert moved == ([1, 1, 0] if route == "masked" else [0, 0, 0]), moved
+    assert float((d_gpu - d_cpu).abs().max()) <= 1e-5 * float(
+        d_cpu.abs().max())
+    qd = q.double()
+    for row in (i_gpu != i_cpu).any(-1).nonzero()[:, 0].tolist():
+        xs = [x[i[row].long()].double() for i in (i_gpu, i_cpu)]
+        both = torch.cat(xs)
+        tol = 2 * d ** 0.5 * 2.0 ** -24 * float(
+            (qd[row] @ qd[row] + both.square().sum(-1)
+             + 2 * (both.abs() @ qd[row].abs())).max())
+        gd, wd = ((xx - qd[row]).square().sum(-1).sort().values
+                  for xx in xs)
+        assert float((gd - wd).abs().max()) <= tol, (row, gd, wd, tol)

@@ -166,7 +166,7 @@ def test_no_jax_import():
 
 def test_entry_points_need_a_gpu_unless_cpu(tmp_path):
     """Without a GPU the pipeline, index, encoder, CLI and server raise
-    unless device='cpu' is passed. Training on an IVF index is not ported
+    unless device='cpu' is passed. A mesh (--data_shards 2) is not ported
     yet and raises before the encoder is built."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -187,9 +187,9 @@ def test_entry_points_need_a_gpu_unless_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert FlatIndex(16, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="IVF"):
-        cli.main(["--mode", "train", "--device", "cpu", "--index_type",
-                  "IVF"])
+    with pytest.raises(NotImplementedError, match="mesh"):
+        cli.main(["--mode", "train", "--device", "cpu", "--data_shards",
+                  "2"])
 
 
 def test_server_predict(pair, synthetic_dataset):

@@ -469,6 +469,16 @@ def test_pipeline_train_steps_match_jax(sq8_pipes):
     retrieved neighbors equal JAX's, loss and group gradient norms within
     1e-5, gradients, Adam state and parameters by test_torch_train's
     _hold_step."""
+    jpipe, pipes, splits = sq8_pipes
+    hold_two_train_steps(jpipe, pipes["loaded"], splits["train"], "L2")
+
+
+def hold_two_train_steps(jpipe, tpipe, train_m, metric):
+    """Two train steps of ``tpipe`` (the port) against ``jpipe`` (JAX, the
+    same DB, encoder and fusion weights), each from JAX's state: the
+    neighbors the port's step fetches equal JAX's retrieval (``metric`` as
+    JAX's ``_retrieve`` takes it), loss and group gradient norms within
+    1e-5, gradients, Adam state and parameters by _hold_step."""
     from radad_tpu.train import optim as joptim
     from radad_tpu_torch.models.convert import (adam_state_from_optax,
                                                 fusion_from_flax)
@@ -476,9 +486,6 @@ def test_pipeline_train_steps_match_jax(sq8_pipes):
 
     from test_torch_train import _hold_step, _np
 
-    jpipe, pipes, splits = sq8_pipes
-    tpipe = pipes["loaded"]
-    train_m = splits["train"]
     pw = train_m.pos_weight()
     jtrain, _ = jpipe._steps()
     index_args = jpipe._index_args()
@@ -503,7 +510,7 @@ def test_pipeline_train_steps_match_jax(sq8_pipes):
         fusion_from_flax(tpipe.model, _np(jvars))
         tpipe.opt.load_state_dict(adam_state_from_optax(_np(jstate),
                                                         tpipe.model))
-        jneigh = jpipe._retrieve(index_args, tpp, ids, k=5, metric="L2",
+        jneigh = jpipe._retrieve(index_args, tpp, ids, k=5, metric=metric,
                                  n_valid=jpipe.index.ntotal)[0]
         t = [torch.as_tensor(np.array(a)) for a in (tpp, labels, ids, valid)]
         neighbors, _ = steps.fetch(t[0], t[2])
