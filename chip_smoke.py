@@ -162,7 +162,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 11. whisper-large-v3 (``fused_forward_phase``: 32 layers, 1,280 wide, 20
    heads of 64, 128 mel bins): one forward of 2 padded windows with
    ``RADAD_FUSED_ATTENTION=1`` against the default attention, within 1e-4
-   relative, 32 bias-free launches.
+   relative, 32 bias-free launches;
+12. the mesh (``mesh_phase``, right after the IVF phase, on phase 3's
+   table saved to disk): worlds of ranks spawned on cuda:0, each with a
+   60 s collective timeout and a join deadline after which its ranks are
+   killed and the phase fails. World 1 (NCCL, mesh 1 x 1) and world 4
+   (gloo with CUDA tensors, 2 x 2): ``predict_batch`` and one train step;
+   world 2 (gloo with CUDA tensors): a probe that gloo takes every
+   collective the mesh moves on CUDA tensors (a refused one fails the
+   phase), on 1 x 2 ``predict_batch`` at B = 8 and 64, SQ8
+   plain and residual (nlist 1,024), IVF (nlist 4,096, nprobe 32: B = 64
+   on the masked route, B = 1 on the sharded gather route, each rank's
+   gate printed), a refined SQ8 refused, and the tensor-parallel
+   wav2vec2-base (6 of 12 heads a rank through ``fused_mha`` f32, its
+   launches counted a rank, path "mesh_tp"); on 2 x 1 three train steps at
+   B = 128 with the BatchNorm head and dropout 0, then one epoch +
+   ``evaluate`` at dropout 0.1. Serving is held to the f64 scan of the
+   mesh's embeddings and to the one-device fusion model (logits within
+   1e-4); SQ8 and IVF to the plain single-process form of their sharded
+   search on the card (ids equal, distances within 1e-5 relative) and to
+   that form run on the CPU copies of the same arrays (ids equal but for
+   neighbors tied within f32 rounding, ``_hold_to_cpu``); each train step
+   to the single-device trainer started from the same state
+   (``tests/test_torch_train.py``'s rule, Adam's moments included),
+   parameters bit-equal on every rank; the TP embeddings within rtol
+   2e-4, atol 1e-5 of the replicated encoder with the plain attention.
+   Each world prints its backend, ranks, rows a rank, peak memory a rank,
+   the collectives counted and its median call and step ms beside the
+   card line. The ranks share one card: no figure
+   is a scaling figure.
 
 Each phase sets the launch counts to 0 just before its counted run and
 reads them just after; each serving path prints the audio decoder that
@@ -2448,18 +2476,66 @@ def _sq8_cpu(ix) -> dict:
             for n in names}
 
 
+def _hold_to_cpu(torch, got_idx, got_d, want_idx, want_d, q, recon, label,
+                 flipped=None):
+    """A search on the card (neighbor rows ``got_idx`` and distances
+    ``got_d``) against the same search run on the CPU copies of the same
+    arrays (``want_idx``, ``want_d``). Ids must be identical, except that
+    neighbors may swap where the f64 distances of the two lists' rows
+    (``recon(rows)``: the rows as the search scores them, f64 on the host)
+    agree rank by rank within twice the f32 rounding of the L2 distance's
+    sums, from the inputs alone: sqrt(D) 2^-24 (|q|^2 + |x|^2 + 2 sum
+    |q_d x_d|) over both lists' rows; distances within 1e-5 relative plus
+    that rounding. Queries in ``flipped`` (IVF: a probe that flipped
+    within rounding, ``_probe_flips``) are counted and not compared. →
+    (rows with identical ids, rows not compared, the largest relative
+    distance error, the largest share of its bound that a gap took)."""
+    keep = (torch.ones(q.shape[0], dtype=torch.bool) if flipped is None
+            else ~flipped.cpu())
+    gi, wi = got_idx.cpu().long()[keep], want_idx.cpu().long()[keep]
+    skipped = int((~keep).sum())
+    if not bool(keep.any()):
+        return 0, skipped, 0.0, 0.0
+    ok = wi >= 0
+    if not torch.equal(gi >= 0, ok):
+        raise AssertionError(f"{label}: the card and the CPU return "
+                             f"different numbers of neighbors")
+    q64 = q.float().cpu().double()[keep]
+    xg, xw = recon(gi.clamp_min(0)), recon(wi.clamp_min(0))
+    both = torch.cat([xg, xw], 1)
+    terms = (q64.square().sum(-1)[:, None] + both.square().sum(-1)
+             + 2.0 * (both.abs() * q64.abs()[:, None]).sum(-1)).amax(-1)
+    tol = 2.0 * q64.shape[-1] ** 0.5 * 2.0 ** -24 * terms  # [B']
+    gd = got_d.cpu().double()[keep]
+    wd = want_d.cpu().double()[keep]
+    err = (gd - wd).abs().masked_fill(~ok, 0.0)
+    if not bool((err <= 1e-5 * wd.abs().masked_fill(~ok, 0.0)
+                 + tol[:, None]).all()):
+        raise AssertionError(f"{label}: distances on the card differ from "
+                             f"the CPU's beyond 1e-5 relative: "
+                             f"{float(err.max())}")
+    rel = float((err / wd.abs().masked_fill(~ok, 1.0)).max())
+
+    def f64(x):
+        return (x - q64[:, None]).square().sum(-1).masked_fill(~ok, 0.0)
+
+    gap = (f64(xg).sort(-1).values - f64(xw).sort(-1).values).abs().amax(-1)
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"{label}: neighbors on the card differ from "
+                             f"the CPU's beyond f32 rounding (excess "
+                             f"{float((gap - tol).max()):.3e})")
+    return (int((gi == wi).all(-1).sum()), skipped, rel,
+            float((gap / tol).max()))
+
+
 def _sq8_hold(torch, pipe, cpu, tpp, excl, mode, got_idx, got_d):
     """An SQ8 search on the card (``got_idx``, ``got_d``: neighbor rows and
     distances of the path) against the same function,
     ``retrieve_on_device_sq8``, run on the CPU with the plain kernels on
-    the same embeddings ``tpp`` and index arrays (``cpu``). Ids must be
-    identical, except that neighbors may swap where the f64 distances of
-    the two lists' dequantized rows agree rank by rank within twice the f32
-    rounding of the distance's sums, from the inputs alone: sqrt(D) 2^-24
-    (|q|^2 + |x̂|^2 + 2 sum |q_d x̂_d|) over both lists' rows. Distances
-    within 1e-5 relative plus that rounding. → (rows with identical ids,
-    the largest relative distance error, the largest share of its bound
-    that a gap took)."""
+    the same embeddings ``tpp`` and index arrays (``cpu``), by
+    ``_hold_to_cpu``'s rule on the dequantized rows. → (rows with
+    identical ids, the largest relative distance error, the largest share
+    of its bound that a gap took)."""
     from radad_tpu_torch.index.quantized import (_dequantize,
                                                  retrieve_on_device_sq8)
 
@@ -2470,43 +2546,16 @@ def _sq8_hold(torch, pipe, cpu, tpp, excl, mode, got_idx, got_d):
         n_valid=ix.ntotal, accel=ix.build_accel, exclude_mode=mode,
         centroids=cpu["centroids"], cells=cpu["cells"],
         codes2=cpu["codes2"], scales2=cpu["scales2"])
-    got_idx, i_cpu = got_idx.cpu().long(), i_cpu.long()
-    got_d = got_d.cpu().double()
-    ok = i_cpu >= 0
-    if not torch.equal(got_idx >= 0, ok):
-        raise AssertionError("SQ8: the card and the CPU return different "
-                             "numbers of neighbors")
-    q = tpp.float().cpu().double()
 
     def recon(rows):
-        x = _dequantize(rows.clamp_min(0).reshape(-1), cpu["codes"],
-                        cpu["scales"], cpu["centroids"], cpu["cells"],
-                        cpu["codes2"], cpu["scales2"])
+        x = _dequantize(rows.reshape(-1), cpu["codes"], cpu["scales"],
+                        cpu["centroids"], cpu["cells"], cpu["codes2"],
+                        cpu["scales2"])
         return x.double().reshape(rows.shape + (-1,))
 
-    xg, xc = recon(got_idx), recon(i_cpu)
-    both = torch.cat([xg, xc], 1)
-    terms = (q.square().sum(-1)[:, None] + both.square().sum(-1)
-             + 2.0 * (both.abs() * q.abs()[:, None]).sum(-1)).amax(-1)
-    tol = 2.0 * q.shape[-1] ** 0.5 * 2.0 ** -24 * terms  # [B]
-    want = d_cpu.double()
-    err = (got_d - want).abs().masked_fill(~ok, 0.0)
-    if not bool((err <= 1e-5 * want.abs().masked_fill(~ok, 0.0)
-                 + tol[:, None]).all()):
-        raise AssertionError(f"SQ8: distances on the card differ from the "
-                             f"CPU's beyond 1e-5 relative: {float(err.max())}")
-    rel = float((err / want.abs().masked_fill(~ok, 1.0)).max())
-
-    def f64(x):  # the pipeline's SQ8 index is L2
-        return (x - q[:, None]).square().sum(-1).masked_fill(~ok, 0.0)
-
-    gap = (f64(xg).sort(-1).values - f64(xc).sort(-1).values).abs().amax(-1)
-    if not bool((gap <= tol).all()):
-        raise AssertionError(f"SQ8: neighbors on the card differ from the "
-                             f"CPU's beyond f32 rounding (excess "
-                             f"{float((gap - tol).max()):.3e})")
-    return (int((got_idx == i_cpu).all(-1).sum()), rel,
-            float((gap / tol).max()))
+    same, _, rel, share = _hold_to_cpu(torch, got_idx, got_d, i_cpu, d_cpu,
+                                       tpp, recon, "SQ8")
+    return same, rel, share
 
 
 def _sq8_search_cost(torch, pipe, tpp, excl):
@@ -2743,16 +2792,37 @@ def _ivf_gather(ix, arrays, q, excl, mode, table, k, nprobe=None):
         exclude_mode=mode)[:2]
 
 
-def _centroid_rounding(torch, ix, q):
+def _centroid_rounding(torch, centroids, q):
     """[B, nlist] f64: the f32 rounding bound of each query's expanded
     centroid distance |q|^2 - 2 q.c + |c|^2, from the inputs alone, as
     ``_hold_to_f64``'s: 2^-21 (|q|^2 + max |c|^2) + sqrt(D) 2^-24 (|c|^2 +
     2 sum_d |q_d c_d|)."""
-    q64, c64 = q.double(), ix.centroids.double()
+    q64, c64 = q.double(), centroids.double()
     csq = c64.square().sum(-1)
     return (2.0 ** -21 * (q64.square().sum(-1)[:, None] + csq.max())
             + q.shape[-1] ** 0.5 * 2.0 ** -24
             * (csq[None, :] + 2.0 * q64.abs() @ c64.abs().t()))
+
+
+def _probe_flips(torch, centroids, q, p_card, p_cpu, np_eff: int):
+    """[B] bool: the queries ``q`` whose probed cells (``p_card``,
+    ``p_cpu``: [B, nprobe], sorted) differ between the card and the CPU.
+    Each cell that flipped must have a centroid distance within twice the
+    f32 rounding (``_centroid_rounding``) of the probe's edge, else this
+    raises."""
+    flipped = (p_card != p_cpu).any(-1)
+    for r in flipped.nonzero()[:, 0].tolist():
+        qr = q[r:r + 1].double()
+        c64 = (qr - centroids.double()).square().sum(-1)  # [nlist]
+        tol_c = _centroid_rounding(torch, centroids, q[r:r + 1])[0]
+        edge = c64.sort().values[np_eff - 1]
+        for c in set(p_card[r].tolist()) ^ set(p_cpu[r].tolist()):
+            if float((c64[c] - edge).abs()) > 2.0 * float(tol_c[c]
+                                                          + tol_c.max()):
+                raise AssertionError(
+                    f"IVF: row {r}'s probe flipped cell {c} on the card "
+                    f"beyond the f32 rounding of its centroid distance")
+    return flipped
 
 
 def _ivf_hold(torch, ix, cpu, q, excl, mode, got_idx, got_d, table,
@@ -2780,21 +2850,7 @@ def _ivf_hold(torch, ix, cpu, q, excl, mode, got_idx, got_d, table,
     p_card = probe_cells(qd, ix.centroids, np_eff).sort(-1).values
     p_cpu = probe_cells(qd.cpu(), cpu["centroids"], np_eff).sort(
         -1).values.to(q.device)
-    flipped = (p_card != p_cpu).any(-1)
-    if bool(flipped.any()):
-        c64 = ((qd.double()[:, None, :] - ix.centroids.double()[None])
-               .square().sum(-1))  # [B, nlist]
-        tol_c = _centroid_rounding(torch, ix, qd)
-        for r in flipped.nonzero()[:, 0].tolist():
-            edge = c64[r].sort().values[np_eff - 1]
-            diff = set(p_card[r].tolist()) ^ set(p_cpu[r].tolist())
-            for c in diff:
-                if float((c64[r, c] - edge).abs()) > 2.0 * float(
-                        tol_c[r, c] + tol_c[r].max()):
-                    raise AssertionError(
-                        f"IVF: row {r}'s probe flipped cell {c} on the card "
-                        f"beyond the f32 rounding of its centroid distance")
-    keep = ~flipped
+    keep = ~_probe_flips(torch, ix.centroids, qd, p_card, p_cpu, np_eff)
     got = got_idx.to(q.device).long()[keep]
     want = i_cpu.to(q.device).long()[keep]
     ok = want >= 0
@@ -2828,7 +2884,7 @@ def _ivf_hold(torch, ix, cpu, q, excl, mode, got_idx, got_d, table,
                              f"CPU's beyond f32 rounding (excess "
                              f"{float((gap - tol).max()):.3e})")
     share = float((gap / tol).max()) if gap.numel() else 0.0
-    return (int((got == want).all(-1).sum()), int(flipped.sum()), rel,
+    return (int((got == want).all(-1).sum()), int((~keep).sum()), rel,
             share)
 
 
@@ -3782,6 +3838,868 @@ def _train_bf16(torch, dev, tmp: str):
     return {"train_bf16": launches}
 
 
+# ---------------------------------------------------------------- the mesh
+# the mesh phase's worlds: (label, backend, ranks, what each runs)
+MESH_WORLDS = (("world1_nccl", "nccl", 1, ("serve", "steps1")),
+               ("world2_gloo", "gloo", 2,
+                ("probe", "serve", "sq8", "ivf", "refined", "steps3",
+                 "epoch", "tp")),
+               ("world4_gloo", "gloo", 4, ("serve64", "steps1")))
+MESH_TIMEOUT_S = 60  # each world's collective timeout
+MESH_DEADLINE_S = 420  # each world's join deadline
+MESH_STEP_B = 128
+MESH_SQ8_NLIST = 1024
+
+
+def _mesh_shape(world: int, case: str):
+    """The mesh a case runs on: serving, SQ8, IVF and TP over 'index'
+    (1 x world, or 2 x 2), training over 'data' (world x 1, or 2 x 2)."""
+    if world == 4:
+        return (2, 2)
+    return (world, 1) if case.startswith(("steps", "epoch")) else (1, world)
+
+
+def _mesh_serve_cfg(job):
+    from radad_tpu_torch.config import Config
+
+    return Config().replace(**job["serve_cfg"])
+
+
+def _mesh_encoder(job, mesh):
+    """The serving phase's encoder (seeded random wav2vec2-base), built
+    once a rank."""
+    from radad_tpu_torch.models.encoder import build_encoder
+
+    if "encoder" not in job["cache"]:
+        job["cache"]["encoder"] = build_encoder(_mesh_serve_cfg(job),
+                                                device=mesh.device)
+    return job["cache"]["encoder"]
+
+
+def _mesh_new_pipeline(mesh, job, **over):
+    """A DetectionPipeline on ``mesh`` with the serving phase's encoder and
+    fusion weights (both seeded) and ``over`` in its configuration."""
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    return DetectionPipeline(_mesh_serve_cfg(job).replace(**over),
+                             encoder=_mesh_encoder(job, mesh), mesh=mesh)
+
+
+def _mesh_pipeline(torch, mesh, job, **over):
+    """``_mesh_new_pipeline`` with the serving phase's saved 25,600-row
+    table loaded."""
+    pipe = _mesh_new_pipeline(mesh, job, **over)
+    if not pipe.load_vector_database():
+        raise AssertionError("the mesh pipeline found no saved table")
+    return pipe
+
+
+def _gather_rows(mesh, t):
+    from radad_tpu_torch.parallel.mesh import DATA_AXIS
+
+    return mesh.all_gather(t, DATA_AXIS).flatten(0, 1)
+
+
+def _mesh_embed(torch, pipe, paths):
+    """The clips' embeddings as predict_batch makes them on this mesh (each
+    rank its slice, all-gathered)."""
+    import numpy as np
+
+    from radad_tpu_torch.data.audio import load_audio
+
+    cfg, mesh = pipe.config, pipe.mesh
+    waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
+                                 duration=cfg.clip_duration) for p in paths])
+    local = pipe._data_slice(len(paths))
+    return _gather_rows(mesh, pipe._embed(torch.as_tensor(
+        waves[local], device=pipe.device))).cpu()
+
+
+def _timed_serve(torch, pipe, paths, reps: int):
+    """predict_batch(paths) once to warm up, then ``reps`` times. → (the
+    last payloads, host ms of each call)."""
+    pipe.predict_batch(paths)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs = pipe.predict_batch(paths)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+def _payload_rows(pipe, outs):
+    rows = {os.path.basename(p): i for i, p in enumerate(pipe.index.paths)}
+    return [[rows[f] for f in o["retrieved_files"]] for o in outs]
+
+
+def _case_serve(torch, mesh, job, sizes=(8, 64)):
+    """The flat pipeline's predict_batch at each B with self exclusion:
+    neighbors, logits and the embeddings it used, for the main process to
+    hold to the f64 scan and to the one-device fusion model; call ms;
+    one B = 64 call's collectives."""
+    pipe = _mesh_pipeline(torch, mesh, job)
+    out = {"rows_a_rank": int(pipe._shard["vectors"].shape[0])}
+    for b in sizes:
+        paths = job["sets"][b]
+        outs, ms = _timed_serve(torch, pipe, paths, 3)
+        out[f"b{b}"] = {"rows": _payload_rows(pipe, outs),
+                        "logits": [o["logit"] for o in outs],
+                        "dists": [[r["distance"] for r in o["retrieved"]]
+                                  for o in outs],
+                        "tpp": _mesh_embed(torch, pipe, paths), "ms": ms}
+    mesh.reset_counts()
+    pipe.predict_batch(job["sets"][64])
+    out["calls_b64"] = dict(mesh.calls)
+    return out
+
+
+def _hold_plain(torch, got, want, label):
+    """Ids equal and distances within 1e-5 relative: a mesh search against
+    its plain single-process form."""
+    gi, wi = got.indices.cpu(), want.indices.cpu()
+    if not torch.equal(gi, wi):
+        raise AssertionError(f"{label}: ids differ from the plain form on "
+                             f"{int((gi != wi).any(-1).sum())} rows")
+    gd, wd = got.dists.double().cpu(), want.dists.double().cpu()
+    ok = torch.isfinite(wd)
+    err = float(((gd - wd).abs() / wd.abs().clamp_min(1e-30))[ok].max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{label}: distances off the plain form's by "
+                             f"{err:.3e} relative")
+    return err
+
+
+def _cpu_text(held) -> str:
+    """``_hold_to_cpu``'s counts in words."""
+    same, skipped, rel, share = held
+    return (f"ids identical on {same} ({skipped} rows with a probe "
+            f"flipped within rounding not compared); relative distance "
+            f"error {rel:.2e}; largest gap {share:.3f} of its bound")
+
+
+def _table_from_flat(torch, job):
+    """The saved flat table (host): vectors, labels, paths, ids."""
+    import pickle
+
+    import numpy as np
+
+    data = np.load(os.path.join(job["vdb"], "index_arrays.npz"))
+    with open(os.path.join(job["vdb"], "index_host.pkl"), "rb") as f:
+        host = pickle.load(f)  # written by this script's serving phase
+    return (data["vectors"], data["labels"].tolist(), list(host["paths"]),
+            data["ids"].tolist())
+
+
+def _searched(torch, pipe, paths, mode):
+    """The sharded search (``_retrieve_mesh``) of ``paths``' embeddings on
+    this mesh, gathered over 'data', and the same embeddings."""
+    from radad_tpu_torch.data.manifest import file_id
+    from radad_tpu_torch.parallel.sharded_index import ShardedRetrieval
+
+    mesh = pipe.mesh
+    tpp = _mesh_embed(torch, pipe, paths).to(pipe.device)
+    excl = torch.as_tensor([file_id(p) for p in paths], dtype=torch.int32,
+                           device=pipe.device)
+    local = pipe._data_slice(len(paths))
+    ret = pipe._retrieve(tpp[local], excl[local], mode,
+                         prefer_ivf_gather=True)
+    return ShardedRetrieval(*(_gather_rows(mesh, t) for t in ret)), tpp, excl
+
+
+def _case_sq8(torch, mesh, job):
+    """SQ8 plain and residual (nlist 1,024) on the mesh: the table in one
+    add, each rank keeping its block; B = 8 and 64 held to the plain
+    form's ids and distances on the card, and on rank 0 to the plain form
+    run on the CPU copies of the same arrays (``_hold_to_cpu``)."""
+    from radad_tpu_torch.index.quantized import _dequantize
+    from radad_tpu_torch.parallel.sharded_index import (
+        pad_rows, plain_sharded_retrieve_sq8)
+
+    table = _table_from_flat(torch, job)
+    out = {}
+    for label, nlist in (("sq8", 0), ("sq8_residual", MESH_SQ8_NLIST)):
+        pipe = _mesh_new_pipeline(mesh, job, vector_db_index_type="SQ8",
+                                  sq8_residual_nlist=nlist)
+        cfg = pipe.config
+        t0 = time.perf_counter()
+        pipe.index.add(table[0], table[1], table[2], ids=table[3])
+        pipe._place_index_on_mesh()
+        rec = {"build_s": time.perf_counter() - t0,
+               "rows_a_rank": int(pipe._shard["codes"].shape[0])}
+        ix, dev = pipe.index, pipe.device  # the index itself on the host
+        cap = pipe._shard["codes"].shape[0] * mesh.index
+        host = [pad_rows(t, cap, f) for t, f in (
+            (ix.codes, 0), (ix.scales, 0), (ix.norm_sq, 0), (ix.labels, 0),
+            (ix.ids, -1))]
+        cents = ix.centroids
+        cells = None if ix.cells is None else pad_rows(ix.cells, cap)
+
+        def plain(tpp, excl, d):
+            return plain_sharded_retrieve_sq8(
+                tpp.to(d), *(t.to(d) for t in host), excl.to(d),
+                shards=mesh.index, k=cfg.top_k,
+                centroids=None if cents is None else cents.to(d),
+                cells=None if cells is None else cells.to(d),
+                exclude_mode="self")
+
+        def recon(rows):
+            return _dequantize(rows.reshape(-1), host[0], host[1], cents,
+                               cells).double().reshape(rows.shape + (-1,))
+
+        for b in (8, 64):
+            got, tpp, excl = _searched(torch, pipe, job["sets"][b], "self")
+            rec[f"b{b}_err"] = _hold_plain(torch, got, plain(tpp, excl, dev),
+                                           f"{label} B={b}")
+            if mesh.rank == 0:
+                want = plain(tpp, excl, "cpu")
+                rec[f"b{b}_cpu"] = _hold_to_cpu(
+                    torch, got.indices, got.dists, want.indices, want.dists,
+                    tpp, recon, f"{label} B={b} against the CPU")
+            _, ms = _timed_serve(torch, pipe, job["sets"][b], 3)
+            rec[f"b{b}_ms"] = ms
+        out[label] = rec
+        del pipe
+    return out
+
+
+def _case_ivf(torch, mesh, job):
+    """IVF at the shipped nlist 4,096 / nprobe 32 on the mesh: B = 64 takes
+    the masked route, B = 1 the sharded gather route (each rank's gate
+    recorded); each held to the plain form of its search on the card, and
+    on rank 0 to the plain form run on the CPU copies of the same arrays
+    (``_hold_to_cpu``; a probe may flip within the centroid distances'
+    rounding, ``_probe_flips``)."""
+    from radad_tpu_torch.index.flat import probe_cells
+    from radad_tpu_torch.parallel.sharded_index import (
+        build_sharded_chunk_tables, pad_rows, plain_sharded_retrieve,
+        plain_sharded_retrieve_ivf_gather)
+
+    table = _table_from_flat(torch, job)
+    pipe = _mesh_new_pipeline(mesh, job, vector_db_index_type="IVF",
+                              vector_db_nlist=IVF_NLIST,
+                              vector_db_nprobe=IVF_NPROBE)
+    cfg = pipe.config
+    t0 = time.perf_counter()
+    pipe.index.add(table[0], table[1], table[2], ids=table[3])
+    pipe._place_index_on_mesh()
+    ix, dev, k = pipe.index, pipe.device, cfg.top_k  # ix on the host
+    rows = int(pipe._shard["vectors"].shape[0])
+    cap = rows * mesh.index
+    nprobe = min(ix.nprobe, ix.centroids.shape[0])
+    budget = pipe._mesh_gather_budget(nprobe)
+    w = int(pipe._mesh_ivf["chunk_rows"].shape[1])
+    out = {"build_s": time.perf_counter() - t0, "rows_a_rank": rows,
+           "budget": budget, "chunk": w}
+    cells = pad_rows(ix.cells, cap)
+    ids = pad_rows(ix.ids, cap, -1)
+    full = (pad_rows(ix.vectors, cap), pad_rows(ix.labels, cap), ids)
+    cents = ix.centroids
+    cr, cc, nvs, _ = build_sharded_chunk_tables(cells.numpy(), ix.n,
+                                                cents.shape[0], mesh.index)
+    cr, cc = torch.as_tensor(cr), torch.as_tensor(cc)
+
+    def plain(route, mode, tpp, excl, d):
+        if route == "masked":
+            return plain_sharded_retrieve(
+                tpp.to(d), *(t.to(d) for t in full), ids.to(d) >= 0,
+                excl.to(d), shards=mesh.index, k=k, centroids=cents.to(d),
+                cells=cells.to(d), nprobe=ix.nprobe, exclude_mode=mode)
+        return plain_sharded_retrieve_ivf_gather(
+            tpp.to(d), *(t.to(d) for t in full), excl.to(d), cents.to(d),
+            cells.to(d), cr.to(d), cc.to(d), nvs, shards=mesh.index, k=k,
+            nprobe=nprobe, budget=budget, exclude_mode=mode)
+
+    def recon(r):
+        return full[0][r].double()
+
+    for b, mode in ((64, "self"), (1, "batch")):
+        paths = job["sets"][b]
+        b_loc = len(paths) // mesh.data
+        gate = 2 * b_loc * budget * w
+        route = "gather" if gate < rows else "masked"
+        before = ix.ivf_gather_searches
+        got, tpp, excl = _searched(torch, pipe, paths, mode)
+        took = "gather" if ix.ivf_gather_searches > before else "masked"
+        if took != route:
+            raise AssertionError(f"IVF B={b}: took the {took} route where "
+                                 f"the gate picks {route}")
+        out[f"b{b}"] = {"gate": f"2 b budget chunk = 2 x {b_loc} x {budget}"
+                                f" x {w} = {gate} vs {rows} rows a shard: "
+                                f"{route}",
+                        "err": _hold_plain(torch, got,
+                                           plain(route, mode, tpp, excl,
+                                                 dev),
+                                           f"IVF B={b} ({route})")}
+        if mesh.rank == 0:
+            np_eff = nprobe if route == "gather" else ix.nprobe
+            p_card = probe_cells(tpp.float(), cents.to(dev),
+                                 np_eff).sort(-1).values.cpu()
+            p_cpu = probe_cells(tpp.float().cpu(), cents,
+                                np_eff).sort(-1).values
+            flipped = _probe_flips(torch, cents, tpp.float().cpu(), p_card,
+                                   p_cpu, np_eff)
+            want = plain(route, mode, tpp, excl, "cpu")
+            out[f"b{b}"]["cpu"] = _hold_to_cpu(
+                torch, got.indices, got.dists, want.indices, want.dists, tpp,
+                recon, f"IVF B={b} ({route}) against the CPU", flipped)
+        if b == 1:
+            t_ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                pipe.predict(paths[0])
+                t_ms.append((time.perf_counter() - t0) * 1e3)
+            out["b1_predict_ms"] = t_ms
+        else:
+            out[f"b{b}_ms"] = _timed_serve(torch, pipe, paths, 3)[1]
+    out["gather_searches"] = ix.ivf_gather_searches
+    out["gather_scans"] = ix.ivf_gather_fallbacks
+    return out
+
+
+def _case_refined(torch, mesh, job):
+    """A refined SQ8 configuration is refused on a mesh."""
+    try:
+        _mesh_new_pipeline(mesh, job, vector_db_index_type="SQ8",
+                           sq8_refine_bits=4)
+    except ValueError as e:
+        return {"raised": str(e)}
+    raise AssertionError("a refined SQ8 index was built on a mesh")
+
+
+def _case_tp(torch, mesh, job):
+    """wav2vec2-base tensor-parallel over 'index' (6 of 12 heads a rank)
+    through fused_mha f32: embeddings against the replicated encoder's with
+    the plain attention (``mha_reference``) on this rank's clips, so the
+    launches at the mesh's shape are held to the plain version on the same
+    inputs; fused_mha's launches counted on the TP run alone."""
+    import dataclasses
+
+    import numpy as np
+
+    from radad_tpu_torch.data.audio import load_audio
+    from radad_tpu_torch.ops import attention
+    from radad_tpu_torch.parallel import shard_encoder_params
+    from radad_tpu_torch.train.pipeline import make_embed_fn
+
+    cfg = _mesh_serve_cfg(job)
+    enc = _mesh_encoder(job, mesh)
+    tp_enc = dataclasses.replace(enc, model=shard_encoder_params(enc.model,
+                                                                 mesh))
+    paths = job["sets"][8]
+    audio = torch.as_tensor(np.stack([load_audio(
+        p, sample_rate=cfg.sample_rate, duration=cfg.clip_duration)
+        for p in paths]), device=mesh.device)
+    os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    ref = make_embed_fn(enc, cfg)(audio)  # the plain attention
+    torch.cuda.synchronize()
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    try:
+        attention.reset_launches()
+        mesh.reset_counts()
+        got = make_embed_fn(tp_enc, cfg)(audio)
+        torch.cuda.synchronize()
+        launches = dict(attention.fused_mha.body_launches)
+        calls = dict(mesh.calls)
+    finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    diff = (got - ref).abs()
+    bound = 1e-5 + 2e-4 * ref.abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"TP encoder: embeddings beyond rtol 2e-4, "
+                             f"atol 1e-5 (max |diff| {float(diff.max()):.3e})")
+    return {"max_abs": float(diff.max()), "fused_mha": launches,
+            "calls": calls,
+            "heads_a_rank": (enc.arch_cfg.num_attention_heads
+                             // mesh.index),
+            "qw_rows": int(tp_enc.model.layers[0]["attn"]["qw"].shape[0])}
+
+
+def _mesh_step_state(model, opt):
+    """The model's and the optimizer's state (CPU copies)."""
+    return ({k: v.detach().cpu().clone() for k, v in
+             model.state_dict().items()},
+            {g: {"count": s["count"].cpu().clone(),
+                 "mu": {n: t.cpu().clone() for n, t in s["mu"].items()},
+                 "nu": {n: t.cpu().clone() for n, t in s["nu"].items()}}
+             for g, s in opt.state.items()})
+
+
+def _adam_moments(opt):
+    """The optimizer's first and second moments after a step, by group
+    (CPU copies)."""
+    return {g: {key: {n: t.cpu().clone() for n, t in st[key].items()}
+                for key in ("mu", "nu")} for g, st in opt.state.items()}
+
+
+def _case_steps(torch, mesh, job, n_steps: int):
+    """``n_steps`` train steps at B = 128 with the shipped BatchNorm head and
+    dropout 0 on the table's rows as queries (batch exclusion): each step's
+    starting state, neighbors, result and ms, for the main process to hold
+    to the single-device trainer; the parameters must be bit-equal on
+    every rank."""
+    from radad_tpu_torch.parallel.mesh import DATA_AXIS, INDEX_AXIS
+    from radad_tpu_torch.train.pipeline import new_accumulators
+
+    pipe = _mesh_pipeline(torch, mesh, job, use_batch_norm=True,
+                          projection_dropout=0.0, detection_dropout=0.0)
+    pipe._ensure_model_state()
+    steps = pipe._steps()
+    ix, dev = pipe.index, pipe.device
+    local = pipe._data_slice(MESH_STEP_B)
+
+    def batch_of(rows):
+        rows_t = torch.as_tensor(rows)[local]
+        return (ix.vectors[rows_t].float().to(dev),
+                ix.labels[rows_t].to(dev), ix.ids[rows_t].to(dev),
+                torch.ones(len(rows_t), dtype=torch.bool, device=dev))
+
+    # one untimed step warms the card's kernels; the state is put back
+    start = _mesh_step_state(pipe.model, pipe.opt)
+    steps.train_step(new_accumulators(dev), *batch_of(job["step_rows"][0]),
+                     1.0, pipe.generator)
+    pipe.model.load_state_dict(start[0])
+    pipe.opt.load_state_dict(start[1], device=dev)
+    out = []
+    for rows in job["step_rows"][:n_steps]:
+        batch = batch_of(rows)
+        start = _mesh_step_state(pipe.model, pipe.opt)
+        # the neighbors the step retrieves (the same search runs in it)
+        idx = _gather_rows(mesh, pipe._retrieve(batch[0], batch[2],
+                                                "batch")[3]).cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm = steps.train_step(new_accumulators(dev), batch[0], batch[1],
+                              batch[2], batch[3], 1.0, pipe.generator)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        det = pipe.model.detection_model
+        rec = {"ms": ms, "idx": idx,
+               "metrics": {k: float(bm[k]) for k in
+                           ("loss", "acc", "gn_proj", "gn_fuse", "gn_det")},
+               "params": {n: p.detach().cpu().clone()
+                          for n, p in pipe.model.named_parameters()},
+               "bn": [(bn.running_mean.cpu().clone(),
+                       bn.running_var.cpu().clone()) for bn in det.norms]}
+        if mesh.rank == 0:
+            rec["start"] = start
+            rec["adam"] = _adam_moments(pipe.opt)
+        out.append(rec)
+    # parameters bit-equal on every rank: the largest |delta| to rank 0's
+    flat = torch.cat([p.detach().reshape(-1)
+                      for p in pipe.model.parameters()])
+    spread = 0.0
+    for axis in (DATA_AXIS, INDEX_AXIS):
+        g = mesh.all_gather(flat, axis)
+        spread = max(spread, float((g - g[:1]).abs().max()))
+    return {"steps": out, "param_spread": spread}
+
+
+def _case_epoch(torch, mesh, job):
+    """1 epoch at the shipped defaults (dropout 0.1) on the serving phase's
+    256 DB clips, validated and then ``evaluate``d on its 64 query clips:
+    finite losses."""
+    import numpy as np
+
+    from radad_tpu_torch.data.manifest import Manifest, file_id
+
+    def manifest(paths):
+        labels = np.asarray([1.0 if i % 3 else 0.0
+                             for i in range(len(paths))], np.float32)
+        return Manifest(paths=tuple(paths), labels=labels,
+                        speakers=tuple(f"spk{i % 8}"
+                                       for i in range(len(paths))),
+                        ids=np.asarray([file_id(p) for p in paths],
+                                       np.int32))
+
+    pipe = _mesh_pipeline(torch, mesh, job, use_batch_norm=True,
+                          num_epochs=1, batch_size=MESH_STEP_B,
+                          eval_batch_size=MESH_STEP_B)
+    t0 = time.perf_counter()
+    row = pipe.train(manifest(job["db_paths"]), manifest(job["q_paths"]))
+    res = pipe.evaluate(manifest(job["q_paths"]))
+    if not (np.isfinite(row["train_loss"]) and np.isfinite(res["loss"])):
+        raise AssertionError(f"mesh epoch: non-finite loss ({row}, {res})")
+    return {"train_loss": row["train_loss"], "val_loss": row["val_loss"],
+            "eval_loss": res["loss"], "s": time.perf_counter() - t0}
+
+
+def _case_probe(torch, mesh, job):
+    """Whether gloo takes the mesh's two collectives on CUDA tensors of
+    each dtype that the mesh moves (each tried on every rank alike; a
+    refused one raises before any data moves), and gives the right
+    sums."""
+    import torch.distributed as dist
+
+    taken = {}
+    for dtype in (torch.float32, torch.int32, torch.bool):
+        x = torch.full((4,), mesh.rank + 1, device=mesh.device).to(dtype)
+        calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+                 "all_gather": lambda: dist.all_gather(
+                     [torch.empty_like(x) for _ in range(mesh.world)], x)}
+        for name, call in calls.items():
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            if name == "all_reduce" and dtype == torch.bool:
+                continue  # the mesh sums no bool
+            try:
+                call()
+                torch.cuda.synchronize()
+                taken[key] = True
+            except RuntimeError as e:
+                taken[key] = f"refused: {str(e).splitlines()[0][:120]}"
+    if taken.get("all_reduce float32") is True:
+        got = mesh.all_reduce(torch.ones(3, device=mesh.device), "index")
+        taken["all_reduce sums"] = bool((got == mesh.index).all())
+    if mesh.rank == 0:  # printed here too, in case a later case fails
+        print(f"mesh probe: gloo with CUDA tensors takes {taken}",
+              flush=True)
+    return taken
+
+
+MESH_CASES = {"probe": _case_probe, "serve": _case_serve,
+              "serve64": lambda t, m, j: _case_serve(t, m, j, sizes=(64,)),
+              "sq8": _case_sq8, "ivf": _case_ivf, "refined": _case_refined,
+              "tp": _case_tp,
+              "steps1": lambda t, m, j: _case_steps(t, m, j, 1),
+              "steps3": lambda t, m, j: _case_steps(t, m, j, 3),
+              "epoch": _case_epoch}
+
+
+def _mesh_rank(rank, world, backend, out_dir, job):
+    """One rank of a mesh world on cuda:0: its process group (60 s
+    collective timeout), each case of the world on its mesh, results
+    pickled for the main process (this script's own files)."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from radad_tpu_torch.parallel import make_mesh
+    from radad_tpu_torch.utils.device import resolve_device
+
+    torch.cuda.set_device(0)
+    resolve_device("cuda:0")  # TF32 off, as the main process
+    job = dict(job, cache={})  # this rank's encoder, built once
+    dist.init_process_group(
+        backend, init_method=f"file://{out_dir}/store", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        meshes, out = {}, {}
+        for case in job["cases"]:
+            shape = _mesh_shape(world, case)
+            if shape not in meshes:  # every rank builds every group
+                meshes[shape] = make_mesh(*shape, device="cuda:0")
+            mesh = meshes[shape]
+            mesh.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = MESH_CASES[case](torch, mesh, job)
+            torch.cuda.synchronize()
+            out[case] = {"res": res, "shape": shape,
+                         "s": time.perf_counter() - t0,
+                         "calls": dict(mesh.calls),
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2**30}
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_mesh_world(label, backend, world, job, tmp):
+    """Spawn a world's ranks and wait for them: a rank that fails fails the
+    world; ranks still running at the deadline are killed and the world
+    fails. → each rank's results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, label)
+    os.makedirs(out_dir)
+    ctx = mp.start_processes(_mesh_rank, args=(world, backend, out_dir, job),
+                             nprocs=world, join=False, start_method="spawn")
+    end = time.perf_counter() + MESH_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(0.1, end - time.perf_counter())):
+            if time.perf_counter() >= end:
+                raise AssertionError(f"mesh {label}: ranks still running "
+                                     f"at the {MESH_DEADLINE_S} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    outs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))  # written by _mesh_rank above
+    return outs
+
+
+def _mesh_hold_serving(torch, pipe, res, paths, label):
+    """A mesh's predict_batch against the one-device pipeline: the
+    embeddings within 1e-4 relative of the one-device ones, the neighbors
+    held to the f64 scan of the mesh's own embeddings (``_hold_to_f64``),
+    every logit within 1e-4 of the one-device fusion model on the same
+    embedding and neighbors."""
+    from radad_tpu_torch.data.manifest import file_id
+
+    ix, k = pipe.index, pipe.config.top_k
+    base = _embed_paths(torch, pipe, paths)
+    tpp = res["tpp"].to(ix.device)
+    drel = float(((tpp - base).double().norm(dim=-1)
+                  / base.double().norm(dim=-1)).max())
+    excl = torch.as_tensor([file_id(p) for p in paths], device=ix.device,
+                           dtype=torch.int32)
+    rows = torch.as_tensor(res["rows"], device=ix.device)
+    held = _hold_to_f64(torch, ix, tpp, _exclusion_mask(torch, ix, excl,
+                                                        "self"), rows, k)
+    with torch.no_grad():
+        replay = pipe.model(ix.vectors[rows].float(), tpp).float().cpu()
+    dlogit = float((replay - torch.as_tensor(res["logits"])).abs().max())
+    if not (drel <= 1e-4 and dlogit <= 1e-4):  # a NaN fails too
+        raise AssertionError(f"{label}: embeddings {drel:.3e} relative from "
+                             f"the one-device ones, logits {dlogit:.3e} "
+                             f"from the one-device model (limits 1e-4)")
+    print(f"{label}: {_held_text(held)}; embeddings within {drel:.3e} "
+          f"relative, logits within {dlogit:.3e} of the one-device model")
+
+
+def _mesh_single_steps(torch, pipe, recs, job, label):
+    """Each recorded mesh step against the single-device trainer started
+    from the same state. The step's neighbors are held to the f64 scan
+    (``_hold_to_f64``, batch exclusion): a rank's search of its slice of
+    the batch runs a smaller f32 GEMM than the one-device search, so
+    neighbors tied within f32 rounding may trade places. The single-device
+    step then updates from the same neighbors (``StepFns.update``), and the
+    mesh step's result is held by tests/test_torch_train.py's rule
+    (``_hold_step``): loss, accuracy and the three gradient norms within
+    1e-5 relative; BatchNorm running statistics within 1e-5; both Adam
+    moments within 1e-4 of their group's largest value; parameters within
+    1e-6 + 1e-5 |p| except where Adam's input is rounding, seen as the two
+    first moments disagreeing by more than 0.1 % (there a step may move a
+    coordinate by up to 2 lr), at most 0.5 % of the coordinates such, and
+    all within 2 lr."""
+    from radad_tpu_torch.models.fusion import build_radad_model
+    from radad_tpu_torch.train.optim import GroupAdam
+    from radad_tpu_torch.train.pipeline import (make_step_fns,
+                                                new_accumulators)
+
+    cfg = _mesh_serve_cfg(job).replace(use_batch_norm=True,
+                                       projection_dropout=0.0,
+                                       detection_dropout=0.0)
+    ix, dev, k = pipe.index, pipe.device, cfg.top_k
+    model = build_radad_model(cfg, pipe.tpp_dim).to(dev)
+    opt = GroupAdam(cfg.learning_rate, cfg.weight_decay)
+    steps = make_step_fns(model, opt, None)
+    faults, report = [], []
+    for i, (rec, rows) in enumerate(zip(recs, job["step_rows"])):
+        rows_t = torch.as_tensor(rows, device=dev)
+        tpp = ix.vectors[rows_t].float()
+        excl = ix.ids[rows_t]
+        idx = rec["idx"].to(dev).long()
+        held = _hold_to_f64(torch, ix, tpp, _exclusion_mask(
+            torch, ix, excl, "batch"), idx, k)
+        neighbors = torch.where((idx >= 0)[..., None],
+                                ix.vectors[idx.clamp_min(0)].float(),
+                                torch.zeros((), device=dev))
+        model.load_state_dict(rec["start"][0])
+        opt.load_state_dict(rec["start"][1], device=dev)
+        bm = steps.update(new_accumulators(dev), neighbors, tpp,
+                          ix.labels[rows_t],
+                          torch.ones(len(rows), dtype=torch.bool,
+                                     device=dev), 1.0)
+        worst = 0.0
+        for key in ("loss", "acc", "gn_proj", "gn_fuse", "gn_det"):
+            want = float(bm[key])
+            rel = abs(rec["metrics"][key] - want) / max(abs(want), 1e-12)
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                faults.append(f"step {i} {key}: {rec['metrics'][key]} "
+                              f"against {want}")
+        for (gm, gv), bn in zip(rec["bn"], model.detection_model.norms):
+            for got, want in ((gm, bn.running_mean), (gv, bn.running_var)):
+                if not torch.allclose(got, want.cpu(), rtol=1e-5, atol=1e-5):
+                    faults.append(f"step {i}: BatchNorm running statistics "
+                                  f"off by "
+                                  f"{float((got - want.cpu()).abs().max()):.2e}")
+        off = total = unexcused = 0
+        pmax = mom = 0.0
+        params = dict(model.named_parameters())
+        if {n for st in opt.state.values() for n in st["mu"]} != set(params):
+            faults.append(f"step {i}: Adam's groups do not cover the "
+                          f"parameters")
+        for group, st in opt.state.items():
+            got_st = rec["adam"][group]
+            for key in ("mu", "nu"):
+                scale = max(float(t.abs().max()) for t in st[key].values())
+                for name, t in st[key].items():
+                    d = float((got_st[key][name] - t.cpu()).abs().max())
+                    mom = max(mom, d / max(scale, 1e-30))
+                    if not d <= 1e-4 * scale:
+                        faults.append(f"step {i}: Adam {key} of {name} off "
+                                      f"by {d:.2e} (group max {scale:.2e})")
+            for name, mu in st["mu"].items():
+                want = params[name].detach().cpu()
+                diff = (rec["params"][name] - want).abs()
+                pmax = max(pmax, float(diff.max()))
+                bad = diff > 1e-6 + 1e-5 * want.abs()
+                wmu = mu.cpu()
+                near_zero = (got_st["mu"][name] - wmu).abs() > 1e-3 * wmu.abs()
+                unexcused += int((bad & ~near_zero).sum())
+                off += int(bad.sum())
+                total += diff.numel()
+        if unexcused or pmax > 2 * opt.lr + 1e-6 or off > 0.005 * total:
+            faults.append(f"step {i}: parameters off the single-device "
+                          f"step's ({off} of {total}, {unexcused} where "
+                          f"the first moments agree, max {pmax:.2e})")
+        report.append(f"step {i}: neighbors {_held_text(held)}; metrics "
+                      f"within {worst:.2e} relative; Adam moments within "
+                      f"{mom:.2e} of their group's largest; parameters max "
+                      f"|diff| {pmax:.2e}, {off} of {total} past 1e-6 + "
+                      f"1e-5 |p|, all where the first moments disagree")
+    print(f"{label} against the single-device trainer from the same states "
+          f"and neighbors: " + "; ".join(report))
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults))
+
+
+def mesh_phase(torch, dev, tmp: str, pipe, ref, card):
+    """The mesh on torch.distributed at full width, ranks spawned on cuda:0
+    (they share the card: no figure here is a scaling figure): the serving
+    phase's table saved and loaded on each mesh; world 1 (NCCL, 1 x 1),
+    world 2 (gloo with CUDA tensors: serving, SQ8, IVF, the refused refined
+    SQ8 and the TP encoder on 1 x 2; 3 train steps and an epoch on 2 x 1),
+    world 4 (2 x 2: predict_batch(64) and a train step). Every rank's
+    results are held here. → {path: launches}."""
+    import numpy as np
+
+    from radad_tpu_torch.ops import _native
+
+    _native.build()  # the ranks load the libraries built here
+    vdb = os.path.join(tmp, "mesh_vdb")
+    t0 = time.perf_counter()
+    pipe.index.save(vdb)
+    print(f"mesh phase: the {pipe.index.ntotal}-row table saved in "
+          f"{time.perf_counter() - t0:.2f} s for the ranks to load")
+    cfg = pipe.config
+    serve_cfg = dict(data_root=os.path.join(tmp, "mesh_run"),
+                     vector_db_path=vdb, train_data_path=cfg.train_data_path,
+                     use_layer_norm=True, use_batch_norm=False,
+                     random_seed=SEED)
+    rng = np.random.default_rng(SEED + 9)
+    job = dict(serve_cfg=serve_cfg, vdb=vdb,
+               sets={1: ref["q_paths"][1:2], 8: ref["q_paths"][8:16],
+                     64: ref["batch64"]},
+               step_rows=[rng.choice(pipe.index.ntotal, MESH_STEP_B,
+                                     replace=False) for _ in range(3)],
+               db_paths=ref["db_paths"], q_paths=ref["q_paths"])
+    by_path = {}
+    for label, backend, world, cases in MESH_WORLDS:
+        t0 = time.perf_counter()
+        outs = _run_mesh_world(label, backend, world,
+                               dict(job, cases=cases), tmp)
+        secs = time.perf_counter() - t0
+        print(f"mesh {label}: {backend}, {world} rank(s) on cuda:0, "
+              f"{secs:.1f} s [{card}]")
+        for case in cases:
+            per = [o[case] for o in outs]
+            res = per[0]["res"]
+            print(f"  {case} on mesh {per[0]['shape'][0]}x"
+                  f"{per[0]['shape'][1]}: "
+                  f"{max(p['s'] for p in per):.2f} s, peak memory a rank "
+                  f"{[round(p['peak_gib'], 2) for p in per]} GiB, "
+                  f"collectives {per[0]['calls']}")
+            if case == "probe":
+                print(f"  gloo with CUDA tensors takes: {res}")
+                refused = sorted(n for n, v in res.items() if v is not True)
+                if refused:
+                    raise AssertionError(f"gloo refused {refused} on CUDA "
+                                         f"tensors, which the mesh moves")
+            elif case in ("serve", "serve64"):
+                for b in (8, 64):
+                    if f"b{b}" not in res:
+                        continue
+                    for r, o in enumerate(per):
+                        if o["res"][f"b{b}"]["rows"] != res[f"b{b}"]["rows"]:
+                            raise AssertionError(f"{label}: rank {r}'s "
+                                                 f"neighbors differ")
+                    _mesh_hold_serving(torch, pipe, res[f"b{b}"],
+                                       job["sets"][b],
+                                       f"  {label} predict_batch({b})")
+                    print(f"  {label} predict_batch({b}): median "
+                          f"{float(np.median(res[f'b{b}']['ms'])):.2f} ms "
+                          f"{[round(x, 2) for x in res[f'b{b}']['ms']]}, "
+                          f"{res['rows_a_rank']} rows a rank [{card}]")
+                print(f"  {label} predict_batch(64) collectives "
+                      f"{res['calls_b64']}")
+            elif case == "sq8":
+                for name, rec in res.items():
+                    print(f"  {label} {name}: build {rec['build_s']:.2f} s, "
+                          f"{rec['rows_a_rank']} rows a rank; ids equal to "
+                          f"the plain form, distances within "
+                          f"{max(rec['b8_err'], rec['b64_err']):.2e}; "
+                          f"against the plain form on the CPU: B=8 "
+                          f"{_cpu_text(rec['b8_cpu'])}, B=64 "
+                          f"{_cpu_text(rec['b64_cpu'])}; "
+                          f"predict_batch median ms B=8 "
+                          f"{float(np.median(rec['b8_ms'])):.2f}, B=64 "
+                          f"{float(np.median(rec['b64_ms'])):.2f} [{card}]")
+            elif case == "ivf":
+                for r, o in enumerate(per):
+                    rr = o["res"]
+                    print(f"  {label} IVF rank {r}: B=64 {rr['b64']['gate']};"
+                          f" B=1 {rr['b1']['gate']}; gather searches "
+                          f"{rr['gather_searches']}, of them over budget "
+                          f"{rr['gather_scans']}")
+                print(f"  {label} IVF: built in {res['build_s']:.2f} s, ids "
+                      f"equal to the plain forms, distances within "
+                      f"{max(res['b64']['err'], res['b1']['err']):.2e}; "
+                      f"against the plain forms on the CPU: B=64 "
+                      f"{_cpu_text(res['b64']['cpu'])}, B=1 "
+                      f"{_cpu_text(res['b1']['cpu'])}; "
+                      f"predict(1) median "
+                      f"{float(np.median(res['b1_predict_ms'])):.2f} ms, "
+                      f"predict_batch(64) median "
+                      f"{float(np.median(res['b64_ms'])):.2f} ms [{card}]")
+            elif case == "refined":
+                print(f"  {label} refined SQ8 refused: {res['raised']}")
+            elif case == "tp":
+                for r, o in enumerate(per):
+                    rr = o["res"]
+                    if rr["fused_mha"]["no_bias"] <= 0:
+                        raise AssertionError(f"TP rank {r}: fused_mha not "
+                                             f"launched")
+                    print(f"  {label} TP rank {r}: {rr['heads_a_rank']} "
+                          f"heads a rank (qw {rr['qw_rows']} rows), "
+                          f"fused_mha {rr['fused_mha']}, collectives "
+                          f"{rr['calls']}, max |diff| {rr['max_abs']:.3e} "
+                          f"(rtol 2e-4, atol 1e-5)")
+                by_path["mesh_tp"] = {"fused_mha": sum(
+                    o["res"]["fused_mha"]["no_bias"]
+                    + o["res"]["fused_mha"]["bias"] for o in per)}
+            elif case.startswith("steps"):
+                spread = max(o["res"]["param_spread"] for o in per)
+                if spread != 0.0:
+                    raise AssertionError(f"{label}: parameters differ "
+                                         f"across ranks by {spread}")
+                recs = res["steps"]
+                _mesh_single_steps(torch, pipe, recs, job,
+                                   f"  {label} train steps")
+                ms = [s["ms"] for s in recs]
+                print(f"  {label} train step at B = {MESH_STEP_B}: median "
+                      f"{float(np.median(ms)):.2f} ms "
+                      f"{[round(x, 2) for x in ms]}, parameters equal on "
+                      f"every rank (max |delta| 0) [{card}]")
+            elif case == "epoch":
+                print(f"  {label} 1 epoch + evaluate at dropout 0.1: train "
+                      f"loss {res['train_loss']:.4f}, val {res['val_loss']:.4f}"
+                      f", evaluate {res['eval_loss']:.4f} ({res['s']:.1f} s)")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3807,6 +4725,8 @@ def main() -> int:
         by_path.update(sq8_phase(torch, dev, tmp, pipe, ref))
         # the IVF index on the same table, then at capacity scale
         by_path.update(ivf_phase(torch, dev, tmp, pipe, ref, card))
+        # the mesh on torch.distributed: ranks on cuda:0 load the table
+        by_path.update(mesh_phase(torch, dev, tmp, pipe, ref, card))
         del pipe  # free the first pipeline before building the second
         for phase in (*(lambda m=m: ivf_capacity_phase(torch, dev, card, *m)
                         for m in IVF_CAPACITY_DATA),

@@ -2,14 +2,23 @@
 build_db.
 
 Counterpart: ``radad_tpu/cli.py`` (same flag names, SQ8's and IVF's
-included; ``--data_shards`` / ``--index_shards`` set the config's mesh
-sizes, and a mesh the port cannot run yet raises "not yet ported"). ``--device`` defaults to ``cuda``
-and the run fails when no GPU is present unless ``--device cpu`` is
-given.
+included). ``--device`` defaults to ``cuda`` and the run fails when no GPU
+is present unless ``--device cpu`` is given.
 
 Run: ``python -m radad_tpu_torch.cli --mode train --data_path <dir>
 [--resume]``, then ``--mode evaluate`` or ``--mode predict --audio_path
 <wav>``.
+
+A mesh (``--data_shards`` / ``--index_shards``) runs one process a rank
+under ``torchrun``, whose environment names the process group: NCCL and a
+GPU a rank, or gloo with ``--device cpu``, e.g. ``python -m
+torch.distributed.run --standalone --nproc_per_node 2 -m
+radad_tpu_torch.cli --mode train --device cpu --index_shards 2 ...``.
+``--data_shards`` defaults to the world size over ``--index_shards``; a
+world of another size than data x index raises ``ValueError``. Rank 0
+alone writes and prints results. The JAX CLI builds a mesh only with
+``--data_shards``; the port also builds one for ``--index_shards`` > 1
+alone, so that a torchrun world can be split over the index axis.
 """
 
 from __future__ import annotations
@@ -80,11 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights_dir", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data_shards", type=int, default=0,
-                   help="mesh 'data' axis size (0 = single device; a mesh "
-                        "is not yet ported)")
+                   help="mesh 'data' axis size (0 = single device, or the "
+                        "world size over --index_shards under torchrun)")
     p.add_argument("--index_shards", type=int, default=1,
-                   help="mesh 'index' axis size (DB row sharding; not yet "
-                        "ported)")
+                   help="mesh 'index' axis size (DB row sharding)")
     p.add_argument("--use_float16", action="store_true",
                    help="store the vector DB in bf16")
     p.add_argument("--rebuild_db", action="store_true",
@@ -139,9 +147,6 @@ def config_from_args(args):
         over["vector_db_ivf_balance"] = args.ivf_balance
     if args.ivf_no_retrain_on_add:
         over["vector_db_ivf_retrain_on_add"] = False
-    if args.data_shards:  # the JAX package's CLI builds a mesh here
-        over.update(data_shards=args.data_shards,
-                    index_shards=args.index_shards)
     if args.sq8_residual_nlist is not None:
         over["sq8_residual_nlist"] = args.sq8_residual_nlist
     if args.sq8_refine_bits is not None:
@@ -155,28 +160,68 @@ def config_from_args(args):
     return Config().replace(**over)
 
 
+def _init_mesh(args):
+    """The mesh of ``--data_shards`` / ``--index_shards`` over the process
+    group (initialized here from torchrun's environment when none is: NCCL,
+    or gloo with ``--device cpu``). → (mesh, whether this call initialized
+    the group)."""
+    import torch.distributed as dist
+
+    from radad_tpu_torch.parallel import make_mesh
+
+    created = not dist.is_initialized()
+    if created:
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl")
+    try:
+        mesh = make_mesh(data=args.data_shards or None,
+                         index=args.index_shards,
+                         device="cpu" if args.device == "cpu" else None)
+    except BaseException:
+        if created:
+            dist.destroy_process_group()
+        raise
+    return mesh, created
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if not (args.data_shards or args.index_shards > 1):
+        return _run(args, cfg, None)
+    mesh, created = _init_mesh(args)  # before the encoder is built
+    logging.info("mesh: %s, rank %d of %d on %s (%s)", mesh.shape,
+                 mesh.rank, mesh.world, mesh.device, mesh.backend)
+    if mesh.rank:
+        logging.getLogger().setLevel(logging.WARNING)
+    try:
+        return _run(args, cfg, mesh)
+    finally:
+        if created:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, mesh) -> int:
     from radad_tpu_torch.data.manifest import load_manifests
     from radad_tpu_torch.models.encoder import build_encoder
     from radad_tpu_torch.train.pipeline import (DetectionPipeline,
-                                                check_ported,
                                                 print_dataset_statistics)
 
-    check_ported(cfg)  # before the encoder is built
-    encoder = build_encoder(cfg, weights_dir=args.weights_dir,
-                            device=args.device)
-    pipeline = DetectionPipeline(cfg, encoder=encoder, device=args.device)
+    device = args.device if mesh is None else mesh.device
+    encoder = build_encoder(cfg, weights_dir=args.weights_dir, device=device)
+    pipeline = DetectionPipeline(cfg, encoder=encoder, device=device,
+                                 mesh=mesh)
+    lead = pipeline.lead  # rank 0 of a mesh prints
     if args.mode == "train":
         splits = load_manifests(
             cfg.train_data_path, data_fraction=cfg.data_fraction,
             train_split=cfg.train_split, seed=cfg.random_seed)
-        print_dataset_statistics(splits)
+        if lead:
+            print_dataset_statistics(splits)
         if args.resume:
             if pipeline.load_models(args.model_prefix):
                 pipeline.load_vector_database()
@@ -196,9 +241,10 @@ def main(argv=None) -> int:
             cfg.test_data_path, data_fraction=cfg.data_fraction,
             train_split=cfg.train_split, seed=cfg.random_seed)
         results = pipeline.evaluate(splits["val"])
-        print("Evaluation metrics:")
-        for key, value in results.items():
-            print(f"{key}: {value}")
+        if lead:
+            print("Evaluation metrics:")
+            for key, value in results.items():
+                print(f"{key}: {value}")
         return 0
     if args.mode == "build_db":
         splits = load_manifests(
@@ -206,8 +252,9 @@ def main(argv=None) -> int:
             train_split=cfg.train_split, seed=cfg.random_seed)
         added = pipeline.update_vector_database(
             splits["train"], append=not args.rebuild_db)
-        print(f"Vector DB: {pipeline.index.ntotal} vectors "
-              f"({added} added this run)")
+        if lead:
+            print(f"Vector DB: {pipeline.index.ntotal} vectors "
+                  f"({added} added this run)")
         return 0
     if not args.audio_path:
         raise ValueError("Audio path must be provided for predict mode")

@@ -20,6 +20,13 @@ form written op by op with bf16 constants, the attention scale is rounded
 to bf16, and the per-channel norm takes the JAX package's shifted moments.
 The f32 path keeps its own arithmetic (fused bias adds, exact GELU,
 ``F.group_norm``).
+
+Tensor parallelism (``parallel/tp.py``): with ``tp = (mesh, axis)`` the
+layer's parameters are the rank's shard (q, k, v and the FFN's first
+linear split by output rows, the output projection and the FFN's second
+linear by input columns), ``self_attention`` runs the rank's H / S heads,
+and each row-parallel product is summed over the axis group (one
+all-reduce) before its bias is added once.
 """
 
 from __future__ import annotations
@@ -73,14 +80,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * inner)))
 
 
+def _row_parallel(partial: torch.Tensor, bias: torch.Tensor,
+                  tp: tuple) -> torch.Tensor:
+    """A row-parallel product's partial sum summed over the tensor-parallel
+    group, then its bias."""
+    mesh, axis = tp
+    return mesh.all_reduce(partial, axis) + bias.to(partial.dtype)
+
+
 def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
-                   num_heads: int, *,
-                   bias_factors: Optional[tuple] = None) -> torch.Tensor:
+                   num_heads: int, *, bias_factors: Optional[tuple] = None,
+                   tp: Optional[tuple] = None) -> torch.Tensor:
     """HF eager self-attention (modeling_wav2vec2.py): q scaled by
     head_dim**-0.5; logits optionally add ``bias_factors = (gate [B, T, H],
     pos_bias [H, T, T])``, WavLM's gated relative position bias in factored
     form. ``p``: qw, qb, kw, kb, vw, vb, ow, ob; "kb" may be absent
-    (Whisper's k_proj has no bias)."""
+    (Whisper's k_proj has no bias). ``tp``: this rank's heads only
+    (module docstring)."""
     _, t, d = x.shape
     # the scale in x's dtype (JAX: jnp.asarray(scaling, x.dtype)); in bf16
     # 80^-0.5 rounds to 0.11181640625
@@ -89,43 +105,58 @@ def self_attention(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     k = linear(x, p["kw"], p.get("kb"))
     v = linear(x, p["vw"], p["vb"])
     gate, pos = bias_factors if bias_factors is not None else (None, None)
+    heads = num_heads
+    if tp is not None:
+        mesh, axis = tp
+        heads = num_heads // mesh.shape[axis]
+        h0 = mesh.coord(axis) * heads
+        if gate is not None:
+            gate, pos = gate[..., h0:h0 + heads], pos[h0:h0 + heads]
     if use_fused_attention(t, d, x.device):
-        ctx = fused_mha(q, k, v, num_heads,
+        ctx = fused_mha(q, k, v, heads,
                         gate=None if gate is None else gate.contiguous(),
                         pos_bias=None if pos is None else pos.contiguous())
     else:
-        ctx = mha_reference(q, k, v, num_heads, gate=gate, pos_bias=pos)
-    return linear(ctx, p["ow"], p["ob"])
+        ctx = mha_reference(q, k, v, heads, gate=gate, pos_bias=pos)
+    if tp is None:
+        return linear(ctx, p["ow"], p["ob"])
+    return _row_parallel(linear(ctx, p["ow"]), p["ob"], tp)
 
 
-def feed_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor]
-                 ) -> torch.Tensor:
+def feed_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                 tp: Optional[tuple] = None) -> torch.Tensor:
     """Linear → GELU → Linear (HF Wav2Vec2FeedForward, Whisper's fc1 and
-    fc2)."""
-    return linear(gelu(linear(x, p["w1"], p["b1"])), p["w2"], p["b2"])
+    fc2); with ``tp`` the rank's columns of the hidden layer."""
+    h = gelu(linear(x, p["w1"], p["b1"]))
+    if tp is None:
+        return linear(h, p["w2"], p["b2"])
+    return _row_parallel(linear(h, p["w2"]), p["b2"], tp)
 
 
 def post_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
-                  bias_factors: Optional[tuple] = None) -> torch.Tensor:
+                  bias_factors: Optional[tuple] = None,
+                  tp: Optional[tuple] = None) -> torch.Tensor:
     """Post-LN encoder layer (HF Wav2Vec2EncoderLayer, WavLM base):
     x = LN(x + attn(x)); x = LN2(x + ffn(x))."""
     h = x + self_attention(x, p["attn"], num_heads,
-                           bias_factors=bias_factors)
+                           bias_factors=bias_factors, tp=tp)
     h = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"], eps)
-    h = h + feed_forward(h, p["ffn"])
+    h = h + feed_forward(h, p["ffn"], tp)
     return layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"], eps)
 
 
 def pre_ln_layer(x: torch.Tensor, p, num_heads: int, eps: float, *,
-                 bias_factors: Optional[tuple] = None) -> torch.Tensor:
+                 bias_factors: Optional[tuple] = None,
+                 tp: Optional[tuple] = None) -> torch.Tensor:
     """Pre-LN encoder layer (HF WhisperEncoderLayer, and
     Wav2Vec2EncoderLayerStableLayerNorm of the ``do_stable_layer_norm``
     large variants): x += attn(LN(x)); x += ffn(LN2(x))."""
     h = x + self_attention(
         layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"], eps), p["attn"],
-        num_heads, bias_factors=bias_factors)
+        num_heads, bias_factors=bias_factors, tp=tp)
     return h + feed_forward(
-        layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"], eps), p["ffn"])
+        layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"], eps), p["ffn"],
+        tp)
 
 
 def conv1d(x: torch.Tensor, kernel: torch.Tensor,

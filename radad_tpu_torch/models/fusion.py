@@ -38,7 +38,7 @@ to bf16; dropout works on the bf16 activations; the logits come back f32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -68,21 +68,29 @@ def dropout(x: torch.Tensor, p: float,
                        torch.zeros_like(x))
 
 
-def batch_stats(x: torch.Tensor):
+def batch_stats(x: torch.Tensor, stats_sum: Optional[Callable] = None):
     """flax ``_compute_stats`` over axis 0 (use_fast_variance): mean and
-    ``max(0, E[x²] − E[x]²)``."""
-    mean = x.mean(0)
-    var = torch.clamp_min(x.square().mean(0) - mean.square(), 0.0)
-    return mean, var
+    ``max(0, E[x²] − E[x]²)``. ``stats_sum`` (a data-parallel step's
+    differentiable sum over the ranks of the batch): the moments of the
+    global batch, from the summed [Σx, Σx², rows]."""
+    if stats_sum is None:
+        mean = x.mean(0)
+        return mean, torch.clamp_min(x.square().mean(0) - mean.square(), 0.0)
+    f = x.shape[1]
+    tot = stats_sum(torch.cat([x.sum(0), x.square().sum(0),
+                               x.new_full((1,), x.shape[0])]))
+    mean = tot[:f] / tot[-1]
+    return mean, torch.clamp_min(tot[f:2 * f] / tot[-1] - mean.square(), 0.0)
 
 
-def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
+               stats_sum: Optional[Callable] = None) -> torch.Tensor:
     """flax ``nn.BatchNorm`` forward: running statistics in eval mode, the
     batch's in training mode (kept in ``bn.last_stats`` for
     ``commit_batch_stats``); ``(x - mean) * (rsqrt(var + eps) * scale) +
     bias``."""
     if bn.training:
-        mean, var = batch_stats(x)
+        mean, var = batch_stats(x, stats_sum)
         bn.last_stats = (mean.detach(), var.detach())
     else:
         mean, var = bn.running_mean, bn.running_var
@@ -148,7 +156,8 @@ class DetectionModel(nn.Module):
         self.norms = nn.ModuleList(norms)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                stats_sum: Optional[Callable] = None) -> torch.Tensor:
         dt = self.compute_dtype
         last = len(self.linears) - 1
         x = x.to(dt)
@@ -156,7 +165,8 @@ class DetectionModel(nn.Module):
             x = dense(lin, x)
             if i < last:
                 if self.use_batch_norm:
-                    x = batch_norm(self.norms[i], x.float()).to(dt)
+                    x = batch_norm(self.norms[i], x.float(),
+                                   stats_sum).to(dt)
                 elif len(self.norms):
                     x = self.norms[i](x.float()).to(dt)
                 x = torch.relu(x)
@@ -200,14 +210,15 @@ class RADADModel(nn.Module):
             use_layer_norm, detection_dropout, compute_dtype)
 
     def forward(self, neighbor_vecs: torch.Tensor, tpp_vecs: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                stats_sum: Optional[Callable] = None) -> torch.Tensor:
         """``neighbor_vecs [B, K, D]``, ``tpp_vecs [B, D]`` → logits ``[B]``
         (radad_model.py:32-41). ``generator``: dropout's draws in training
-        mode."""
+        mode; ``stats_sum``: BatchNorm's cross-rank sum (``batch_stats``)."""
         dt = self.compute_dtype
         proj = self.projection_layer(neighbor_vecs, generator)
         fused = dense(self.fuse, torch.cat([tpp_vecs.to(dt), proj], dim=-1))
-        return self.detection_model(fused, generator)
+        return self.detection_model(fused, generator, stats_sum)
 
 
 @torch.no_grad()

@@ -170,8 +170,9 @@ def encode(model: Wav2Vec2Model, waveform: torch.Tensor,
         x = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
     layer_fn = C.pre_ln_layer if cfg.do_stable_layer_norm else C.post_ln_layer
     hidden = [x]
+    tp = getattr(model, "tp", None)  # parallel/tp.py's shard
     for layer in model.layers:
-        x = layer_fn(x, layer, heads, eps)
+        x = layer_fn(x, layer, heads, eps, tp=tp)
         hidden.append(x)
     if cfg.do_stable_layer_norm:
         hidden[-1] = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)

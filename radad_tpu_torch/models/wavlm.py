@@ -133,6 +133,7 @@ def encode(model: WavLMModel, waveform: torch.Tensor,
         x = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
     pos = position_bias(model, x.shape[1]).to(x.dtype)
     hidden = [x]
+    tp = getattr(model, "tp", None)  # parallel/tp.py's shard
     for layer in model.layers:
         if cfg.do_stable_layer_norm:
             # pre-LN (HF WavLMEncoderLayerStableLayerNorm): the gate reads
@@ -141,14 +142,14 @@ def encode(model: WavLMModel, waveform: torch.Tensor,
                                 layer["ln1"]["bias"], eps)
             gate = gated_bias_factors(ln_x, layer["gate"], heads)
             x = x + C.self_attention(ln_x, layer["attn"], heads,
-                                     bias_factors=(gate, pos))
+                                     bias_factors=(gate, pos), tp=tp)
             x = x + C.feed_forward(C.layer_norm(
                 x, layer["ln2"]["scale"], layer["ln2"]["bias"], eps),
-                layer["ffn"])
+                layer["ffn"], tp)
         else:
             gate = gated_bias_factors(x, layer["gate"], heads)
             x = C.post_ln_layer(x, layer, heads, eps,
-                                bias_factors=(gate, pos))
+                                bias_factors=(gate, pos), tp=tp)
         hidden.append(x)
     if cfg.do_stable_layer_norm:
         hidden[-1] = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)

@@ -106,9 +106,10 @@ def encode_mel(model: WhisperEncoder, mel: torch.Tensor,
                         stride=2, padding=1))
     x = x.transpose(1, 2)
     x = x + model.pos_embed[:x.shape[1]].to(dtype)
+    tp = getattr(model, "tp", None)  # parallel/tp.py's shard
     for layer in model.layers:
         x = C.pre_ln_layer(x, layer, cfg.num_attention_heads,
-                           cfg.layer_norm_eps)
+                           cfg.layer_norm_eps, tp=tp)
     ln = model.final_ln
     return C.layer_norm(x, ln["scale"], ln["bias"], cfg.layer_norm_eps)
 

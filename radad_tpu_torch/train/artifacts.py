@@ -28,9 +28,14 @@ logger = logging.getLogger(__name__)
 
 
 class ArtifactWriter:
-    def __init__(self, data_root: str):
+    """``write=False`` keeps the rows and best trackers and writes no file
+    (every rank of a mesh but rank 0)."""
+
+    def __init__(self, data_root: str, write: bool = True):
         self.data_root = data_root
-        os.makedirs(data_root, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(data_root, exist_ok=True)
         self.rows: List[Dict] = []
         self.best_by_val_loss = {"epoch": None, "val_loss": float("inf")}
         self.best_by_eer = {"epoch": None, "eer_percent": float("inf")}
@@ -38,6 +43,8 @@ class ArtifactWriter:
     # -------------------------------------------------- metrics.csv
     def add_row(self, row: Dict) -> None:
         self.rows.append(row)
+        if not self.write:
+            return
         path = os.path.join(self.data_root, "metrics.csv")
         keys = list(self.rows[0].keys())
         for r in self.rows:
@@ -62,6 +69,8 @@ class ArtifactWriter:
         return bool(is_best)
 
     def save_summary(self) -> None:
+        if not self.write:
+            return
         summary = {
             "final_epoch": len(self.rows),
             "best_by_val_loss": self.best_by_val_loss,
@@ -77,6 +86,8 @@ class ArtifactWriter:
         """Write ROC/DET point CSVs + PNGs; returns AUC."""
         fpr, tpr, thr = M.roc_curve(scores, labels)
         auc_val = M.auc(fpr, tpr)
+        if not self.write:
+            return auc_val
         suffix = f"_epoch{epoch}" if epoch is not None else (f"_{tag}" if tag else "")
         with open(os.path.join(self.data_root, f"roc_points{suffix}.csv"),
                   "w", newline="") as f:
@@ -117,7 +128,7 @@ class ArtifactWriter:
         plt.close(fig)
 
     def plot_training_curves(self) -> None:
-        if not self.rows:
+        if not self.rows or not self.write:
             return
         try:
             import matplotlib

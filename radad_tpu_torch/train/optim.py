@@ -138,10 +138,13 @@ class GroupAdam:
 
 def pos_weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
                      pos_weight: float,
-                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     valid: Optional[torch.Tensor] = None,
+                     count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BCE with logits and positive-class weighting,
     ``-[w·y·log σ(x) + (1-y)·log(1-σ(x))]``, mean over the ``valid`` rows
-    (over all rows when ``valid`` is None)."""
+    (over all rows when ``valid`` is None). ``count`` replaces the number
+    of valid rows as the divisor: a data-parallel rank's share of the
+    global batch's mean."""
     logits = logits.float()
     labels = labels.float()
     per = -(pos_weight * labels * torch.nn.functional.logsigmoid(logits)
@@ -149,4 +152,5 @@ def pos_weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
     if valid is None:
         return per.mean()
     valid = valid.float()
-    return (per * valid).sum() / valid.sum().clamp_min(1.0)
+    count = valid.sum() if count is None else count
+    return (per * valid).sum() / count.clamp_min(1.0)

@@ -9,7 +9,17 @@ Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
 (``index/quantized.py``: ``vector_db_index_type="SQ8"``, plain, residual
 or int4-refined; ``retrieve_on_device_sq8`` in serving and in the train
 step) and the IVF index (``retrieve_on_device_ivf_gather_chunked`` on the
-predict paths; see ``_retrieve``). Meshes come in a later slice.
+predict paths; see ``_retrieve``).
+
+On a mesh (``DetectionPipeline(mesh=parallel.make_mesh(...))``) the
+pipeline runs SPMD, one process a rank, every rank called with the same
+arguments: the DB rows split over 'index' (each rank keeps its block on its
+device; the whole index stays on the host for saves and adds), batches
+over 'data' (each rank embeds, retrieves and steps on its slice), the
+search is ``parallel/sharded_index.py`` (no accelerator arrays, as JAX's
+``build_accel = mesh is None``), the train step is the global batch's
+(``make_step_fns(mesh=...)``), and every rank returns the full results.
+Rank 0 alone writes files.
 
 A predict call runs embed (segment → encoder → TPP → mean over windows)
 → flat search → neighbor gather (``ops.gather.gather_rows``) → fusion
@@ -64,6 +74,13 @@ from radad_tpu_torch.models.fusion import build_radad_model
 from radad_tpu_torch.ops.gather import gather_rows
 from radad_tpu_torch.ops.segmenter import segment_audio
 from radad_tpu_torch.ops.tpp import temporal_pyramid_pool, tpp_output_dim
+from radad_tpu_torch.parallel.mesh import (DATA_AXIS, INDEX_AXIS,
+                                           all_reduce_sum, batch_sharding,
+                                           index_sharding)
+from radad_tpu_torch.parallel.sharded_index import (
+    SQ8_SHARD_ROWS, build_sharded_chunk_tables, gather_budget, pad_rows,
+    shard_capacity, sharded_retrieve, sharded_retrieve_ivf_gather,
+    sharded_retrieve_sq8)
 from radad_tpu_torch.train import metrics as M
 from radad_tpu_torch.train.artifacts import ArtifactWriter, WandbShim
 from radad_tpu_torch.train.checkpoint import (checkpoint_path,
@@ -203,14 +220,25 @@ class StepFns(NamedTuple):
 
 def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
                   grad_checkpoint=False, ablate_retrieval=False,
-                  ablate_query=False) -> StepFns:
+                  ablate_query=False, mesh=None) -> StepFns:
     """Train and eval steps over an injected ``retrieve(tpp, exclude_ids)``
     → (neighbors, nlabels, ...) (reference ``make_step_fns``,
     pipeline.py:215-346). The model's parameters and ``opt``'s state are
     updated in place; ``model`` is put in training mode for the forward
-    and back in eval mode after it. Makes the parameters trainable."""
+    and back in eval mode after it. Makes the parameters trainable.
+
+    ``mesh`` (``parallel.mesh.Mesh``): each rank steps on its slice of the
+    batch and the step is the global batch's, as GSPMD makes JAX's step on
+    a mesh: the loss is divided by the global valid count, BatchNorm takes
+    the global batch's statistics, the gradients are summed over 'data'
+    before the clip and Adam (every rank then applies the same update),
+    and the metrics are the global batch's."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
+    stats_sum = None
+    if mesh is not None:
+        def stats_sum(t):
+            return all_reduce_sum(mesh, t, DATA_AXIS)
 
     @torch.no_grad()
     def fetch(tpp, exclude_ids):
@@ -232,6 +260,8 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
         they enter BatchNorm's batch statistics, and only the loss masks
         them), masked BCE, gradients. → (loss, logits, {name: grad})."""
         tpp_m = model_tpp(tpp)
+        count = (None if mesh is None
+                 else mesh.all_reduce(valid.float().sum(), DATA_AXIS))
         model.train()
         try:
             with torch.enable_grad():
@@ -244,13 +274,14 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
                     def fwd(n, t):
                         if start is not None:
                             generator.set_state(start)
-                        return model(n, t, generator)
+                        return model(n, t, generator, stats_sum)
 
                     logits = torch.utils.checkpoint.checkpoint(
                         fwd, neighbors, tpp_m, use_reentrant=False)
                 else:
-                    logits = model(neighbors, tpp_m, generator)
-                loss = pos_weighted_bce(logits, labels, pos_weight, valid)
+                    logits = model(neighbors, tpp_m, generator, stats_sum)
+                loss = pos_weighted_bce(logits, labels, pos_weight, valid,
+                                        count)
                 grads = torch.autograd.grad(loss, list(params.values()))
         finally:
             model.eval()
@@ -258,13 +289,30 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
 
     def apply(acc, neighbors, labels, valid, loss, logits, grads):
         """Per-group clip + decay + Adam, BatchNorm running statistics,
-        the epoch sums. → per-batch metrics (device tensors)."""
+        the epoch sums. → per-batch metrics (device tensors). On a mesh
+        the gradients are first summed over 'data' (one all-reduce), and
+        ``loss`` (the rank's share) and the sums become the global
+        batch's (one more)."""
+        if mesh is not None:
+            names = list(grads)
+            flat = mesh.all_reduce(
+                torch.cat([grads[n].reshape(-1) for n in names]), DATA_AXIS)
+            grads = {n: g.view_as(grads[n]) for n, g in zip(
+                names, flat.split([grads[n].numel() for n in names]))}
         gnorms = opt.step(params, grads)  # the pre-clip group norms
         model.detection_model.commit_batch_stats()
         vmask = valid.float()
         nv = vmask.sum()
         correct = (((logits > 0).float() == labels).float() * vmask).sum()
-        nnz = (neighbors.abs().sum(-1) > 0).float().mean()
+        nnz = (neighbors.abs().sum(-1) > 0).float()
+        if mesh is None:
+            nnz = nnz.mean()
+        else:
+            loss, nv, correct, nnz_sum, nnz_n = mesh.all_reduce(torch.stack(
+                [loss, nv, correct, nnz.sum(),
+                 torch.tensor(float(nnz.numel()), device=nv.device)]),
+                DATA_AXIS).unbind()
+            nnz = nnz_sum / nnz_n
         for key, val in (("loss_sum", loss * nv), ("correct", correct),
                          ("count", nv), ("nnz_sum", nnz),
                          ("gn_proj_sum", gnorms["projection_layer"]),
@@ -314,13 +362,14 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
                    eval_step)
 
 
-def check_ported(config: Config) -> None:
-    """Raise NotImplementedError for a configuration the port cannot run
-    yet (a mesh: ``data_shards`` or ``index_shards`` > 1)."""
-    if config.data_shards > 1 or config.index_shards > 1:
-        raise NotImplementedError(
-            f"mesh (data_shards={config.data_shards}, index_shards="
-            f"{config.index_shards}): not yet ported")
+def _move_index(index, device) -> None:
+    """Every tensor of ``index`` (a ``FlatIndex`` or ``QuantizedIndex``) to
+    ``device``, which becomes the index's."""
+    device = torch.device(device)
+    for name, val in list(vars(index).items()):
+        if isinstance(val, torch.Tensor):
+            setattr(index, name, val.to(device))
+    index.device = device
 
 
 class DetectionPipeline:
@@ -329,12 +378,16 @@ class DetectionPipeline:
 
     def __init__(self, config: Config, *,
                  encoder: Optional[FrozenEncoder] = None,
-                 use_pallas: bool = False, device="cuda"):
+                 use_pallas: bool = False, device="cuda", mesh=None):
         """``use_pallas``: search with the ``flat_topk`` kernel + exact
         re-rank instead of the certified route (``FlatIndex``; the SQ8
-        index has no such route and ignores it)."""
-        self.device = resolve_device(device)
-        check_ported(config)
+        index has no such route and ignores it). ``mesh``
+        (``parallel.make_mesh``): SPMD over the mesh (module docstring);
+        the rank's device is ``mesh.device``, which replaces ``device``."""
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        # rank 0 of a mesh alone writes files and prints
+        self.lead = mesh is None or mesh.rank == 0
         self.config = config
         self.use_pallas = use_pallas
         self.is_quantized = config.vector_db_index_type.upper() == "SQ8"
@@ -346,12 +399,17 @@ class DetectionPipeline:
         self.index = self._make_index()
         self.step = 0
         self._embed = make_embed_fn(self.encoder, config)
-        self.writer = ArtifactWriter(config.data_root)
-        self.wandb = WandbShim(config.usewandb)
+        self.writer = ArtifactWriter(config.data_root, write=self.lead)
+        self.wandb = WandbShim(config.usewandb and self.lead)
         # per-group state made by _ensure_model_state or load_models
         self.opt = GroupAdam(config.learning_rate, config.weight_decay)
+        # dropout's draws: one seeded generator a rank
         self.generator = torch.Generator(device=self.device).manual_seed(
-            config.random_seed)  # dropout's draws
+            config.random_seed + (0 if mesh is None else mesh.rank))
+        # on a mesh: this rank's block of the index (_place_index_on_mesh)
+        # and the sharded gather-probed IVF's chunk tables
+        self._shard: Optional[Dict[str, torch.Tensor]] = None
+        self._mesh_ivf: Optional[dict] = None
         self._steps_fns: Optional[StepFns] = None
         # frozen-encoder embeddings, (hash(paths), len) -> [N, D] on the
         # device (config.cache_embeddings)
@@ -359,10 +417,16 @@ class DetectionPipeline:
 
     def _make_index(self):
         cfg = self.config
+        accel = self.mesh is None  # a mesh searches the canonical arrays
         if self.is_quantized:
+            if self.mesh is not None and cfg.sq8_refine_bits:
+                raise ValueError(
+                    "sq8_refine_bits is a single-chip capacity-mode "
+                    "feature; the mesh-sharded SQ8 path consumes the "
+                    "canonical int8 arrays only")
             # JAX: an L2 QuantizedIndex, build_accel without a mesh
             return QuantizedIndex(
-                self.tpp_dim, "L2", build_accel=True,
+                self.tpp_dim, "L2", build_accel=accel,
                 residual_nlist=cfg.sq8_residual_nlist,
                 kmeans_iters=cfg.vector_db_kmeans_iters,
                 refine_bits=cfg.sq8_refine_bits,
@@ -375,9 +439,8 @@ class DetectionPipeline:
                          ivf_retrain_on_add=cfg.vector_db_ivf_retrain_on_add,
                          use_float16=cfg.use_float16,
                          add_batch_size=cfg.vector_add_batch_size,
-                         use_pallas=self.use_pallas,
-                         # JAX: self.mesh is None; the port has no mesh yet
-                         build_accel=True, device=self.device)
+                         use_pallas=self.use_pallas, build_accel=accel,
+                         device=self.device)
 
     def _grid_pad(self) -> Optional[int]:
         cfg = self.config
@@ -388,9 +451,17 @@ class DetectionPipeline:
 
     # ------------------------------------------------------------------
     def get_embeddings(self, manifest: Manifest) -> torch.Tensor:
-        """TPP embeddings ``[N, D]`` (on the pipeline's device) for every
-        clip of a manifest, in manifest order."""
-        cfg = self.config
+        """TPP embeddings ``[N, D]`` for every clip of a manifest, in
+        manifest order, on the pipeline's device; on a mesh on the host,
+        every rank the whole matrix (JAX ``_embeddings_any``,
+        pipeline.py:879-948). With ``config.shard_db_build`` (None: on for
+        a mesh of CUDA devices, off on the CPU) each batch that divides
+        the 'data' axis is embedded a slice a rank and all-gathered."""
+        cfg, mesh = self.config, self.mesh
+        shard = cfg.shard_db_build
+        if shard is None:
+            shard = mesh is not None and mesh.device.type != "cpu"
+        data_div = mesh.data if mesh is not None and shard else 0
         chunks = []
         for batch in iterate_batches(
                 manifest, cfg.db_batch_size, sample_rate=cfg.sample_rate,
@@ -399,10 +470,18 @@ class DetectionPipeline:
             audio = torch.as_tensor(batch.audio, device=self.device)
             lengths = (torch.as_tensor(batch.lengths, device=self.device)
                        if cfg.max_duration else None)
-            chunks.append(self._embed(audio, lengths)[: batch.num_valid])
-        if not chunks:
-            return torch.zeros((0, self.tpp_dim), device=self.device)
-        return torch.cat(chunks)
+            if data_div and audio.shape[0] % data_div == 0:
+                emb = mesh.all_gather(self._embed(
+                    batch_sharding(mesh, audio),
+                    None if lengths is None
+                    else batch_sharding(mesh, lengths)), DATA_AXIS)
+                emb = emb.flatten(0, 1)
+            else:
+                emb = self._embed(audio, lengths)
+            chunks.append(emb[: batch.num_valid])
+        out = (torch.cat(chunks) if chunks
+               else torch.zeros((0, self.tpp_dim), device=self.device))
+        return out if mesh is None else out.cpu()
 
     def _embeddings_any(self, manifest: Manifest) -> torch.Tensor:
         """``get_embeddings``, cached per manifest when
@@ -430,19 +509,23 @@ class DetectionPipeline:
         decodes and embeds every batch (the reference's per-epoch encoder
         forward, pipeline.py:794-796)."""
         cfg, dev = self.config, self.device
+        # on a mesh: this rank's rows of each batch
+        local = slice(None) if self.mesh is None else \
+            self._data_slice(batch_size)
         if not cfg.cache_embeddings:
             for batch in iterate_batches(
                     manifest, batch_size, sample_rate=cfg.sample_rate,
                     duration=cfg.analysis_duration, shuffle=shuffle,
                     seed=seed, prefetch=cfg.host_prefetch,
                     pad_to=self._grid_pad()):
-                lengths = (torch.as_tensor(batch.lengths, device=dev)
+                lengths = (torch.as_tensor(batch.lengths[local], device=dev)
                            if cfg.max_duration else None)
-                tpp = self._embed(torch.as_tensor(batch.audio, device=dev),
-                                  lengths).clone()  # not an inference tensor
-                yield (tpp, torch.as_tensor(batch.labels, device=dev),
-                       torch.as_tensor(batch.ids, device=dev),
-                       torch.as_tensor(batch.valid, device=dev))
+                tpp = self._embed(
+                    torch.as_tensor(batch.audio[local], device=dev),
+                    lengths).clone()  # not an inference tensor
+                yield (tpp, torch.as_tensor(batch.labels[local], device=dev),
+                       torch.as_tensor(batch.ids[local], device=dev),
+                       torch.as_tensor(batch.valid[local], device=dev))
             return
         emb = self._embeddings_any(manifest)
         n = len(manifest)
@@ -459,11 +542,12 @@ class DetectionPipeline:
             ids[:len(chunk)] = manifest.ids[chunk]
             valid = np.zeros((batch_size,), bool)
             valid[:len(chunk)] = True
-            valid_t = torch.as_tensor(valid, device=dev)
-            tpp = (emb.index_select(0, torch.as_tensor(rows, device=dev))
+            valid_t = torch.as_tensor(valid[local], device=dev)
+            tpp = (emb.index_select(0, torch.as_tensor(
+                rows[local], device=emb.device)).to(dev)
                    * valid_t[:, None].to(emb.dtype))
-            yield (tpp, torch.as_tensor(labels, device=dev),
-                   torch.as_tensor(ids, device=dev), valid_t)
+            yield (tpp, torch.as_tensor(labels[local], device=dev),
+                   torch.as_tensor(ids[local], device=dev), valid_t)
 
     def build_vector_database(self, train_manifest: Manifest,
                               save: bool = True) -> None:
@@ -474,13 +558,25 @@ class DetectionPipeline:
         t0 = time.time()
         vectors = self._embeddings_any(train_manifest)
         speakers = [{"speaker_id": s} for s in train_manifest.speakers]
-        self.index.add(vectors, train_manifest.labels.tolist(),
-                       list(train_manifest.paths), metadata=speakers,
-                       ids=train_manifest.ids.tolist())
-        if save:
-            self.index.save(self.config.vector_db_path)
+        self._add_rows(vectors, train_manifest, speakers, save)
         logger.info("Vector DB built: %d vectors in %.1fs",
                     self.index.ntotal, time.time() - t0)
+
+    def _add_rows(self, vectors, manifest: Manifest, speakers,
+                  save: bool) -> None:
+        """Add rows to the index; on a mesh every rank adds the same rows
+        on its device, rank 0 saves (then a barrier), and each rank keeps
+        its block (``_place_index_on_mesh``)."""
+        if self.mesh is not None:
+            _move_index(self.index, self.device)
+        self.index.add(vectors, manifest.labels.tolist(),
+                       list(manifest.paths), metadata=speakers,
+                       ids=manifest.ids.tolist())
+        if save and self.lead:
+            self.index.save(self.config.vector_db_path)
+        if save and self.mesh is not None:
+            self.mesh.barrier()
+        self._place_index_on_mesh()
 
     def update_vector_database(self, manifest: Manifest, *,
                                append: bool = True,
@@ -500,13 +596,69 @@ class DetectionPipeline:
         if not new_idx:
             return 0
         sub = manifest.subset(new_idx)
-        self.index.add(self.get_embeddings(sub), sub.labels.tolist(),
-                       list(sub.paths),
-                       metadata=[{"speaker_id": s} for s in sub.speakers],
-                       ids=sub.ids.tolist())
-        if save:
-            self.index.save(self.config.vector_db_path)
+        self._add_rows(self.get_embeddings(sub), sub,
+                       [{"speaker_id": s} for s in sub.speakers], save)
         return len(sub)
+
+    def _place_index_on_mesh(self) -> None:
+        """On a mesh: this rank's row block of the index on its device (JAX
+        ``_place_index_on_mesh``, pipeline.py:444-475), the capacity padded
+        by ``shard_capacity`` to a multiple of ``SQ8_SHARD_ROWS`` x the
+        'index' axis (padding rows have id -1); the IVF and
+        residual-SQ8 centroids whole; IVF's per-shard chunk tables
+        (``_build_mesh_ivf_tables``). The whole index then moves to the
+        host, where it serves saves and later adds, never a search."""
+        if self.mesh is None or self.index.ntotal == 0:
+            return
+        ix, mesh = self.index, self.mesh
+        cap = shard_capacity(ix.ids.shape[0], mesh.index, SQ8_SHARD_ROWS)
+
+        def block(t, fill=0):
+            return index_sharding(mesh, pad_rows(t, cap, fill)).to(
+                self.device, copy=True)
+
+        if self.is_quantized:
+            sh = dict(codes=block(ix.codes), scales=block(ix.scales),
+                      norm_sq=block(ix.norm_sq))
+        else:
+            sh = dict(vectors=block(ix.vectors), norms_sq=block(ix.norms_sq))
+        sh.update(labels=block(ix.labels), ids=block(ix.ids, -1))
+        self._mesh_ivf = None
+        if ix.centroids is not None:  # IVF, or residual SQ8
+            sh.update(centroids=ix.centroids.to(self.device, copy=True),
+                      cells=block(ix.cells))
+            if not self.is_quantized:
+                cells = np.zeros((cap,), np.int32)
+                cells[: ix.n] = ix.cells[: ix.n].cpu().numpy()
+                self._build_mesh_ivf_tables(cells)
+        self._shard = sh
+        _move_index(ix, "cpu")
+
+    def _build_mesh_ivf_tables(self, cells: np.ndarray) -> None:
+        """The sharded gather-probed IVF search's chunk tables (JAX
+        ``_build_mesh_ivf_tables``, pipeline.py:477-501), built on the host
+        from the capacity-padded cells; this rank keeps its shard's, and
+        every shard's statistics for the one budget all ranks share."""
+        mesh = self.mesh
+        chunk_rows, cell_chunks, n_valid_shard, stats = (
+            build_sharded_chunk_tables(cells, self.index.n,
+                                       int(self.index.centroids.shape[0]),
+                                       mesh.index))
+        self._mesh_ivf = {
+            "chunk_rows": index_sharding(
+                mesh, torch.as_tensor(chunk_rows)).to(self.device),
+            "cell_chunks": index_sharding(
+                mesh, torch.as_tensor(cell_chunks)).to(self.device),
+            "n_valid_shard": int(n_valid_shard[mesh.coord(INDEX_AXIS)]),
+            "stats": stats,
+            "budgets": {},  # nprobe -> the budget (JAX _mesh_gather_budget)
+        }
+
+    def _mesh_gather_budget(self, nprobe: int) -> int:
+        budgets = self._mesh_ivf["budgets"]
+        if nprobe not in budgets:
+            budgets[nprobe] = gather_budget(self._mesh_ivf["stats"], nprobe)
+        return budgets[nprobe]
 
     # ------------------------------------------------------------------
     @property
@@ -523,7 +675,11 @@ class DetectionPipeline:
         (``prefer_ivf_gather``) take the chunked gather route when
         2 B budget chunk < n; everything else (train, eval, larger predict
         batches) takes ``retrieve_on_device`` without the centroids, the
-        certified search over every row, unprobed."""
+        certified search over every row, unprobed. On a mesh:
+        ``_retrieve_mesh``."""
+        if self.mesh is not None:
+            return self._retrieve_mesh(tpp, exclude, exclude_mode,
+                                       prefer_ivf_gather)
         ix = self.index
         if self.is_quantized:
             out = retrieve_on_device_sq8(
@@ -557,12 +713,68 @@ class DetectionPipeline:
         ix.count_search(out[4])
         return out[:4]
 
+    def _retrieve_mesh(self, tpp, exclude, exclude_mode,
+                       prefer_ivf_gather: bool):
+        """The sharded search on this rank's slice of the batch (JAX
+        ``_retrieve``'s mesh branch, pipeline.py:596-655): SQ8 plain or
+        residual; flat; IVF with its probe mask at the index's nprobe (on a
+        mesh train and eval probe too, unlike the single-device
+        dispatch's unprobed search); IVF's gather route on the predict
+        paths where 2 b budget chunk < the rows of a shard."""
+        ix, sh, mesh, k = self.index, self._shard, self.mesh, \
+            self.config.top_k
+        if self.is_quantized:
+            ret = sharded_retrieve_sq8(
+                mesh, tpp, sh["codes"], sh["scales"], sh["norm_sq"],
+                sh["labels"], sh["ids"], exclude, k=k, metric="L2",
+                centroids=sh.get("centroids"), cells=sh.get("cells"),
+                exclude_mode=exclude_mode)
+            ix.count_search()
+            return ret
+        cents = sh.get("centroids")
+        if prefer_ivf_gather and self._mesh_ivf is not None:
+            tables = self._mesh_ivf
+            nprobe = min(ix.nprobe, cents.shape[0])
+            budget = self._mesh_gather_budget(nprobe)
+            if (2 * tpp.shape[0] * budget * tables["chunk_rows"].shape[1]
+                    < sh["vectors"].shape[0]):
+                ret, scanned = sharded_retrieve_ivf_gather(
+                    mesh, tpp, sh["vectors"], sh["labels"], sh["ids"],
+                    exclude, cents, sh["cells"], tables["chunk_rows"],
+                    tables["cell_chunks"], tables["n_valid_shard"], k=k,
+                    nprobe=nprobe, budget=budget, exclude_mode=exclude_mode,
+                    xsq=sh["norms_sq"])
+                ix.count_gather_search(scanned)
+                return ret
+        ret = sharded_retrieve(
+            mesh, tpp, sh["vectors"], sh["labels"], sh["ids"],
+            sh["ids"] >= 0, exclude, k=k,
+            metric="L2" if ix.metric == "IVF" else ix.metric,
+            centroids=cents, cells=sh.get("cells"),
+            nprobe=ix.nprobe if cents is not None else 32,
+            exclude_mode=exclude_mode, xsq=sh["norms_sq"])
+        ix.count_search(False)
+        return ret
+
     @torch.inference_mode()
     def _predict_tensors(self, waves: np.ndarray, exclude: List[int],
                          lengths: Optional[List[int]], exclude_mode: str):
         """Embed → retrieve (with the per-row unexcluded retry) → model.
-        → (logits, nlabels, dists, idx) tensors on the device."""
+        → (logits, nlabels, dists, idx) tensors on the device.
+
+        On a mesh the batch is padded to a multiple of the 'data' axis
+        (``_pad_serving_batch``), each rank runs its slice, the retry is
+        taken when any row of the global batch needs it (one all-reduce
+        over 'data': a rank that skipped the retry's collectives would
+        hang the others), and the results are all-gathered over 'data'."""
         dev, k = self.device, self.config.top_k
+        true_b = len(exclude)
+        if self.mesh is not None:
+            waves, exclude, lengths = self._pad_serving_batch(
+                waves, exclude, lengths)
+            local = self._data_slice(len(exclude))
+            waves, exclude = waves[local], exclude[local]
+            lengths = None if lengths is None else lengths[local]
         audio = torch.as_tensor(waves, device=dev)
         lens = (None if lengths is None
                 else torch.as_tensor(lengths, device=dev))
@@ -581,7 +793,10 @@ class DetectionPipeline:
             # rows whose neighbors were all excluded retry without
             # exclusion, each on its own (reference pipeline.py:1051-1054)
             wiped = ~(idx >= 0).any(-1)  # [B]
-            if bool(wiped.any()):
+            retry = wiped.any()
+            if self.mesh is not None:
+                retry = self.mesh.all_reduce(retry.int(), DATA_AXIS) > 0
+            if bool(retry):
                 second = self._retrieve(tpp, torch.full_like(ex, -2),
                                         exclude_mode, prefer_ivf_gather=True)
                 row = wiped[:, None]
@@ -590,7 +805,34 @@ class DetectionPipeline:
                 dists = torch.where(row, second[2], dists)
                 idx = torch.where(row, second[3], idx)
         logits = self.model(neighbors.nan_to_num(), tpp)
-        return logits, nlabels, dists, idx
+        if self.mesh is None:
+            return logits, nlabels, dists, idx
+        return tuple(self.mesh.all_gather(t, DATA_AXIS).flatten(0, 1)[:true_b]
+                     for t in (logits, nlabels, dists, idx))
+
+    def _data_slice(self, b: int) -> slice:
+        """This rank's rows of a batch of ``b`` split over 'data'; a batch
+        that does not divide the axis raises, as JAX's ``device_put`` of
+        it does."""
+        if b % self.mesh.data:
+            raise ValueError(f"batch size {b} is not divisible by the mesh "
+                             f"'data' axis ({self.mesh.data})")
+        step = b // self.mesh.data
+        lo = self.mesh.coord(DATA_AXIS) * step
+        return slice(lo, lo + step)
+
+    def _pad_serving_batch(self, waves: np.ndarray, exclude: List[int],
+                           lengths: Optional[List[int]]):
+        """A serving batch padded to a multiple of the 'data' axis with
+        zero audio, the -2 no-exclusion sentinel and length 1 (JAX
+        ``_pad_serving_batch``, pipeline.py:773-797); the caller slices the
+        results back."""
+        pad = -len(exclude) % self.mesh.data
+        if not pad:
+            return waves, exclude, lengths
+        waves = np.pad(np.asarray(waves), ((0, pad), (0, 0)))
+        lengths = None if lengths is None else list(lengths) + [1] * pad
+        return waves, list(exclude) + [-2] * pad, lengths
 
     def _payload(self, logit: float, idx_row, nlab_row, dist_row) -> Dict:
         prob = float(1.0 / (1.0 + np.exp(-np.float64(logit))))
@@ -701,7 +943,7 @@ class DetectionPipeline:
             grad_checkpoint=cfg.use_gradient_checkpointing,
             ablate_retrieval=cfg.ablate_retrieval,
             ablate_query=(cfg.ablate_query if ablate_query is None
-                          else ablate_query))
+                          else ablate_query), mesh=self.mesh)
 
     def _steps(self) -> StepFns:
         if self._steps_fns is None:
@@ -807,13 +1049,13 @@ class DetectionPipeline:
                            min_tDCF=tdcf if np.isfinite(tdcf) else None,
                            min_tDCF_threshold=(tdcf_thr if np.isfinite(tdcf)
                                                else None))
-                print(f"Epoch {epoch + 1}: Train Loss: {train_loss:.4f}, "
+                self._print(f"Epoch {epoch + 1}: Train Loss: {train_loss:.4f}, "
                       f"Train Acc: {train_acc:.4f}, Val Loss: {val_loss:.4f}, "
                       f"Val Acc: {val_acc:.4f} | AUC: {auc_val:.4f}, "
                       f"EER: {eer:.2f}% (thr={eer_thr:.4f}), "
                       f"Macro EER: {macro:.2f}%")
             else:
-                print(f"Epoch {epoch + 1}: Train {train_loss:.4f}"
+                self._print(f"Epoch {epoch + 1}: Train {train_loss:.4f}"
                       f"/{train_acc:.4f}")
 
             row["epoch_time_sec"] = time.time() - t_epoch
@@ -879,9 +1121,15 @@ class DetectionPipeline:
             logit_chunks.append(logits)
             label_chunks.append(blabels)
             valid_chunks.append(bvalid)
-        valid = torch.cat(valid_chunks).cpu().numpy()
-        logits = torch.cat(logit_chunks).cpu().numpy()[valid]
-        labels = torch.cat(label_chunks).cpu().numpy()[valid]
+        # [batches, rows]; on a mesh [batches, ranks of 'data', rows] once
+        # gathered: every rank scores the whole manifest, in its order
+        out = [torch.stack(c) for c in (valid_chunks, logit_chunks,
+                                        label_chunks)]
+        if self.mesh is not None:
+            out = [self.mesh.all_gather(t, DATA_AXIS).transpose(0, 1)
+                   for t in out]
+        valid, logits, labels = (t.reshape(-1).cpu().numpy() for t in out)
+        logits, labels = logits[valid], labels[valid]
         val_loss = float(pos_weighted_bce(torch.as_tensor(logits),
                                           torch.as_tensor(labels),
                                           pos_weight))
@@ -941,11 +1189,16 @@ class DetectionPipeline:
         """Model, optimizer state, step and config to
         ``<data_root>/models/<prefix>_radad.pt``. Returns the path."""
         self._ensure_model_state()
-        return save_checkpoint(self.config.data_root, prefix, {
-            "model": self.model.state_dict(),
-            "optimizer": self.opt.state_dict(),
-            "step": self.step,
-            "config_json": self.config.to_json()})
+        path = checkpoint_path(self.config.data_root, prefix)
+        if self.lead:  # on a mesh rank 0 writes, then a barrier
+            save_checkpoint(self.config.data_root, prefix, {
+                "model": self.model.state_dict(),
+                "optimizer": self.opt.state_dict(),
+                "step": self.step,
+                "config_json": self.config.to_json()})
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return path
 
     def load_models(self, prefix: str) -> bool:
         """Load a checkpoint of :meth:`save_models`. One without optimizer
@@ -980,16 +1233,31 @@ class DetectionPipeline:
                 f"the configured encoder produces {self.tpp_dim}-d "
                 f"embeddings; rebuild the DB or use the encoder it was "
                 f"built with")
+        accel = self.mesh is None  # as _make_index
         if self.is_quantized:
-            self.index = QuantizedIndex.load(path, build_accel=True,
+            self.index = QuantizedIndex.load(path, build_accel=accel,
                                              device=self.device)
+            if self.mesh is not None and self.index.refine_bits:
+                # the mesh's SQ8 search reads no int4 level: refined norms
+                # beside int8-only dots would bias every distance
+                raise ValueError(
+                    "loaded SQ8 index has refine_bits=%d but refinement "
+                    "is a single-chip capacity-mode feature — rebuild "
+                    "without refinement for mesh serving"
+                    % self.index.refine_bits)
             # a serving knob, not stored with the index
             self.index.rerank_depth = self.config.sq8_rerank_depth
-            return True
-        self.index = FlatIndex.load(path, use_pallas=self.use_pallas,
-                                    build_accel=True,  # as _make_index
-                                    device=self.device)
+        else:
+            self.index = FlatIndex.load(path, use_pallas=self.use_pallas,
+                                        build_accel=accel,
+                                        device=self.device)
+        self._place_index_on_mesh()
         return True
+
+    def _print(self, text: str) -> None:
+        """``print`` on rank 0 of a mesh (and without a mesh)."""
+        if self.lead:
+            print(text)
 
 
 def print_dataset_statistics(manifests: Dict[str, Manifest]) -> None:

@@ -183,9 +183,11 @@ def test_index_files_interchange(use_float16, rng, tmp_path):
                                   np.asarray(jidx.ids)[:n])
 
 
-def test_incremental_add_and_chunked_search(rng):
+def test_incremental_add_and_chunked_search(rng, tmp_path):
     """Adds that grow capacity, and a search larger than search_chunk with
-    one call-global exclusion set, equal the JAX index's results."""
+    one call-global exclusion set, equal the JAX index's results. The
+    row-sharded index needs a world its 'index' axis divides: in a world
+    of one rank, make_mesh(index=2) raises ValueError."""
     n, d = 1500, 128
     x = rng.standard_normal((n, d)).astype(np.float32)
     labels = [0.0] * n
@@ -208,12 +210,18 @@ def test_incremental_add_and_chunked_search(rng):
     small.add(x[:3], labels[:3], paths[:3])
     sd, si = small.search(q[:2], 5)
     assert (si[:, 3:] == -1).all() and np.isinf(sd[:, 3:]).all()
-    # the row-sharded index (config.index_shards > 1) is not ported yet
-    from radad_tpu_torch.config import Config
-    from radad_tpu_torch.train.pipeline import check_ported
+    # the row-sharded index needs as many ranks as its 'index' axis
+    import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        check_ported(Config().replace(index_shards=2))
+    from radad_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="index=2"):
+            make_mesh(index=2)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_bf16_scan_product_has_f32_output(rng):

@@ -164,10 +164,10 @@ def test_no_jax_import():
     assert int(proc.stdout.strip()) >= 20
 
 
-def test_entry_points_need_a_gpu_unless_cpu(tmp_path):
+def test_entry_points_need_a_gpu_unless_cpu(tmp_path, monkeypatch):
     """Without a GPU the pipeline, index, encoder, CLI and server raise
-    unless device='cpu' is passed. A mesh (--data_shards 2) is not ported
-    yet and raises before the encoder is built."""
+    unless device='cpu' is passed. A mesh (--data_shards 2) in a world of
+    one rank raises make_mesh's ValueError before the encoder is built."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from radad_tpu_torch import cli
@@ -187,9 +187,20 @@ def test_entry_points_need_a_gpu_unless_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert FlatIndex(16, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="mesh"):
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:  # a free port for the world's store
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", port),
+                       ("RANK", 0), ("WORLD_SIZE", 1), ("LOCAL_RANK", 0)):
+        monkeypatch.setenv(key, str(value))
+    with pytest.raises(ValueError, match="mesh 2x1"):
         cli.main(["--mode", "train", "--device", "cpu", "--data_shards",
                   "2"])
+    assert not dist.is_initialized()  # the CLI's world is taken down
 
 
 def test_server_predict(pair, synthetic_dataset):
