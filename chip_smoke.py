@@ -19,14 +19,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B <= 64; ``per_query``) on f32, bf16 and int8 rows, two calls bitwise
    equal, and timed beside gather + ``bmm``, the form the wrapper picks
    printed, at B = 8 as the median and spread of 21 profiler samples;
-   ``exact_dot`` on SQ8's int8 codes at R = 40 candidates, B = 1 .. 256,
-   beside gather + cast + ``bmm``; ``extract_candidates`` at B = 1, 8, 64,
+   ``exact_dot`` on bf16 rows (the bf16-storage index) at every B and on
+   SQ8's int8 codes at R = 40 candidates, B = 1 .. 256, each beside
+   gather + cast + ``bmm``; ``extract_candidates`` at B = 1, 8, 64,
    128 and 256 queries, at T = 24, m = 8 and at SQ8's T = 8, m = 5;
    ``flat_topk`` at B = 64 and 8 also against the
    exact scores of its bf16 operands within the bound of its tensor-core
-   summation order, with a control that an unrounded scan fails;
+   summation order, with a control that an unrounded scan fails, and its
+   f32 body (``fast_scan=False``) on the same inputs against
+   ``flat_topk_plain(fast_scan=False)`` within the bound of its own
+   summation order, timed beside f32 ``mm`` + |x|^2 + mask + ``topk``;
    ``fused_mha``'s two 3xTF32 bodies at T = 99, 600 and 1,500, and at head
-   width 80, and its two bf16 bodies at the same shapes against their
+   width 80 (the bias-free one also at whisper-large-v3's [2, 1500, 1280],
+   20 heads, and at a rank of the mesh's TP encoder, [16, 99, 384], 6
+   heads, beside SDPA f32), and its two bf16 bodies at the same shapes against their
    plain version within ``BF16_TOL`` * (1 + |plain|), timed beside SDPA on
    the same bf16 inputs and beside the streamed form (one pass over
    64-key tiles; wgmma at head width 64) that the wrapper takes above
@@ -97,13 +103,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``use_pallas`` index (no ``flat_topk``), and one epoch + evaluate
    (path "ivf_train": the unprobed search's kernels, ``exact_dot`` in its
    per-query form alone); after the wav2vec2 pipeline is freed, IVF at
-   capacity scale (``ivf_capacity_phase``), twice: 1,048,576 seeded rows
-   near a rank-64 subspace, then of 2,048 skewed isotropic components, made
-   on the card and added in one call (k-means on the first 50,000), the gather
-   and masked routes at B = 1, 8 and 64 (paths "ivf_capacity" and
-   "ivf_capacity_skewed"),
-   call and device ms beside their byte bounds, the gather route's
-   neighbors held to the masked route's;
+   capacity scale (``ivf_capacity_phase``), three times: 1,048,576 seeded
+   f32 rows near a rank-64 subspace, then of 2,048 skewed isotropic
+   components, then the first kind made in bf16 for
+   ``FlatIndex(use_float16=True, single_buffer=True)`` (the JAX package's
+   capacity regime), each made on the card and added in one call with
+   ``donate=True``, which must adopt them without a copy (k-means on the
+   first 50,000; peak device memory printed), the gather and masked routes
+   at B = 1, 8 and 64 (paths "ivf_capacity", "ivf_capacity_skewed",
+   "ivf_capacity_bf16": ``exact_dot`` on its bf16 rows), call and device ms
+   beside their byte bounds, the gather route's neighbors held to the
+   masked route's;
 5. WavLM serving phase: a seeded random wavlm-base pipeline with
    ``use_pallas=True`` and ``RADAD_FUSED_ATTENTION=1`` on the same size of
    DB; the same calls must launch ``fused_mha``'s bias body, ``flat_topk``
@@ -129,7 +139,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    load into a fresh pipeline with equal optimizer state and step and
    train one more epoch; the step's median retrieve / forward+backward /
    update ms, steps/s and the device busy share of a profiled step are
-   printed;
+   printed; then the introspect phase (``introspect_phase``) on the
+   trained pipeline (its BatchNorm head's running statistics, D = 5,376,
+   K = 5 neighbors from its index, B = 64 and 256): ``activations`` with
+   exactly the JAX package's 19 keys and the model's logits,
+   ``attention_weights`` summing to 1, ``feature_importance`` against an
+   f64 central difference, ``fuse_batch_norm``'s logits,
+   ``predict_batch_proba`` against ``predict_proba``; one
+   ``predict_batch(8)`` inside ``utils.profiling.trace`` whose file must
+   name its ``annotate`` spans and the certified search's three kernels;
+   ``profile_fn``, ``memory_stats``; ``checked`` in one host read, a NaN
+   raising, ``nan_debug`` (path "introspect");
 8. mixed precision (``use_mixed_precision=True``: bf16 encoders and fusion
    model, f32 parameters and clip embeddings): the wav2vec2 serving phase
    again in bf16 on its own index (neighbors against the f64 scan of its
@@ -228,6 +248,13 @@ TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
 WHISPER_ATTN = ((16, 1500), (128, 1500))
 # the same trimmed to the clip (--whisper_fast, T = 100)
 WHISPER_FAST_ATTN = ((16, 100), (128, 100))
+# fused_mha's bias-free f32 body at the other shapes a path launches it:
+# {record key: ((rows, T, width, heads), the path)}
+F32_NO_BIAS_PATHS = {
+    "whisper_large_v3": ((2, 1500, 1280, 20), "whisper-large-v3, 2 windows "
+                                              "padded to 30 s"),
+    "tp_rank": ((16, 99, 384, 6), "a rank of the mesh's TP wav2vec2-base: 8 "
+                                  "clips x 2 windows, 6 of 12 heads")}
 # fused_mha's bf16 forms -> the kernel symbols of each (mangled-name
 # prefixes): the mma.sync kernel (templated on the head width and the bias)
 # and the wgmma kernel that takes head width 64 (the streamed form's is
@@ -255,15 +282,20 @@ SQ8_VARIANTS = (("sq8", {}), ("sq8_residual", {"sq8_residual_nlist": 1024}),
 IVF_NLIST, IVF_NPROBE = 4096, 32
 IVF_MASKED_NPROBES = (8, 32, 128)
 IVF_CAPACITY_ROWS, IVF_CAPACITY_DIM = 1_048_576, 5376
-# the capacity step's rows: (path, how they are made). "latent": a seeded
-# rank-64 Gaussian latent mapped to D, plus small noise: rows near a
-# low-dimensional subspace, as embeddings lie, whose k-means cells come out
-# near their mean size. "blobs": 2,048 components of isotropic unit noise
-# with lognormal(0, 1) weights; in 5,376 dimensions k-means cannot split
-# such a component, and the points of components without a centroid of
-# their own all fall in one cell (the gather route's worst case)
-IVF_CAPACITY_DATA = (("ivf_capacity", "latent"),
-                     ("ivf_capacity_skewed", "blobs"))
+# the capacity step's rows: (path, how they are made, storage). "latent":
+# a seeded rank-64 Gaussian latent mapped to D, plus small noise: rows near
+# a low-dimensional subspace, as embeddings lie, whose k-means cells come
+# out near their mean size. "blobs": 2,048 components of isotropic unit
+# noise with lognormal(0, 1) weights; in 5,376 dimensions k-means cannot
+# split such a component, and the points of components without a centroid
+# of their own all fall in one cell (the gather route's worst case).
+# Storage "f32": f32 rows, the index's bf16 scan copy and residual beside
+# them; "bf16": the JAX package's capacity regime
+# (experiments/serve_load_test.py:108-115), rows made in bf16 for
+# FlatIndex(use_float16=True, single_buffer=True), one bf16 buffer
+IVF_CAPACITY_DATA = (("ivf_capacity", "latent", "f32"),
+                     ("ivf_capacity_skewed", "blobs", "f32"),
+                     ("ivf_capacity_bf16", "latent", "bf16"))
 
 
 def _bf16_instance(form: str, hd: int, bias: bool) -> str:
@@ -479,10 +511,6 @@ def ptxas_lines(report: str):
 def kernel_phase(torch, dev):
     """Each kernel against its plain version at the serving path's shapes.
     Returns {name: record} without the launch counts."""
-    from radad_tpu_torch.ops.rerank import exact_dot
-    from radad_tpu_torch.ops.topk import (extract_candidates,
-                                          extract_candidates_plain)
-
     g = torch.Generator(device=dev).manual_seed(SEED)
     n, d = 25_600, 5_376
     table = torch.randn((n, d), generator=g, device=dev)
@@ -511,8 +539,7 @@ def kernel_phase(torch, dev):
     # |err| <= 1e-5 * sum_d |q_d x_d|.
     r = 32
     tables = _row_types(torch, table, g)
-    table_bf16 = tables["bf16"]
-    by_b, errs = {}, {}
+    by_b, by_b_bf16, errs = {}, {}, {}
     for b in EXACT_DOT_TRAIN_B[::-1] + EXACT_DOT_SERVING_B[::-1]:
         q = torch.randn((b, d), generator=g, device=dev)
         cidx = torch.randint(0, n, (b, r), generator=g, device=dev,
@@ -522,14 +549,15 @@ def kernel_phase(torch, dev):
                                           samples=21 if b == 8 else 0)
         rec["max_abs_err"] = max(errs[b].values())
         _print_exact_dot(f"D={d} B={b}", rec, errs[b])
-        if b == 256:
-            bf16_ms = timed_ms(torch, lambda: exact_dot(q, table_bf16,
-                                                        cidx))[0]
-            rows_read = int(torch.unique(cidx).numel())
-            bf16_bound = bound_ms(rows_read * d * 2 + b * d * 4
-                                  + 2 * b * r * 4, 2.0 * b * r * d)[0]
-            print(f"exact_dot bf16 rows: {bf16_ms:.4f} ms on the device, "
-                  f"bound {bf16_bound:.4f} ms")
+        # the same queries and ids on bf16 rows (the bf16-storage index),
+        # beside gather + cast + bmm
+        by_b_bf16[b] = rec = _exact_dot_record(torch, q, tables["bf16"],
+                                               cidx)
+        rec["max_abs_err"] = max(v for k, v in errs[b].items()
+                                 if k.endswith(" bf16"))
+        _print_exact_dot(f"bf16 rows D={d} B={b}", rec,
+                         {k: v for k, v in errs[b].items()
+                          if k.endswith(" bf16")})
     # exact_dot on SQ8's int8 codes: R = 40 candidates (T = 8 tiles x m =
     # 5), split at the serving B, per_query at the train and eval B
     by_b_int8 = {}
@@ -553,6 +581,10 @@ def kernel_phase(torch, dev):
               f"B = 1 .. 256; ms_by_form: each form on the same inputs)")
     recs["exact_dot"]["max_abs_err"] = max(
         rec["max_abs_err"] for rec in (*by_b.values(), *by_b_int8.values()))
+    recs["exact_dot"]["bf16_rows"] = dict(
+        shape=f"q [B,{d}] f32, x [{n},{d}] bf16, idx [B,{r}] (the bf16-"
+              f"storage index; library: gather + cast + bmm)",
+        **_shape_table(by_b_bf16, "B"))
     recs["exact_dot"]["sq8_int8"] = dict(
         shape=f"q [B,{d}] f32, x [{n},{d}] int8, idx [B,{SQ8_R}] (SQ8's "
               f"re-score; library: gather + cast + bmm)",
@@ -591,7 +623,7 @@ def kernel_phase(torch, dev):
               f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), "
               f"max_abs_err {rec['max_abs_err']:.3e} ({rec['tolerance']})")
-    del table, table_bf16
+    del table
     torch.cuda.empty_cache()
     return recs
 
@@ -945,8 +977,11 @@ def _fused_mha_record(torch, g) -> dict:
     """fused_mha's f32 bodies (``_fused_mha_at``) at the WavLM serving shape
     (64 clips x two 2 s windows = 128 rows of 99 frames, 768 wide, 12
     heads) and at head width 80 (hubert-xlarge's: 16 windows, 1,280 wide,
-    16 heads), timed, plus T = 600 and 1,500 correctness points. Each
-    body's HD = 64 and 80 instances must hold TF32 HMMA instructions."""
+    16 heads), timed, plus T = 600 and 1,500 correctness points; the
+    bias-free body also at the other shapes its path launches take
+    (F32_NO_BIAS_PATHS: whisper-large-v3's forward, a rank of the mesh's
+    TP encoder). Each body's HD = 64 and 80 instances must hold TF32 HMMA
+    instructions."""
     f32 = torch.float32
     counts = _hmma_counts("fused_mha", form="TF32")
     hmma = _hmma(counts, "mha_kernel")
@@ -964,7 +999,9 @@ def _fused_mha_record(torch, g) -> dict:
                                          body == "bias")
             for shape in ((128, 99, 768, 12), (16, 99, 1280, 16))
             for body in ("no_bias", "bias")}
-    every = checks + list(recs.values())
+    paths = {key: _fused_mha_at(torch, g, shape, f32, False, iters=10)
+             for key, (shape, _) in F32_NO_BIAS_PATHS.items()}
+    every = checks + list(recs.values()) + list(paths.values())
     rec = dict(recs[((128, 99, 768, 12), "bias")])
     rec.update(
         route="cuda", source="radad_tpu_torch/csrc/fused_mha.cu",
@@ -983,6 +1020,10 @@ def _fused_mha_record(torch, g) -> dict:
         hmma=hmma if counts else None,
         hd80={body: r for (shape, body), r in recs.items()
               if shape[3] == 16})
+    for key, (shape, what) in F32_NO_BIAS_PATHS.items():
+        b, t, d, h = shape
+        rec[key] = dict(shape=f"q,k,v [{b},{t},{d}] f32, {h} heads, no "
+                              f"bias ({what})", **paths[key])
     return rec
 
 
@@ -1270,7 +1311,11 @@ def _flat_topk_record(torch, dev, g, table) -> dict:
     on a shared row within twice it (``compare_topk``). The same kernel
     without the bf16 rounding (its f32 body) must fail the check. Times:
     the wrapper with its merge and the kernel alone (profiler time of the
-    kernels named flat_topk), the plain version and the library call."""
+    kernels named flat_topk), the plain version and the library call.
+    The f32 body (``fast_scan=False``) on the same inputs is held the same
+    way to ``flat_topk_plain(fast_scan=False)`` within the bound of its own
+    summation order (order "chain") and timed beside f32 ``mm`` + |x|^2 +
+    mask + ``topk`` (record ``f32_body``; bound at the f32 rate)."""
     from radad_tpu_torch.ops.topk import flat_topk, flat_topk_plain
     from radad_tpu_torch.ops.topk_check import (MMA, check_topk,
                                                 compare_topk)
@@ -1297,7 +1342,7 @@ def _flat_topk_record(torch, dev, g, table) -> dict:
         print("flat_topk SASS: cuobjdump not found, HMMA not counted")
     if counts and hmma <= 0:
         raise AssertionError("flat_topk's bf16 body has no HMMA instruction")
-    recs = {}
+    recs, f32_body = {}, {}
     for bb, sl in ((64, slice(0, 64)), (8, slice(28, 36))):
         qb, eb = q[sl].contiguous(), excl[sl].contiguous()
         kw = dict(metric="L2", n_valid=n_valid, ids=ids, exclude_ids=eb,
@@ -1361,6 +1406,7 @@ def _flat_topk_record(torch, dev, g, table) -> dict:
               f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})")
         recs[bb] = rec
+        f32_body[f"B={bb}"] = _flat_topk_f32(torch, table, qb, r, kw, mask)
     rec = dict(
         route="cuda", source="radad_tpu_torch/csrc/flat_topk.cu",
         replaces="radad_tpu/ops/topk.py:182",
@@ -1376,6 +1422,67 @@ def _flat_topk_record(torch, dev, g, table) -> dict:
         library_call="mm(bf16, bf16, out_dtype=f32) + |x|^2 + mask + topk",
         hmma=hmma if counts else None, **recs[64])
     rec["b8"] = recs[8]
+    rec["f32_body"] = dict(
+        shape=f"the same inputs, fast_scan=False (the SIMT f32 body); "
+              f"library: f32 mm + |x|^2 + mask + topk", **f32_body)
+    return rec
+
+
+def _flat_topk_f32(torch, table, qb, r, kw, mask) -> dict:
+    """flat_topk's f32 body on ``_flat_topk_record``'s inputs: held to the
+    exact scores of the f32 operands within the bound of its FMA-chain
+    summation order and to ``flat_topk_plain(fast_scan=False)`` up to
+    near-ties; timed (wrapper and kernel alone) beside its plain version
+    and f32 ``mm`` + |x|^2 + mask + ``topk``; bound: the table, queries,
+    norms and ids read and the candidates written once, against 2 B N D
+    operations at the f32 rate."""
+    from radad_tpu_torch.ops.topk import flat_topk, flat_topk_plain
+    from radad_tpu_torch.ops.topk_check import CHAIN, check_topk, compare_topk
+
+    (n, d), bb = table.shape, qb.shape[0]
+    kw = dict(kw, fast_scan=False)
+    got = flat_topk(qb, table, r, **kw)
+    want = flat_topk_plain(qb, table, r, **kw)
+    torch.cuda.synchronize()
+    held = check_topk(qb, table, got, order=CHAIN, **kw)
+    if not held["ok"]:
+        raise AssertionError(f"flat_topk f32 body B={bb} fails its exact "
+                             f"check: {held}")
+    agree = compare_topk(qb, table, got, want, metric="L2", fast_scan=False,
+                         order=CHAIN)
+    if not agree["ok"]:
+        raise AssertionError(f"flat_topk f32 body B={bb} disagrees with its "
+                             f"plain version beyond near-ties: {agree}")
+
+    def library():
+        s = 2.0 * torch.mm(qb, table.t()) - torch.linalg.vector_norm(
+            table, dim=-1).square()
+        return torch.topk(s.masked_fill(mask, float("-inf")), r)
+
+    def call():
+        return flat_topk(qb, table, r, **kw)
+
+    rec = dict(max_abs_err=agree["max_abs_err"],
+               check_max_abs_err=held["max_abs_err"],
+               check_max_bound=held["max_bound"],
+               check_max_ratio=held["max_ratio"],
+               rows_differ=agree["rows_differ"],
+               **timings(torch, call,
+                         lambda: flat_topk_plain(qb, table, r, **kw),
+                         library),
+               kernel_ms=device_ms(torch, call, name="flat_topk"))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        n * d * 4 + bb * d * 4 + n * 4 + bb * 4 + bb * r * 8,
+        2.0 * bb * n * d, rate=F32_FLOPS)
+    print(f"flat_topk f32 body B={bb}: vs exact f32-operand scores (chain "
+          f"order): max |err| {held['max_abs_err']:.3e}, largest bound "
+          f"{held['max_bound']:.3e}, max(err / bound) "
+          f"{held['max_ratio']:.4f}; vs plain: {agree['rows_differ']} of "
+          f"{bb} rows trade near-tied ids (largest exact gap "
+          f"{agree['max_gap']:.3e}); kernel alone {rec['kernel_ms']:.4f} "
+          f"ms, wrapper {rec['ms']:.4f} ms, f32 mm + topk "
+          f"{rec['library_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -2922,8 +3029,9 @@ def _ivf_bytes(torch, ix) -> int:
     names = ("vectors", "labels", "ids", "norms_sq", "scan_bf16",
              "resid_bf16", "centroids", "cells", "ivf_table", "ivf_overflow",
              "ivf_chunk_rows", "ivf_cell_chunks")
-    return sum(getattr(ix, n).numel() * getattr(ix, n).element_size()
-               for n in names if getattr(ix, n) is not None)
+    arrays = {getattr(ix, n).data_ptr(): getattr(ix, n) for n in names
+              if getattr(ix, n) is not None}  # bf16 storage: scan = rows
+    return sum(a.numel() * a.element_size() for a in arrays.values())
 
 
 def _ivf_build_times(torch, ix, card):
@@ -2934,7 +3042,7 @@ def _ivf_build_times(torch, ix, card):
     from radad_tpu_torch.index.ivf import kmeans
 
     n = ix.ntotal
-    train = ix.vectors[: min(n, 50_000)]
+    train = ix.vectors[: min(n, 50_000)].float()  # as _train_ivf takes it
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cents, _ = kmeans(train, ix.nlist_effective, iters=ix.kmeans_iters,
@@ -3247,16 +3355,20 @@ def _capacity_rows(torch, g, kind: str, d: int):
     return make
 
 
-def ivf_capacity_phase(torch, dev, card, label: str, kind: str):
+def ivf_capacity_phase(torch, dev, card, label: str, kind: str,
+                       storage: str):
     """IVF at capacity scale: ``FlatIndex(5376, "IVF")`` at nlist 4,096 and
     nprobe 32 over IVF_CAPACITY_ROWS seeded rows of the IVF_CAPACITY_DATA
-    kind ``kind``, made on the device and added in one call (no host copy; capacity grows once): the
-    f32 table and its bf16 scan and residual copies, 45 GB of the 80.
-    Build parts timed; B = 1 / 8 / 64 on the gather route and the masked
-    route (path ``label``: each route once a B, counted), call ms on CUDA
-    events and device ms (profiler) with their byte bounds, the kernels of
-    the gather route at B = 1; the gather route's neighbors held to the
-    masked route's. → {label: launches}."""
+    kind ``kind``, made on the device in the ``storage`` dtype and added in
+    one call with ``donate=True``, which must adopt them as the stored rows
+    (no copy): f32, the table and its bf16 scan and residual copies, 45 GB
+    of the 80; bf16 (``use_float16=True, single_buffer=True``), one 11 GB
+    buffer, ``exact_dot`` on its bf16 rows. Peak device memory of the add
+    printed. Build parts timed; B = 1 / 8 / 64 on the gather route and the
+    masked route (path ``label``: each route once a B, counted), call ms on
+    CUDA events and device ms (profiler) with their byte bounds, the
+    kernels of the gather route at B = 1; the gather route's neighbors held
+    to the masked route's. → {label: launches}."""
     import numpy as np
 
     from radad_tpu_torch.index.flat import FlatIndex
@@ -3268,27 +3380,35 @@ def ivf_capacity_phase(torch, dev, card, label: str, kind: str):
     kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
                flat_topk)
     n, d, k = IVF_CAPACITY_ROWS, IVF_CAPACITY_DIM, 5
+    bf16 = storage == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
     torch.cuda.reset_peak_memory_stats()
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     make = _capacity_rows(torch, g, kind, d)
-    rows = torch.empty((n, d), device=dev)
+    rows = torch.empty((n, d), device=dev, dtype=dtype)
     for lo in range(0, n, 65_536):
         rows[lo:lo + 65_536] = make(min(65_536, n - lo))
     queries = make(64)
     del make
-    ix = FlatIndex(d, "IVF", nlist=IVF_NLIST, nprobe=IVF_NPROBE, device=dev)
+    ix = FlatIndex(d, "IVF", nlist=IVF_NLIST, nprobe=IVF_NPROBE,
+                   use_float16=bf16, single_buffer=bf16, device=dev)
     torch.cuda.synchronize()
+    rows_gib = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     ix.add(rows, np.zeros((n,), np.float32),
            [f"cap_{i:07d}.wav" for i in range(n)],
-           ids=np.arange(n, dtype=np.int32))
+           ids=np.arange(n, dtype=np.int32), donate=True)
     torch.cuda.synchronize()
     add_s = time.perf_counter() - t0
+    if ix.vectors is not rows or ix.vectors.data_ptr() != rows.data_ptr():
+        raise AssertionError(f"{label}: the donated rows were copied")
     del rows
     torch.cuda.empty_cache()
-    print(f"{label}: {kind} rows, {n} x {d} f32 rows ({n * d * 4 / 1e9:.1f} GB) in "
-          f"one add (k-means on the first 50,000, assignment, tables) "
-          f"{add_s:.2f} s; peak device memory "
+    print(f"{label}: {kind} rows, {n} x {d} {storage} rows "
+          f"({n * d * dtype.itemsize / 1e9:.1f} GB) in one add with "
+          f"donate=True, adopted as the stored rows (no copy) (k-means on "
+          f"the first 50,000, assignment, tables) {add_s:.2f} s; device "
+          f"memory {rows_gib:.2f} GiB before the add, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; index "
           f"bytes {_ivf_bytes(torch, ix) / 2**30:.2f} GiB ({card}); "
           f"{_ivf_tables_text(ix)}")
@@ -3310,6 +3430,9 @@ def ivf_capacity_phase(torch, dev, card, label: str, kind: str):
                                  f"{launches}")
     if launches["flat_topk"] or launches["gather_searches"] != 3:
         raise AssertionError(f"{label}: routes not as asked: {launches}")
+    if launches[f"exact_dot_{storage}"] != launches["exact_dot"]:
+        raise AssertionError(f"{label}: exact_dot ran on other rows than "
+                             f"{storage}: {launches}")
     print(f"{label}: launches {launches}")
     cent_bytes = ix.centroids.numel() * 4
     for b in (1, 8, 64):
@@ -3323,9 +3446,12 @@ def ivf_capacity_phase(torch, dev, card, label: str, kind: str):
             call_ms = time_ms(torch, search, 10)
             dev_ms = timed_ms(torch, search, 10)[0]
             if r == "gather":
-                nbytes = g_rows * d * 4 + cent_bytes
+                nbytes = g_rows * d * dtype.itemsize + cent_bytes
                 what = (f"{table} table, {g_rows} candidate rows + the "
                         f"centroids")
+            elif bf16:
+                nbytes = n * d * 2  # the stored rows are the scan copy
+                what = "the bf16 rows, each once"
             else:
                 nbytes = n * d * 2 * 2  # the bf16 scan copy and residual
                 what = "the bf16 scan copy and residual of every row"
@@ -3442,6 +3568,7 @@ def _update_on_cpu(torch, pipe, batch, neighbors, limits=None):
     mixed-precision model). → the largest errors seen."""
     import copy
 
+    from radad_tpu_torch.models.fusion import Dropout
     from radad_tpu_torch.train.optim import GroupAdam
     from radad_tpu_torch.train.pipeline import (make_step_fns,
                                                 new_accumulators)
@@ -3451,7 +3578,9 @@ def _update_on_cpu(torch, pipe, batch, neighbors, limits=None):
     out = {}
     for side, dev in (("card", pipe.device), ("cpu", torch.device("cpu"))):
         model = copy.deepcopy(pipe.model).to(dev)
-        model.projection_layer.dropout = model.detection_model.dropout = 0.0
+        for drop in model.modules():
+            if isinstance(drop, Dropout):
+                drop.p = 0.0
         opt = GroupAdam(pipe.opt.lr, pipe.opt.wd)
         opt.load_state_dict(pipe.opt.state, device=dev)
         steps = make_step_fns(model, opt, None)
@@ -3609,7 +3738,7 @@ def train_phase(torch, dev, tmp: str):
     step's retrieval at B = 128 (batch exclusion) and 256 against the f64
     scan; the update against the CPU's; save, load into a fresh pipeline
     (equal optimizer state and step) and one more epoch; step timings.
-    Returns {path: launches}."""
+    Returns ({path: launches}, the resumed pipeline)."""
     import numpy as np
 
     from radad_tpu_torch.config import Config
@@ -3728,8 +3857,308 @@ def train_phase(torch, dev, tmp: str):
           f"{medians['update']:.3f} (CUDA-synchronized, 12 steps); "
           f"{steps_per_s:.2f} steps/s over an epoch of train_step; device "
           f"busy {busy:.3f} of one profiled step ({wall_ms:.2f} ms)")
-    del pipe, fresh
-    return {"train": launches}
+    del pipe
+    return {"train": launches}, fresh
+
+
+def _train_then_introspect(torch, dev, tmp: str, card: str):
+    """``train_phase``, then ``introspect_phase`` on its trained pipeline.
+    → {path: launches}."""
+    paths, pipe = train_phase(torch, dev, tmp)
+    paths.update(introspect_phase(torch, dev, tmp, pipe, card))
+    return paths
+
+
+# the keys of radad_tpu/models/introspect.py::activations (flax's
+# capture_intermediates) for the shipped head: BatchNorm, dropout 0.1
+ACTIVATION_KEYS = tuple(
+    [f"projection_layer/{m}/__call__" for m in (
+        "attention_score", "attention_final", "cst_hidden", "cst_output",
+        "weight_sum", "normalization", "Dropout_0", "unified_embedding")]
+    + ["projection_layer/__call__", "fuse/__call__"]
+    + [f"detection_model/{m}_{i}/__call__" for i in (0, 1)
+       for m in ("linear", "norm", "Dropout")]
+    + ["detection_model/linear_2/__call__", "detection_model/__call__",
+       "__call__"])
+
+
+def _fusion_f64(torch, model, neighbors, tpp):
+    """The fusion model's eval forward in f64 from its parameters and
+    running statistics (the projection's LayerNorm, the BatchNorm head):
+    the finite differences' reference. → logits [B] f64."""
+    import torch.nn.functional as F
+
+    p = {k: v.double() for k, v in model.state_dict().items()}
+
+    def lin(name, x):
+        return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
+
+    x = neighbors.double()
+    pl = "projection_layer"
+    scores = lin(f"{pl}.attention_final",
+                 torch.tanh(lin(f"{pl}.attention_score", x)))
+    cst = lin(f"{pl}.cst_output", torch.relu(lin(f"{pl}.cst_hidden", x)))
+    h = lin(f"{pl}.weight_sum", (torch.softmax(scores, 1) * cst).sum(1))
+    h = F.layer_norm(h, h.shape[-1:], p[f"{pl}.normalization.weight"],
+                     p[f"{pl}.normalization.bias"], eps=1e-6)
+    x = lin("fuse", torch.cat([tpp.double(),
+                               lin(f"{pl}.unified_embedding", h)], -1))
+    det = model.detection_model
+    for i in range(len(det.linears)):
+        x = lin(f"detection_model.linears.{i}", x)
+        if i < len(det.linears) - 1:
+            bn = f"detection_model.norms.{i}"
+            x = torch.relu((x - p[f"{bn}.running_mean"]) * torch.rsqrt(
+                p[f"{bn}.running_var"] + det.norms[i].eps)
+                * p[f"{bn}.weight"] + p[f"{bn}.bias"])
+    return x.squeeze(-1)
+
+
+def _eval_logits(torch, model, neighbors, tpp):
+    """The model's eval-mode logits, its own mode kept."""
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(neighbors, tpp)
+    finally:
+        model.train(was)
+
+
+def _trace_names(logdir: str):
+    """(kernel names, every event name) of the trace file ``trace``
+    wrote into ``logdir``."""
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)
+             if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"trace: {len(files)} trace files in {logdir}: "
+                             f"{os.listdir(logdir)}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    return kernels, {e.get("name", "") for e in events}, files[0]
+
+
+def introspect_phase(torch, dev, tmp: str, pipe, card: str):
+    """The port's introspection, profiling and debug modules on the card,
+    on the train phase's pipeline (wav2vec2-base, D = 5,376, its trained
+    BatchNorm head with running statistics, the 25,600-row index): the
+    first 256 stored rows as queries, K = 5 neighbors retrieved from the
+    index (self-excluded), at B = 64 and 256:
+
+    * ``activations``: exactly ACTIVATION_KEYS (JAX's flax paths), the
+      top-level entry equal to the model's logits, every value finite;
+    * ``attention_weights`` sum to 1 along K within 1e-5;
+    * ``feature_importance`` (B = 64): finite, non-zero, and within 1e-3
+      relative of a central difference (h = 1e-6) of the f64 forward's
+      logits on 8 seeded coordinates;
+    * ``fuse_batch_norm``: the folded model's eval logits within rtol 1e-4,
+      atol 1e-5 of the model's, the model unchanged;
+    * ``predict_batch_proba(chunk=64)`` within 1e-6 + 1e-5 |p| of
+      ``predict_proba`` at B = 256;
+    * ``trace``: one ``predict_batch(8)`` and one ``predict_proba`` each in
+      an ``annotate`` span; the trace file must name both spans and the
+      certified search's three kernels (``gather_rows``, ``exact_dot``,
+      ``extract_candidates`` among its kernel events);
+    * ``profile_fn`` of that ``predict_batch(8)``; ``memory_stats()``
+      (``allocated_bytes.all.peak`` > 0);
+    * ``checked`` / ``assert_finite``: a finite input passes in one host
+      read (``torch.cuda.set_sync_debug_mode`` counts the synchronizing
+      calls; the profiler's device-to-host copies printed), a NaN raises
+      ``non-finite values in <name>``; ``nan_debug`` raises inside only.
+
+    The kernel launches of the whole phase are path "introspect": the
+    certified search's three kernels must have launched. → {path:
+    launches}."""
+    import warnings
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from radad_tpu_torch.models import introspect as I
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+    from radad_tpu_torch.utils import debug, profiling
+
+    kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+               flat_topk)
+    model, ix = pipe.model, pipe.index
+    det = model.detection_model
+    if not det.use_batch_norm or all(
+            bool((bn.running_mean == 0).all()) for bn in det.norms):
+        raise AssertionError("introspect: the head has no trained "
+                             "BatchNorm statistics")
+    clip_dir = os.path.join(tmp, "introspect")
+    os.makedirs(clip_dir)
+    paths, _ = _write_clips(clip_dir, 8, SEED + 11, "intro")
+    pipe.predict_batch(paths)  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    _reset(kernels, ix)
+
+    tpp = ix.vectors[:256].float()
+    neighbors = pipe._retrieve(tpp, ix.ids[:256], "self")[0]
+    comp = I.model_complexity(model, batch=256)
+    print(f"introspect: model_complexity at B = 256: {comp}")
+    d = tpp.shape[1]
+    for b in (64, 256):
+        nb, tb = neighbors[:b], tpp[:b]
+        logits = _eval_logits(torch, model, nb, tb)
+        acts = I.activations(model, nb, tb)
+        if tuple(acts) != ACTIVATION_KEYS:
+            raise AssertionError(f"introspect: activation keys {list(acts)}"
+                                 f" are not JAX's {list(ACTIVATION_KEYS)}")
+        if not torch.equal(acts["__call__"], logits) or not all(
+                bool(torch.isfinite(v).all()) for v in acts.values()):
+            raise AssertionError("introspect: the captured logits differ "
+                                 "from the model's, or a value is not "
+                                 "finite")
+        w = I.attention_weights(model, nb)
+        w_err = float((w.sum(1) - 1).abs().max())
+        if tuple(w.shape) != (b, 5, 1) or not w_err <= 1e-5:
+            raise AssertionError(f"introspect: attention weights "
+                                 f"{tuple(w.shape)}, |sum - 1| {w_err}")
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        folded = _eval_logits(torch, I.fuse_batch_norm(model), nb, tb)
+        fold_err = (folded - logits).abs()
+        if not bool((fold_err <= 1e-5 + 1e-4 * logits.abs()).all()) or any(
+                not torch.equal(v, before[k])
+                for k, v in model.state_dict().items()):
+            raise AssertionError(f"introspect: fuse_batch_norm at B = {b}: "
+                                 f"max |diff| {float(fold_err.max())}, or "
+                                 f"the model changed")
+        print(f"introspect B = {b}: {len(acts)} activations with JAX's keys, "
+              f"logits equal to the model's; attention weights |sum - 1| "
+              f"{w_err:.3e}; fuse_batch_norm logits max |diff| "
+              f"{float(fold_err.max()):.3e} (rtol 1e-4, atol 1e-5)")
+
+    nb, tb = neighbors[:64], tpp[:64]
+    imp = I.feature_importance(model, nb, tb)
+    if not bool(torch.isfinite(imp).all()) or not float(imp.sum()) > 0:
+        raise AssertionError("introspect: feature importance not finite or "
+                             "zero")
+    f64 = _fusion_f64(torch, model, nb, tb)
+    f64_err = float((f64 - _eval_logits(torch, model, nb, tb)).abs().max())
+    h = 1e-6
+    cols = torch.randperm(d, generator=torch.Generator().manual_seed(SEED))
+    fd_rel = []
+    for j in cols[:8].tolist():
+        step = torch.zeros_like(tb, dtype=torch.float64)
+        step[:, j] = h
+        up = _fusion_f64(torch, model, nb, tb.double() + step)
+        down = _fusion_f64(torch, model, nb, tb.double() - step)
+        fd = float(((up - down) / (2 * h)).abs().mean())
+        fd_rel.append(abs(float(imp[j]) - fd) / fd)
+    if not max(fd_rel) <= 1e-3:
+        raise AssertionError(f"introspect: feature importance against the "
+                             f"f64 central difference, relative {fd_rel}")
+    print(f"introspect: feature_importance at B = 64 (autograd, f32) "
+          f"against an f64 central difference (h = {h}) on 8 coordinates: "
+          f"largest relative difference {max(fd_rel):.3e} (limit 1e-3); "
+          f"the f64 forward's logits within {f64_err:.3e} of the model's")
+
+    proba = I.predict_proba(model, neighbors, tpp).cpu().numpy()
+    chunked = I.predict_batch_proba(model, neighbors, tpp, chunk=64)
+    p_err = np.abs(chunked - proba)
+    if not (p_err <= 1e-6 + 1e-5 * np.abs(proba)).all():
+        raise AssertionError(f"introspect: predict_batch_proba(chunk=64) "
+                             f"max |diff| {p_err.max()} from predict_proba")
+    print(f"introspect: predict_batch_proba(chunk=64) at B = 256 within "
+          f"{p_err.max():.3e} of predict_proba")
+
+    logdir = os.path.join(tmp, "introspect_trace")
+    spans = ("radad_predict_batch_8", "radad_predict_proba_256")
+    with profiling.trace(logdir):
+        with profiling.annotate(spans[0]):
+            pipe.predict_batch(paths)
+        with profiling.annotate(spans[1]):
+            I.predict_proba(model, neighbors, tpp)
+        torch.cuda.synchronize()
+    kernel_names, names, trace_file = _trace_names(logdir)
+    found = {k: sorted(n for n in kernel_names if k in n)[:2]
+             for k in ("gather_rows", "exact_dot", "extract_candidates")}
+    missing = [s_ for s_ in spans if s_ not in names] + [
+        k for k, v in found.items() if not v]
+    if missing:
+        raise AssertionError(f"introspect: the trace names no {missing} "
+                             f"({len(kernel_names)} kernel names)")
+    print(f"introspect: trace {os.path.basename(trace_file)} "
+          f"({os.path.getsize(trace_file)} bytes, {len(kernel_names)} "
+          f"kernel names) names the spans {list(spans)} and the kernels "
+          f"{found}")
+
+    stats = profiling.profile_fn(pipe.predict_batch, paths, iterations=10,
+                                 label="predict_batch_8")
+    print(f"introspect: profile_fn predict_batch(8): median "
+          f"{stats['median_ms']:.3f} ms, mean {stats['mean_ms']:.3f}, p90 "
+          f"{stats['p90_ms']:.3f} over {stats['iterations']} calls (CUDA "
+          f"events) ({card})")
+    mem = profiling.memory_stats()
+    if not mem.get("allocated_bytes.all.peak", 0) > 0:
+        raise AssertionError(f"introspect: memory_stats has no peak: "
+                             f"{sorted(mem)[:8]}")
+    print(f"introspect: memory_stats: {len(mem)} counters, "
+          f"allocated_bytes.all.peak "
+          f"{mem['allocated_bytes.all.peak'] / 2**30:.2f} GiB")
+
+    def guarded(x):
+        debug.assert_finite(x, "neighbors")
+        y = debug.sanitize(x) * 2.0
+        debug.assert_finite(y, "doubled")
+        return y
+
+    run = debug.checked(guarded)
+    run(nb)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(nb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message) for c in caught
+             if "called a synchronizing" in str(c.message)]
+    dtoh = sum(e.count for e in prof.key_averages() if "DtoH" in e.key)
+    if len(syncs) != 1:
+        raise AssertionError(f"checked: {len(syncs)} synchronizing calls in "
+                             f"one call, want 1: {syncs}")
+    bad = nb.clone()
+    bad[3, 2, 7] = float("nan")
+    try:
+        run(bad)
+    except ValueError as e:
+        if str(e) != "non-finite values in neighbors":
+            raise
+    else:
+        raise AssertionError("checked: a NaN input did not raise")
+    with debug.nan_debug():
+        try:
+            torch.log(torch.full((4,), -1.0, device=dev))
+        except FloatingPointError:
+            pass
+        else:
+            raise AssertionError("nan_debug: a NaN passed")
+    if not bool(torch.isnan(torch.log(torch.full((4,), -1.0,
+                                                 device=dev))).all()):
+        raise AssertionError("after nan_debug: log(-1) is not NaN")
+    print(f"introspect: checked(fn) with 2 assert_finite on CUDA tensors: "
+          f"1 synchronizing call (sync debug mode), {dtoh} device-to-host "
+          f"copies (profiler); a NaN raised 'non-finite values in "
+          f"neighbors'; nan_debug raised FloatingPointError inside, not "
+          f"outside")
+
+    torch.cuda.synchronize()
+    launches = _launch_counts(kernels, ix)
+    for name in ("gather_rows", "exact_dot", "extract_candidates"):
+        if launches[name] <= 0:
+            raise AssertionError(f"introspect: {name} not launched: "
+                                 f"{launches}")
+    print(f"introspect path: kernel launches {launches}")
+    return {"introspect": launches}
 
 
 def train_bf16_phase(torch, dev, tmp: str):
@@ -4734,7 +5163,7 @@ def main() -> int:
                       lambda: fused_forward_phase(
                           torch, dev, tmp, "hubert",
                           "facebook/hubert-xlarge-ls960-ft", "hubert_xlarge"),
-                      lambda: train_phase(torch, dev, tmp),
+                      lambda: _train_then_introspect(torch, dev, tmp, card),
                       # mixed precision: bf16 encoders and fusion model
                       lambda: serving_bf16_phase(torch, dev, tmp, ref),
                       lambda: wavlm_phase(torch, dev, tmp, mixed=True),
@@ -4811,7 +5240,8 @@ def main() -> int:
             rec["hmma"] = r["hmma"]
         if "max_bf16_steps" in r:
             rec["max_bf16_steps"] = r["max_bf16_steps"]
-        for key in ("by_shape", "hd80", "whisper", "sq8_int8", "sq8"):
+        for key in ("by_shape", "hd80", "whisper", "sq8_int8", "sq8",
+                    "bf16_rows", "f32_body", "whisper_large_v3", "tp_rank"):
             if key in r:
                 rec[key] = r[key]
         kernels.append(rec)

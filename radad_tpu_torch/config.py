@@ -2,9 +2,10 @@
 
 Counterpart: ``radad_tpu/config.py``. The port keeps its own copy (it
 imports nothing of ``radad_tpu``) with the same field names and defaults,
-so a config written by either package loads in the other. Fields for
-parts not ported yet (meshes) are kept for that reason; the code that
-reads them raises "not yet ported".
+so a config written by either package loads in the other. The mesh
+fields (``data_shards``, ``index_shards``) have a reader too: the CLI
+builds a ``torch.distributed`` mesh from them (``cli.py``,
+``parallel/``).
 Placement is not a config field: the port's entry points take a
 ``device`` argument.
 """

@@ -72,9 +72,6 @@ logger = logging.getLogger(__name__)
 _PAD = 1024  # capacity quantum, as in the JAX package
 _IVF_TRAIN_ROWS = 50_000  # k-means trains on the first rows (FAISS's cap)
 _ASSIGN_ROWS = 131_072  # rows a step of the cell assignment
-# meta keys that FlatIndex's own attributes carry
-_META_KEYS = ("dimension", "metric", "n", "use_float16", "nlist", "nprobe",
-              "kmeans_iters", "ivf_balance", "ivf_retrain_on_add")
 
 
 def _round_up(n: int, m: int = _PAD) -> int:
@@ -114,10 +111,16 @@ class FlatIndex:
     def __init__(self, dimension: int, metric: str = "L2", *,
                  nlist: int = 0, nprobe: int = 32, kmeans_iters: int = 25,
                  ivf_balance: float = 0.0, ivf_retrain_on_add: bool = True,
-                 use_float16: bool = False, add_batch_size: int = 10000,
-                 use_pallas: bool = False, build_accel: bool = True,
-                 device="cuda"):
-        """IVF knobs, as the JAX package's: ``nlist`` the configured cell
+                 use_float16: bool = False, single_buffer: bool = False,
+                 add_batch_size: int = 10000, use_pallas: bool = False,
+                 build_accel: bool = True, device="cuda"):
+        """``single_buffer`` (kept with ``use_float16`` alone, as the JAX
+        package keeps it): the JAX package's capacity mode, one device
+        buffer of bf16 rows. Port bf16 storage keeps one buffer in any case
+        (the scan copy is the stored rows), so the flag changes no array;
+        it is saved and loaded with the index.
+
+        IVF knobs, as the JAX package's: ``nlist`` the configured cell
         count (0: 4,096; each training clamps it to its rows and sets
         ``nlist_effective``), ``nprobe`` the cells a search probes,
         ``kmeans_iters`` Lloyd steps, ``ivf_balance`` k-means'
@@ -130,6 +133,7 @@ class FlatIndex:
         self.dimension = int(dimension)
         self.metric = metric
         self.use_float16 = bool(use_float16)
+        self.single_buffer = bool(single_buffer) and self.use_float16
         self.add_batch_size = int(add_batch_size)
         self.use_pallas = use_pallas
         # False: no scan_bf16 / resid_bf16, every search the full f32 scan
@@ -163,9 +167,6 @@ class FlatIndex:
         self._ivf_cell_chunks_host: Optional[np.ndarray] = None
         self.ivf_counts: Optional[np.ndarray] = None
         self._chunk_budget_cache: dict = {}  # nprobe -> chunk budget
-        # saved-meta keys this port does not use (single_buffer), kept so
-        # a JAX-written index round-trips unchanged
-        self._meta_extra: dict = {}
         self.search_chunk = 2048
         self.searches = 0  # searches run through _search_device
         self.fallbacks = 0  # certified searches that failed the certificate
@@ -187,14 +188,25 @@ class FlatIndex:
     # ------------------------------------------------------------------
     def add(self, vectors, labels: Sequence[float], paths: Sequence[str],
             metadata: Optional[Sequence[dict]] = None,
-            ids: Optional[Sequence[int]] = None) -> None:
+            ids: Optional[Sequence[int]] = None, *,
+            donate: bool = False) -> None:
         """Append rows (reference vector_database.py:108-151). ``vectors``
-        is a numpy array or a tensor on any device. IVF: the first add
-        trains the quantizer on its input rows; a later one retrains it on
-        the stored rows, or with ``ivf_retrain_on_add=False`` assigns only
-        the new rows (the JAX package's ``_install`` / ``add``)."""
+        is a numpy array or a tensor on any device; bf16 rows headed for
+        bf16 storage (not COSINE) stay bf16, any other rows go through f32.
+        IVF: the first add trains the quantizer on its input rows; a later
+        one retrains it on the stored rows, or with
+        ``ivf_retrain_on_add=False`` assigns only the new rows (the JAX
+        package's ``_install`` / ``add``).
+
+        ``donate=True``: on the first add, a contiguous tensor already on
+        the index's device, in the storage dtype, with a multiple of 1,024
+        rows becomes the stored rows without a copy (the JAX package's
+        zero-copy install; at 1M x 5,376 f32 a copy would hold 21.5 GB
+        more). The caller must not write to it afterwards. Any other add
+        copies the rows."""
         old_n = self.n
-        vec = self._append(vectors, labels, paths, metadata, ids)
+        vec = self._append(vectors, labels, paths, metadata, ids,
+                           donate=donate)
         if self.metric != "IVF" or not len(vec):
             return
         if old_n == 0:
@@ -204,12 +216,19 @@ class FlatIndex:
         else:
             self._extend_ivf(old_n)
 
-    def _append(self, vectors, labels, paths, metadata, ids) -> torch.Tensor:
-        """Write the rows of an add; → them as f32 on the index's device
-        (normalized for COSINE)."""
+    def _append(self, vectors, labels, paths, metadata, ids,
+                donate: bool = False) -> torch.Tensor:
+        """Write the rows of an add; → them on the index's device, f32 or
+        bf16 as ``add`` takes them (normalized for COSINE)."""
         from radad_tpu_torch.data.manifest import file_id
 
-        vec = torch.as_tensor(vectors).to(self.device, torch.float32)
+        vec = torch.as_tensor(vectors)
+        store = torch.bfloat16 if self.use_float16 else torch.float32
+        # bf16 rows headed for bf16 storage skip the f32 upcast (the JAX
+        # package's keep_bf16: 21.5 GB at 1M x 5,376)
+        keep_bf16 = (self.use_float16 and self.metric != "COSINE"
+                     and vec.dtype == torch.bfloat16)
+        vec = vec.to(self.device, vec.dtype if keep_bf16 else torch.float32)
         if vec.dim() != 2 or vec.shape[1] != self.dimension:
             raise ValueError(f"expected [N, {self.dimension}] vectors, got "
                              f"{tuple(vec.shape)}")
@@ -218,6 +237,9 @@ class FlatIndex:
             raise ValueError("labels/paths length mismatch with vectors")
         if self.metric == "COSINE":
             vec = vec / vec.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        adopt = (donate and self.n == 0 and isinstance(vectors, torch.Tensor)
+                 and vec.dtype == store and vec.is_contiguous()
+                 and n_new > 0 and n_new % _PAD == 0)
         if ids is None:
             ids = [file_id(p) for p in paths]
         lab = torch.as_tensor(np.asarray(labels, np.float32),
@@ -227,19 +249,26 @@ class FlatIndex:
         self.metadata.extend(list(metadata) if metadata is not None
                              else [{} for _ in range(n_new)])
         need = self.n + n_new
-        if need > self._cap:
+        if adopt:
+            self._grow_to(n_new, vectors=vec)
+        elif need > self._cap:
             self._grow_to(_round_up(max(need, 2 * self._cap)))
         bs = self.add_batch_size or n_new
         for lo in range(0, n_new, bs):
             hi = min(n_new, lo + bs)
+            if not adopt:
+                self.vectors[self.n + lo:self.n + hi] = vec[lo:hi]
             self._write_rows(self.n + lo, vec[lo:hi], lab[lo:hi],
                              idc[lo:hi])
         self.n = need
         return vec
 
-    def _grow_to(self, cap: int) -> None:
+    def _grow_to(self, cap: int,
+                 vectors: Optional[torch.Tensor] = None) -> None:
         """Reallocate the device arrays at capacity ``cap`` (a multiple
-        of 1024), keeping the rows written so far."""
+        of 1024), keeping the rows written so far; ``vectors`` (a donated
+        first add: ``cap`` rows in the storage dtype) becomes the stored
+        rows as it is."""
         dev, d = self.device, self.dimension
         store = torch.bfloat16 if self.use_float16 else torch.float32
 
@@ -249,7 +278,8 @@ class FlatIndex:
                 new[: old.shape[0]] = old
             return new
 
-        self.vectors = grown(self.vectors, (cap, d), store)
+        self.vectors = (vectors if vectors is not None
+                        else grown(self.vectors, (cap, d), store))
         self.labels = grown(self.labels, (cap,), torch.float32)
         self.ids = grown(self.ids, (cap,), torch.int32, fill=-1)
         self.norms_sq = grown(self.norms_sq, (cap,), torch.float32)
@@ -265,12 +295,11 @@ class FlatIndex:
 
     def _write_rows(self, start: int, vec: torch.Tensor, lab: torch.Tensor,
                     idc: torch.Tensor) -> None:
-        """Install f32 rows at ``start``: stored rows, exact norms of the
-        stored rows, and (f32 storage, ``build_accel``) their bf16 scan
-        copy and bf16 rounding residual, the x-side correction of the
-        certified scan."""
+        """The state of rows ``vec`` stored at ``start``: exact norms of the
+        stored rows, labels, ids, and (f32 storage, ``build_accel``) their
+        bf16 scan copy and bf16 rounding residual, the x-side correction of
+        the certified scan."""
         end = start + vec.shape[0]
-        self.vectors[start:end] = vec
         stored = self.vectors[start:end].float()
         self.norms_sq[start:end] = stored.square().sum(-1)
         self.labels[start:end] = lab
@@ -539,13 +568,13 @@ class FlatIndex:
             arrays["centroids"] = self.centroids.cpu().numpy()
             arrays["cells"] = self.cells[:n].cpu().numpy()
         atomic_savez(os.path.join(directory, "index_arrays.npz"), **arrays)
-        meta = dict(self._meta_extra)
-        meta.update(dimension=self.dimension, metric=self.metric, n=n,
-                    use_float16=self.use_float16, nlist=self.nlist,
-                    nprobe=self.nprobe, kmeans_iters=self.kmeans_iters,
+        meta = dict(dimension=self.dimension, metric=self.metric, n=n,
+                    nlist=self.nlist, nprobe=self.nprobe,
+                    use_float16=self.use_float16,
+                    single_buffer=self.single_buffer,
+                    kmeans_iters=self.kmeans_iters,
                     ivf_balance=self.ivf_balance,
                     ivf_retrain_on_add=self.ivf_retrain_on_add)
-        meta.setdefault("single_buffer", False)
         atomic_json_dump(meta, os.path.join(directory, "index_meta.json"))
         atomic_pickle_dump({"paths": self.paths, "metadata": self.metadata},
                            os.path.join(directory, "index_host.pkl"))
@@ -564,10 +593,9 @@ class FlatIndex:
                   ivf_retrain_on_add=bool(meta.get("ivf_retrain_on_add",
                                                    True)),
                   use_float16=meta.get("use_float16", False),
+                  single_buffer=meta.get("single_buffer", False),
                   use_pallas=use_pallas, build_accel=build_accel,
                   device=device)
-        idx._meta_extra = {k: v for k, v in meta.items()
-                           if k not in _META_KEYS}
         data = np.load(os.path.join(directory, "index_arrays.npz"))
         # index_host.pkl is written by this package or the JAX package
         # beside the arrays; it is trusted like the rest of the directory

@@ -4,7 +4,10 @@ fusion, detection MLP head.
 Counterpart: ``radad_tpu/models/fusion.py`` (flax ``ProjectionLayer``,
 ``DetectionModel``, ``RADADModel``; reference projection.py:8-117,
 detection_model.py:41-126, radad_model.py:9-41). Submodule names match the
-flax parameter names so ``models/convert.py`` maps them one to one.
+flax parameter names so ``models/convert.py`` maps them one to one. Every
+flax submodule is a torch module called as one (``Dense``, ``BatchNorm``,
+``nn.LayerNorm``, ``Dropout``), so forward hooks see each output that
+flax's ``capture_intermediates`` records (``models/introspect.py``).
 
 In eval mode (``build_radad_model`` returns the model so) dropout is the
 identity and BatchNorm uses its running statistics. In training mode
@@ -97,6 +100,36 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
     return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` whose forward is ``dense``: called as a module, so a
+    forward hook sees its output (flax ``Dense``'s ``__call__``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self, x)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose forward is ``batch_norm`` (flax's
+    statistics and update, not torch's)."""
+
+    def forward(self, x: torch.Tensor,
+                stats_sum: Optional[Callable] = None) -> torch.Tensor:
+        return batch_norm(self, x, stats_sum)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` as a module without parameters: ``dropout`` in
+    training mode, the identity in eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.p, generator) if self.training else x
+
+
 class ProjectionLayer(nn.Module):
     """Attention aggregation of K neighbor vectors → ``[B, output_dim]``."""
 
@@ -104,32 +137,38 @@ class ProjectionLayer(nn.Module):
                  output_dim: int = 128, dropout: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dropout = dropout
         self.compute_dtype = compute_dtype
-        self.attention_score = nn.Linear(input_dim, hidden_dim)
-        self.attention_final = nn.Linear(hidden_dim, 1)
-        self.cst_hidden = nn.Linear(input_dim, hidden_dim)
-        self.cst_output = nn.Linear(hidden_dim, input_dim)
-        self.weight_sum = nn.Linear(input_dim, hidden_dim)
+        self.attention_score = Dense(input_dim, hidden_dim)
+        self.attention_final = Dense(hidden_dim, 1)
+        self.cst_hidden = Dense(input_dim, hidden_dim)
+        self.cst_output = Dense(hidden_dim, input_dim)
+        self.weight_sum = Dense(input_dim, hidden_dim)
         self.normalization = nn.LayerNorm(hidden_dim, eps=1e-6)
-        self.unified_embedding = nn.Linear(hidden_dim, output_dim)
+        self.drop = Dropout(dropout)
+        self.unified_embedding = Dense(hidden_dim, output_dim)
+
+    def _scores(self, x: torch.Tensor) -> torch.Tensor:
+        """Scalar attention scores [B, K, 1] (projection.py:68-71)."""
+        return self.attention_final(torch.tanh(self.attention_score(x)))
 
     def forward(self, neighbors: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         x = neighbors.to(dt)  # [B, K, D]
-        # scores path (projection.py:68-71)
-        scores = dense(self.attention_final, torch.tanh(
-            dense(self.attention_score, x)))  # [B, K, 1]
+        scores = self._scores(x)
         # CST channel re-weighting path (projection.py:73-76)
-        cst = dense(self.cst_output, torch.relu(dense(self.cst_hidden, x)))
+        cst = self.cst_output(torch.relu(self.cst_hidden(x)))
         weights = torch.softmax(scores.float(), dim=1).to(dt)
         summed = (weights * cst).sum(1)  # [B, D]
-        h = self.normalization(dense(self.weight_sum, summed).float())
-        h = h.to(dt)
-        if self.training:
-            h = dropout(h, self.dropout, generator)
-        return dense(self.unified_embedding, h)
+        h = self.normalization(self.weight_sum(summed).float())
+        return self.unified_embedding(self.drop(h.to(dt), generator))
+
+    def attention_weights(self, neighbors: torch.Tensor) -> torch.Tensor:
+        """Softmaxed neighbor attention [B, K, 1] in f32, for introspection
+        (the flax ``ProjectionLayer.attention_weights``; projection.py:
+        124-130)."""
+        scores = self._scores(neighbors.to(self.compute_dtype))
+        return torch.softmax(scores.float(), dim=1)
 
 
 class DetectionModel(nn.Module):
@@ -140,20 +179,22 @@ class DetectionModel(nn.Module):
                  dropout: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dropout = dropout
         self.compute_dtype = compute_dtype
         self.use_batch_norm = use_batch_norm
         dims = [input_dim] + list(hidden_dims) + [1]
         self.linears = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+            Dense(a, b) for a, b in zip(dims[:-1], dims[1:]))
         # same precedence as detection_model.py:54-59: BatchNorm wins
         if use_batch_norm:
-            norms = [nn.BatchNorm1d(h, eps=1e-5) for h in hidden_dims]
+            norms = [BatchNorm(h, eps=1e-5) for h in hidden_dims]
         elif use_layer_norm:
             norms = [nn.LayerNorm(h, eps=1e-5) for h in hidden_dims]
         else:
             norms = []
         self.norms = nn.ModuleList(norms)
+        # flax builds a Dropout after each hidden ReLU only when dropout > 0
+        self.drops = nn.ModuleList(
+            Dropout(dropout) for _ in hidden_dims if dropout > 0)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -162,16 +203,15 @@ class DetectionModel(nn.Module):
         last = len(self.linears) - 1
         x = x.to(dt)
         for i, lin in enumerate(self.linears):
-            x = dense(lin, x)
+            x = lin(x)
             if i < last:
                 if self.use_batch_norm:
-                    x = batch_norm(self.norms[i], x.float(),
-                                   stats_sum).to(dt)
+                    x = self.norms[i](x.float(), stats_sum).to(dt)
                 elif len(self.norms):
                     x = self.norms[i](x.float()).to(dt)
                 x = torch.relu(x)
-                if self.training:
-                    x = dropout(x, self.dropout, generator)
+                if len(self.drops):
+                    x = self.drops[i](x, generator)
         return x.squeeze(-1).float()  # logits [B]
 
     @torch.no_grad()
@@ -203,8 +243,8 @@ class RADADModel(nn.Module):
         self.projection_layer = ProjectionLayer(
             tpp_dim, projection_hidden_dim, projection_output_dim,
             projection_dropout, compute_dtype)
-        self.fuse = nn.Linear(tpp_dim + projection_output_dim,
-                              projection_output_dim)
+        self.fuse = Dense(tpp_dim + projection_output_dim,
+                          projection_output_dim)
         self.detection_model = DetectionModel(
             projection_output_dim, detection_hidden_dims, use_batch_norm,
             use_layer_norm, detection_dropout, compute_dtype)
@@ -217,7 +257,7 @@ class RADADModel(nn.Module):
         mode; ``stats_sum``: BatchNorm's cross-rank sum (``batch_stats``)."""
         dt = self.compute_dtype
         proj = self.projection_layer(neighbor_vecs, generator)
-        fused = dense(self.fuse, torch.cat([tpp_vecs.to(dt), proj], dim=-1))
+        fused = self.fuse(torch.cat([tpp_vecs.to(dt), proj], dim=-1))
         return self.detection_model(fused, generator, stats_sum)
 
 
