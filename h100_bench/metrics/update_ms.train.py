@@ -1,0 +1,8 @@
+"""Host ms per step of StepFns.apply, ended by a synchronize, in the
+traced slice."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.mean(run, "update_ms")
