@@ -28,6 +28,8 @@ import wave
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
 
+from radad_tpu_torch.utils.profiling import annotate
+
 logger = logging.getLogger(__name__)
 
 ALLOWED_EXT = {".wav", ".mp3", ".flac", ".ogg", ".m4a", ".webm"}
@@ -47,6 +49,14 @@ class PredictBatcher:
     stragglers) into ONE device pass via ``pipeline.predict_batch``;
     batch sizes bucket to powers of two (kept from the JAX package, where
     each size compiles once).
+
+    The worker's time falls in spans (``utils.profiling.annotate``):
+    ``radad.batcher.wait`` on an empty queue, ``radad.batcher.linger``
+    while it waits for stragglers, and ``radad.batcher.call:<seq>:<n>/
+    <bucket>`` around each call and the resolution of its futures, where
+    ``seq`` numbers the calls, ``n`` is the requests in it and ``bucket``
+    the size they were padded to. Each answer's ``stage_ms["call"]`` is
+    its call's ``seq``.
     """
 
     BUCKETS = (1, 2, 4, 8, 16)
@@ -86,8 +96,10 @@ class PredictBatcher:
         import queue as _queue
         import time as _time
 
+        seq = 0
         while True:
-            item = self._q.get()
+            with annotate("radad.batcher.wait"):
+                item = self._q.get()
             if item is None:  # close()
                 self.pipeline = None
                 return
@@ -109,36 +121,40 @@ class PredictBatcher:
                     break
                 batch.append(item)
             if 1 < len(batch) < self.max_batch:
-                deadline = _time.time() + self.linger
-                while len(batch) < self.max_batch:
-                    remaining = deadline - _time.time()
-                    if remaining <= 0:
-                        break
-                    try:
-                        item = self._q.get(timeout=remaining)
-                    except _queue.Empty:
-                        break
-                    if item is None:
-                        self._q.put(None)
-                        break
-                    batch.append(item)
+                with annotate("radad.batcher.linger"):
+                    deadline = _time.perf_counter() + self.linger
+                    while len(batch) < self.max_batch:
+                        remaining = deadline - _time.perf_counter()
+                        if remaining <= 0:
+                            break
+                        try:
+                            item = self._q.get(timeout=remaining)
+                        except _queue.Empty:
+                            break
+                        if item is None:
+                            self._q.put(None)
+                            break
+                        batch.append(item)
             paths = [p for p, _, _ in batch]
             bucket = self._bucket(len(paths))
             padded = paths + [paths[-1]] * (bucket - len(paths))
+            seq += 1
             t_start = _time.perf_counter()
-            try:
-                results = self.pipeline.predict_batch(padded)
-                for (p, f, tq), r in zip(batch, results):
-                    # per-request batcher wait: linger + any in-flight
-                    # device call ahead of this batch
-                    r.setdefault("stage_ms", {})["queue"] = round(
-                        (t_start - tq) * 1e3, 2)
-                    if not f.cancelled():
-                        f.set_result(r)
-            except Exception as e:  # pragma: no cover
-                for _, f, _ in batch:
-                    if not f.cancelled():
-                        f.set_exception(e)
+            with annotate(f"radad.batcher.call:{seq}:{len(paths)}/{bucket}"):
+                try:
+                    results = self.pipeline.predict_batch(padded)
+                    for (p, f, tq), r in zip(batch, results):
+                        # per-request batcher wait: linger + any in-flight
+                        # device call ahead of this batch
+                        stage = r.setdefault("stage_ms", {})
+                        stage["queue"] = round((t_start - tq) * 1e3, 2)
+                        stage["call"] = seq
+                        if not f.cancelled():
+                            f.set_result(r)
+                except Exception as e:  # pragma: no cover
+                    for _, f, _ in batch:
+                        if not f.cancelled():
+                            f.set_exception(e)
 
 
 class AppState:

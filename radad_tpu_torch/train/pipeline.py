@@ -89,6 +89,7 @@ from radad_tpu_torch.train.checkpoint import (checkpoint_path,
 from radad_tpu_torch.train.optim import (GroupAdam, group_of,
                                          pos_weighted_bce)
 from radad_tpu_torch.utils.device import resolve_device
+from radad_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -778,7 +779,8 @@ class DetectionPipeline:
         audio = torch.as_tensor(waves, device=dev)
         lens = (None if lengths is None
                 else torch.as_tensor(lengths, device=dev))
-        tpp = self._embed(audio, lens)
+        with annotate("radad.embed"):
+            tpp = self._embed(audio, lens)
         b = tpp.shape[0]
         if self.index.ntotal == 0:
             logger.warning("predict called with an empty vector DB")
@@ -788,23 +790,28 @@ class DetectionPipeline:
             idx = torch.full((b, k), -1, dtype=torch.int32, device=dev)
         else:
             ex = torch.as_tensor(np.asarray(exclude, np.int32), device=dev)
-            neighbors, nlabels, dists, idx = self._retrieve(
-                tpp, ex, exclude_mode, prefer_ivf_gather=True)
-            # rows whose neighbors were all excluded retry without
-            # exclusion, each on its own (reference pipeline.py:1051-1054)
-            wiped = ~(idx >= 0).any(-1)  # [B]
-            retry = wiped.any()
-            if self.mesh is not None:
-                retry = self.mesh.all_reduce(retry.int(), DATA_AXIS) > 0
-            if bool(retry):
-                second = self._retrieve(tpp, torch.full_like(ex, -2),
-                                        exclude_mode, prefer_ivf_gather=True)
-                row = wiped[:, None]
-                neighbors = torch.where(row[..., None], second[0], neighbors)
-                nlabels = torch.where(row, second[1], nlabels)
-                dists = torch.where(row, second[2], dists)
-                idx = torch.where(row, second[3], idx)
-        logits = self.model(neighbors.nan_to_num(), tpp)
+            with annotate("radad.search"):
+                neighbors, nlabels, dists, idx = self._retrieve(
+                    tpp, ex, exclude_mode, prefer_ivf_gather=True)
+                # rows whose neighbors were all excluded retry without
+                # exclusion, each on its own (reference
+                # pipeline.py:1051-1054)
+                wiped = ~(idx >= 0).any(-1)  # [B]
+                retry = wiped.any()
+                if self.mesh is not None:
+                    retry = self.mesh.all_reduce(retry.int(), DATA_AXIS) > 0
+                if bool(retry):
+                    second = self._retrieve(tpp, torch.full_like(ex, -2),
+                                            exclude_mode,
+                                            prefer_ivf_gather=True)
+                    row = wiped[:, None]
+                    neighbors = torch.where(row[..., None], second[0],
+                                            neighbors)
+                    nlabels = torch.where(row, second[1], nlabels)
+                    dists = torch.where(row, second[2], dists)
+                    idx = torch.where(row, second[3], idx)
+        with annotate("radad.model"):
+            logits = self.model(neighbors.nan_to_num(), tpp)
         if self.mesh is None:
             return logits, nlabels, dists, idx
         return tuple(self.mesh.all_gather(t, DATA_AXIS).flatten(0, 1)[:true_b]
@@ -887,40 +894,49 @@ class DetectionPipeline:
     def predict_batch(self, audio_paths: List[str]) -> List[Dict]:
         """One device pass for many clips, per-row self exclusion
         (independent requests must not exclude each other's files). Each
-        payload carries ``stage_ms``: host decode, device work including
-        the result copy, payload assembly, batch size."""
+        payload carries ``stage_ms``: host decode, device work (from the
+        upload through the blocking reads of the results: the search's
+        certificate and retry checks and the four copies to the host),
+        payload assembly, batch size. The three stages run inside the spans
+        ``radad.decode``, ``radad.device`` and ``radad.payload``
+        (``utils.profiling.annotate``)."""
         cfg = self.config
         t0 = time.perf_counter()
         lengths = None
-        if cfg.max_duration is None:
-            waves = np.stack([
-                load_audio(p, sample_rate=cfg.sample_rate,
-                           duration=cfg.clip_duration) for p in audio_paths])
-        else:
-            raw = [load_audio(p, sample_rate=cfg.sample_rate,
-                              duration=cfg.max_duration, pad=False)
-                   for p in audio_paths]
-            waves = np.zeros((len(raw), self._grid_pad()), np.float32)
-            for row, w in enumerate(raw):
-                waves[row, :len(w)] = w
-            lengths = [max(min(len(w), cfg.analysis_samples), 1)
-                       for w in raw]
-        exclude = [file_id(p) for p in audio_paths]
+        with annotate("radad.decode"):
+            if cfg.max_duration is None:
+                waves = np.stack([
+                    load_audio(p, sample_rate=cfg.sample_rate,
+                               duration=cfg.clip_duration)
+                    for p in audio_paths])
+            else:
+                raw = [load_audio(p, sample_rate=cfg.sample_rate,
+                                  duration=cfg.max_duration, pad=False)
+                       for p in audio_paths]
+                waves = np.zeros((len(raw), self._grid_pad()), np.float32)
+                for row, w in enumerate(raw):
+                    waves[row, :len(w)] = w
+                lengths = [max(min(len(w), cfg.analysis_samples), 1)
+                           for w in raw]
+            exclude = [file_id(p) for p in audio_paths]
         t_decode = time.perf_counter()
-        logits, nlabels, dists, idx = self._predict_tensors(
-            waves, exclude, lengths, "self")
-        logits_l, idx_l = logits.tolist(), idx.tolist()
-        nlab_l, dist_l = nlabels.tolist(), dists.tolist()
+        with annotate("radad.device"):
+            logits, nlabels, dists, idx = self._predict_tensors(
+                waves, exclude, lengths, "self")
+            logits_l, idx_l = logits.tolist(), idx.tolist()
+            nlab_l, dist_l = nlabels.tolist(), dists.tolist()
         t_device = time.perf_counter()
-        out = [self._payload(logits_l[r], idx_l[r], nlab_l[r], dist_l[r])
-               for r in range(len(audio_paths))]
-        t_payload = time.perf_counter()
-        stage_ms = {"decode": round((t_decode - t0) * 1e3, 2),
-                    "device": round((t_device - t_decode) * 1e3, 2),
-                    "payload": round((t_payload - t_device) * 1e3, 2),
-                    "batch": len(audio_paths)}
-        for o in out:
-            o["stage_ms"] = dict(stage_ms)
+        with annotate("radad.payload"):
+            out = [self._payload(logits_l[r], idx_l[r], nlab_l[r],
+                                 dist_l[r])
+                   for r in range(len(audio_paths))]
+            t_payload = time.perf_counter()
+            stage_ms = {"decode": round((t_decode - t0) * 1e3, 2),
+                        "device": round((t_device - t_decode) * 1e3, 2),
+                        "payload": round((t_payload - t_device) * 1e3, 2),
+                        "batch": len(audio_paths)}
+            for o in out:
+                o["stage_ms"] = dict(stage_ms)
         return out
 
     # ------------------------------------------------------------------

@@ -7,7 +7,9 @@ with ``cuda.synchronize``, projection.py:140-153, detection_model.py:
   * ``trace(logdir)`` — ``torch.profiler`` over the host and the card,
     writing a TensorBoard-loadable trace of everything run inside;
   * ``annotate(name)`` — a named span in that trace
-    (``torch.profiler.record_function``);
+    (``torch.profiler.record_function``), and nothing where no profiler
+    runs on the calling thread: the serving path's spans (``radad.*``)
+    stay in place and cost one check when tracing is off;
   * ``profile_fn`` — the timed-loop profiler: CUDA events and a
     synchronize a call on the card, ``perf_counter`` on the CPU;
   * ``memory_stats`` — the card's allocator counters.
@@ -45,9 +47,20 @@ def trace(logdir: str, device="cuda"):
     logger.info("profiler trace written to %s", logdir)
 
 
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
 def annotate(name: str):
-    """Named span inside an active trace."""
-    return record_function(name)
+    """Named span inside an active trace: a ``record_function`` (a
+    ``user_annotation`` event on the trace's own clock) where the calling
+    thread runs a profiler, else one shared null context. The profiler's
+    state is per thread, so a span on another thread than the one that
+    started it records nothing. The check reads a thread-local flag, far
+    cheaper than entering a ``record_function`` with no profiler."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 def profile_fn(fn: Callable, *args, iterations: int = 20,
