@@ -6,10 +6,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit, the precision flags, builds
    the native audio decoder (``radad_tpu_torch/native``, host g++; it must
-   load) and the five CUDA kernels from ``radad_tpu_torch/csrc`` (one
+   load) and the six CUDA kernels from ``radad_tpu_torch/csrc`` (one
    ``nvcc`` each, in parallel): ``gather_rows``, ``exact_dot``,
-   ``extract_candidates``, ``fused_mha`` and ``flat_topk``, with ptxas's
-   registers and spills of each template instance;
+   ``extract_candidates``, ``fused_mha``, ``flat_topk`` and
+   ``bias_gelu``, with ptxas's registers and spills of each template
+   instance;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes (``gather_rows`` at M = 5, 32, 40,
    256, 320, 640, 1,280 and 2,048 rows, each timed call reading its rows
@@ -52,7 +53,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (8 heads of 64) beside SDPA (flash in bf16), with TFLOP/s and the
    ratios to SDPA and to the bound; the bf16 resident form at the trimmed
    shapes [16 | 128, 100, 512]; ``gather_rows`` and ``exact_dot`` on a
-   [25,600, 3,584] table;
+   [25,600, 3,584] table; ``bias_gelu`` (the bf16 bias add and tanh GELU)
+   at whisper-base's FFN hidden state [128, 1500, 2048] and conv outputs
+   [128, 512, 3000] and [128, 512, 1500] and at wav2vec2-base's bias-free
+   first conv [128, 512, 9599], FFN [128, 149, 3072] and positional conv
+   [128, 768, 150], equal bit for bit to the op-by-op chain (its plain
+   version), timed beside it and the library's ``x + b`` then
+   ``F.gelu(approximate="tanh")``;
 3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
    wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
    synthetic clips, the index is padded with seeded rows to 25,600 x 5,376
@@ -213,7 +220,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    is a scaling figure.
 
 Each phase sets the launch counts to 0 just before its counted run and
-reads them just after; each serving path prints the audio decoder that
+reads them just after (``bias_gelu``'s on every path: launched iff the
+encoder is bf16, and then no GELU op by op; 8 launches a forward on the
+bf16 Whisper paths, 20 on wav2vec2's and WavLM's); each serving path prints the audio decoder that
 ran and fails unless it was the native one. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
 table: for ``exact_dot`` and ``extract_candidates`` also each path's
@@ -248,6 +257,17 @@ TRAIN_CLIPS, VAL_CLIPS = 500, 300  # 4 and 2 batches, the last ones partial
 WHISPER_ATTN = ((16, 1500), (128, 1500))
 # the same trimmed to the clip (--whisper_fast, T = 100)
 WHISPER_FAST_ATTN = ((16, 100), (128, 100))
+# the bias add and tanh GELU at the bf16 encoders' shapes for
+# predict_batch(64), 128 windows: whisper-base padded to 30 s and
+# wav2vec2-base at 3 s (its bias-free group-normed first conv, its FFN, its
+# positional conv before the trim): {record key: (shape, the bias's axis,
+# or None for no bias)}
+BIAS_GELU_SHAPES = {"ffn": ((128, 1500, 2048), -1),
+                    "conv1": ((128, 512, 3000), 1),
+                    "conv2": ((128, 512, 1500), 1),
+                    "w2v2_conv0": ((128, 512, 9599), None),
+                    "w2v2_ffn": ((128, 149, 3072), -1),
+                    "w2v2_pos_conv": ((128, 768, 150), 1)}
 # fused_mha's bias-free f32 body at the other shapes a path launches it:
 # {record key: ((rows, T, width, heads), the path)}
 F32_NO_BIAS_PATHS = {
@@ -612,6 +632,7 @@ def kernel_phase(torch, dev):
     recs["fused_mha"] = _fused_mha_record(torch, g)
     recs["fused_mha_bf16"] = _fused_mha_bf16_record(torch, g)
     recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
+    recs["bias_gelu"] = _bias_gelu_record(torch, g)
     for name, by_shape in _whisper_kernel_records(torch, dev, g).items():
         recs[name]["whisper"] = by_shape
     for name in ("gather_rows", "exact_dot", "extract_candidates"):
@@ -1107,6 +1128,60 @@ def _fused_mha_bf16_record(torch, g) -> dict:
         hd80={body: r for (shape, body), r in recs.items()
               if shape[3] == 16})
     return rec
+
+
+def _bias_gelu_record(torch, g) -> dict:
+    """``bias_gelu`` at ``BIAS_GELU_SHAPES``: the FFNs' hidden states (bias
+    along the last axis), the convs' outputs (bias along the channels;
+    conv2's T = 1,500 is not a multiple of 8) and wav2vec2's bias-free
+    first conv, each equal bit for bit to its plain version (the op-by-op
+    chain), timed beside it and beside the library's ``x + b`` then
+    ``F.gelu(approximate="tanh")`` (two kernels, one rounding each: not the
+    chain's bits); bound: x read and the output written once, 4 bytes an
+    element, at 3.35 TB/s; the launches of one call. → record (whisper's
+    FFN) with ``by_shape``."""
+    import torch.nn.functional as F
+
+    from radad_tpu_torch.ops.bias_gelu import bias_gelu, bias_gelu_plain
+
+    by_shape = {}
+    for key, (shape, axis) in BIAS_GELU_SHAPES.items():
+        x = (2 * torch.randn(shape, generator=g, device=g.device)).to(
+            torch.bfloat16)
+        channel_axis = axis == 1
+        b = None if axis is None else torch.randn(
+            shape[axis], generator=g, device=g.device).to(torch.bfloat16)
+        lib_b = 0 if b is None else b[:, None] if channel_axis else b
+        before = bias_gelu.launches
+        got = bias_gelu(x, b, channel_axis)
+        launches = bias_gelu.launches - before
+        want = bias_gelu_plain(x, b, channel_axis)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"bias_gelu {key} {list(shape)} differs from "
+                                 f"the op-by-op chain")
+        del got, want
+        rec = timings(torch, lambda: bias_gelu(x, b, channel_axis),
+                      lambda: bias_gelu_plain(x, b, channel_axis),
+                      lambda: F.gelu(x + lib_b, approximate="tanh"), iters=10)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(4 * x.numel())
+        rec.update(dims=list(shape), launches_a_call=launches, bias_axis=axis)
+        by_shape[key] = rec
+        print(f"bias_gelu {key} {list(shape)}: device {rec['ms']:.4f} ms "
+              f"(call {rec['call_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.2f} of it), plain (the chain) "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+              f"{launches} launch(es); bits equal")
+        del x
+        torch.cuda.empty_cache()
+    return dict(route="cuda", source="radad_tpu_torch/csrc/bias_gelu.cu",
+                replaces="the bf16 bias add + tanh GELU op by op "
+                         "(models/encoder_common.py)",
+                max_abs_err=0.0, tolerance="equal bits",
+                bound_rate="bytes, 3.35 TB/s",
+                shape=f"[128,1500,2048] bf16, bias on the last axis "
+                      f"(by_shape: {', '.join(BIAS_GELU_SHAPES)})",
+                **by_shape["ffn"], by_shape=by_shape)
 
 
 def _whisper_kernel_records(torch, dev, g) -> dict:
@@ -1781,7 +1856,9 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
 
 
 def _launch_counts(kernels, index=None) -> dict:
-    """{kernel name: launches} of ``kernels``, with exact_dot's per form
+    """{kernel name: launches} of ``kernels`` and of ``bias_gelu`` (with
+    "bias_gelu_chain": the bf16 GELUs on the card that ran op by op), with
+    exact_dot's per form
     and row type ("exact_dot_split", "exact_dot_int8", ...) and
     extract_candidates' per shape ("extract_candidates_T=8 m=5");
     fused_mha's count splits by dtype: "fused_mha" (its f32 bodies),
@@ -1791,9 +1868,12 @@ def _launch_counts(kernels, index=None) -> dict:
     not from ``extract_candidates`` and ``exact_dot``), and "route"; an
     IVF index's gather-route searches also ("gather_searches",
     "gather_fallbacks": those over their chunk budget)."""
+    from radad_tpu_torch.ops import bias_gelu as BG
     from radad_tpu_torch.ops.attention import fused_mha
 
     out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
+    out["bias_gelu"] = BG.bias_gelu.launches  # every path: the encoders'
+    out["bias_gelu_chain"] = BG.bias_gelu_plain.calls
     for w in kernels:  # exact_dot's per form and row type;
         if w is fused_mha:  # extract_candidates' per "T=.. m=.."
             continue
@@ -1831,10 +1911,20 @@ def _resident_only(launches, label: str) -> None:
                              f"the resident form alone: {launches}")
 
 
+def _gelu_fused_only(launches, label: str) -> None:
+    """Raise unless ``bias_gelu`` ran and no bf16 GELU ran op by op: a bf16
+    encoder on the card with no gradient to carry."""
+    if launches["bias_gelu"] <= 0 or launches["bias_gelu_chain"]:
+        raise AssertionError(f"{label}: want every bf16 GELU in bias_gelu "
+                             f"and none op by op: {launches}")
+
+
 def _reset(kernels, index=None) -> None:
-    """Every launch count of ``kernels`` (and ``index``'s search counts) to
-    0."""
-    from radad_tpu_torch.ops import attention, rerank
+    """Every launch count of ``kernels`` and of ``bias_gelu`` (and
+    ``index``'s search counts) to 0."""
+    from radad_tpu_torch.ops import attention, bias_gelu, rerank
+
+    bias_gelu.reset_counts()
 
     if index is not None:
         index.searches = index.fallbacks = 0
@@ -2180,6 +2270,7 @@ def serving_bf16_phase(torch, dev, tmp: str, ref: dict):
         raise AssertionError(f"bf16 fused attention: the bias-free bf16 body "
                              f"not launched alone ({body})")
     _resident_only(fused_launches, "wav2vec2 bf16 fused attention")
+    _gelu_fused_only(fused_launches, "wav2vec2 bf16 fused attention")
     base = _embed_paths(torch, pipe, sets["predict_batch_8"]).double()
     drel = ((moved.double() - base).norm(dim=-1) / base.norm(dim=-1)).max()
     same = sum(a["retrieved_files"] == b["retrieved_files"]
@@ -2282,6 +2373,12 @@ def _serve_checked(torch, pipe, q_paths, batch64, kernels, label: str,
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label} serving path")
     _exact_dot_form_only(launches, label, "split")  # B = 1, 8, 64
+    bf16 = pipe.encoder.compute_dtype == torch.bfloat16
+    if bf16:
+        _gelu_fused_only(launches, label)
+    elif launches["bias_gelu"]:
+        raise AssertionError(f"{label}: want bias_gelu launched iff the "
+                             f"encoder is bf16: {launches}")
     attn = launches["fused_mha"] + launches["fused_mha_bf16"]
     if launches["flat_topk"] or bool(attn) != fused:
         raise AssertionError(f"{label}: want fused_mha {'' if fused else 'not '}"
@@ -2493,6 +2590,11 @@ def whisper_bf16_phase(torch, dev, tmp: str, ref: dict):
                 raise AssertionError(f"{label}: fused_mha bf16 launched other "
                                      f"than the streamed form alone at "
                                      f"T = 1,500: {launches}")
+            if launches["bias_gelu"] <= 0 or launches["bias_gelu"] % 8 or \
+                    launches["bias_gelu_chain"]:
+                raise AssertionError(f"{label}: want 8 bias_gelu launches a "
+                                     f"forward (6 FFNs, 2 convs) and no "
+                                     f"GELU op by op: {launches}")
             by_path[label] = launches
             _against_f32(torch, pipe, label, sets, outs, stage, ref[pad])
             del pipe, outs
@@ -4251,6 +4353,7 @@ def _train_bf16(torch, dev, tmp: str):
         raise AssertionError(f"the bf16 training path launched an f32 "
                              f"attention or flat_topk: {launches}")
     _resident_only(launches, "train_bf16")
+    _gelu_fused_only(launches, "train_bf16")
     _exact_dot_form_only(launches, "train_bf16", "per_query")
 
     fresh = _resumed(torch, pipe, cfg, dev)

@@ -18,8 +18,10 @@ on the CPU, where XLA rounds every bf16 op's result: a linear or conv
 product comes back in bf16 and its bias is added in bf16, GELU is the tanh
 form written op by op with bf16 constants, the attention scale is rounded
 to bf16, and the per-channel norm takes the JAX package's shifted moments.
-The f32 path keeps its own arithmetic (fused bias adds, exact GELU,
-``F.group_norm``).
+A GELU and the bias add before it (``gelu_bias``: ``linear_gelu``,
+``conv1d_gelu``) run on bf16 CUDA tensors as one kernel with the same bits
+(``radad_tpu_torch/ops/bias_gelu.py``). The f32 path keeps its own
+arithmetic (fused bias adds, exact GELU, ``F.group_norm``).
 
 Tensor parallelism (``parallel/tp.py``): with ``tp = (mesh, axis)`` the
 layer's parameters are the rank's shard (q, k, v and the FFN's first
@@ -31,7 +33,6 @@ all-reduce) before its bias is added once.
 
 from __future__ import annotations
 
-import math
 from typing import Mapping, Optional
 
 import torch
@@ -39,6 +40,8 @@ import torch.nn.functional as F
 
 from radad_tpu_torch.ops.attention import (fused_mha, mha_reference,
                                            use_fused_attention)
+from radad_tpu_torch.ops.bias_gelu import (bias_gelu, bias_gelu_plain,
+                                           use_bias_gelu)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -72,12 +75,35 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU: the exact erf in f32, as HF ACT2FN['gelu'] and the JAX
     package; in bf16 the JAX package's tanh form (``jax.nn.gelu(x,
     approximate=True)``), op by op in bf16 with its constants rounded to
-    bf16, x³ as x · (x · x)."""
+    bf16, x³ as x · (x · x) (``ops/bias_gelu.bias_gelu_plain``)."""
     if x.dtype == torch.float32:
         return F.gelu(x)
-    c = rounded(math.sqrt(2 / math.pi), x.dtype)
-    inner = x + rounded(0.044715, x.dtype) * (x * (x * x))
-    return x * (0.5 * (1.0 + torch.tanh(c * inner)))
+    return bias_gelu_plain(x)
+
+
+def gelu_bias(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              channel_axis: bool = False) -> torch.Tensor:
+    """``gelu(x + bias)``, the bias added in x's dtype along the last axis
+    or, with ``channel_axis``, along axis 1 of a ``[B, C, T]`` conv output:
+    where ``use_bias_gelu`` takes x (bf16 on CUDA, contiguous, no gradient
+    to carry) the add and the GELU in one kernel with the same bits
+    (``ops/bias_gelu.py``), elsewhere the add and then ``gelu``."""
+    if bias is not None:
+        bias = bias.to(x.dtype)
+    if use_bias_gelu(x, bias):
+        return bias_gelu(x, bias, channel_axis)
+    if bias is not None:
+        x = x + (bias[:, None] if channel_axis else bias)
+    return gelu(x)
+
+
+def linear_gelu(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """``gelu(linear(x, w, b))``; outside f32 the bias add goes with the
+    GELU (``gelu_bias``)."""
+    if x.dtype == torch.float32:
+        return gelu(linear(x, w, b))
+    return gelu_bias(linear(x, w), b)
 
 
 def _row_parallel(partial: torch.Tensor, bias: torch.Tensor,
@@ -127,7 +153,7 @@ def feed_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                  tp: Optional[tuple] = None) -> torch.Tensor:
     """Linear → GELU → Linear (HF Wav2Vec2FeedForward, Whisper's fc1 and
     fc2); with ``tp`` the rank's columns of the hidden layer."""
-    h = gelu(linear(x, p["w1"], p["b1"]))
+    h = linear_gelu(x, p["w1"], p["b1"])
     if tp is None:
         return linear(h, p["w2"], p["b2"])
     return _row_parallel(linear(h, p["w2"]), p["b2"], tp)
@@ -180,6 +206,17 @@ def conv1d(x: torch.Tensor, kernel: torch.Tensor,
         out = F.conv1d(x, kernel, stride=stride, padding=padding,
                        groups=groups)
     return out if bias is None else out + bias.to(x.dtype)[:, None]
+
+
+def conv1d_gelu(x: torch.Tensor, kernel: torch.Tensor,
+                bias: Optional[torch.Tensor], stride: int, padding: int,
+                groups: int = 1) -> torch.Tensor:
+    """``gelu(conv1d(...))``; outside f32 the bias add goes with the GELU,
+    as in ``linear_gelu``."""
+    if x.dtype == torch.float32:
+        return gelu(conv1d(x, kernel, bias, stride, padding, groups))
+    return gelu_bias(conv1d(x, kernel, None, stride, padding, groups), bias,
+                     channel_axis=True)
 
 
 def instance_norm_channels(x: torch.Tensor, scale: torch.Tensor,

@@ -117,30 +117,35 @@ def feature_encoder(model: Wav2Vec2Model, waveform: torch.Tensor
     cfg = model.cfg
     x = waveform[:, None, :]  # [B, 1, T]
     for i, layer in enumerate(model.conv_layers):
-        x = C.conv1d(x, layer["kernel"], layer.get("bias"),
-                     stride=cfg.conv_stride[i], padding=0)
-        if "norm_scale" in layer:
-            if cfg.feat_extract_norm == "group":
-                x = C.instance_norm_channels(x, layer["norm_scale"],
-                                             layer["norm_bias"])
-            else:
-                x = C.layer_norm(x.transpose(1, 2), layer["norm_scale"],
-                                 layer["norm_bias"]).transpose(1, 2)
-        x = C.gelu(x)
+        conv = (layer["kernel"], layer.get("bias"), cfg.conv_stride[i], 0)
+        if "norm_scale" not in layer:
+            x = C.conv1d_gelu(x, *conv)
+            continue
+        x = C.conv1d(x, *conv)  # one step a line, so each frees the last
+        if cfg.feat_extract_norm == "group":
+            x = C.instance_norm_channels(x, layer["norm_scale"],
+                                         layer["norm_bias"])
+            x = C.gelu_bias(x)
+        else:  # GELU on the normed [B, T, C], before the transpose back
+            x = C.layer_norm(x.transpose(1, 2), layer["norm_scale"],
+                             layer["norm_bias"])
+            x = C.gelu_bias(x).transpose(1, 2)
     return x.transpose(1, 2)
 
 
 def positional_conv(model: Wav2Vec2Model, x: torch.Tensor) -> torch.Tensor:
     """Grouped conv positional embedding on ``[B, T, D]``: padding k//2,
-    one trailing frame dropped for even k, then GELU."""
+    GELU, one trailing frame dropped for even k (the GELU is elementwise:
+    taken on the whole conv output, which is contiguous, it gives the
+    trimmed frames' bits)."""
     cfg = model.cfg
     k = cfg.num_conv_pos_embeddings
-    out = C.conv1d(x.transpose(1, 2), model.pos_conv["kernel"],
-                   model.pos_conv["bias"], stride=1, padding=k // 2,
-                   groups=cfg.num_conv_pos_embedding_groups)
+    out = C.conv1d_gelu(x.transpose(1, 2), model.pos_conv["kernel"],
+                        model.pos_conv["bias"], stride=1, padding=k // 2,
+                        groups=cfg.num_conv_pos_embedding_groups)
     if k % 2 == 0:
         out = out[:, :, :-1]
-    return C.gelu(out.transpose(1, 2))
+    return out.transpose(1, 2)
 
 
 def embed_frames(model: Wav2Vec2Model, waveform: torch.Tensor,

@@ -100,10 +100,10 @@ def encode_mel(model: WhisperEncoder, mel: torch.Tensor,
     before conv1 and the positions are cast to it, as JAX's ``encode_mel``."""
     cfg = model.cfg
     x = mel.to(dtype).transpose(1, 2)  # the conv layout [B, n_mels, T]
-    x = C.gelu(C.conv1d(x, model.conv1["kernel"], model.conv1["bias"],
-                        stride=1, padding=1))
-    x = C.gelu(C.conv1d(x, model.conv2["kernel"], model.conv2["bias"],
-                        stride=2, padding=1))
+    x = C.conv1d_gelu(x, model.conv1["kernel"], model.conv1["bias"],
+                      stride=1, padding=1)
+    x = C.conv1d_gelu(x, model.conv2["kernel"], model.conv2["bias"],
+                      stride=2, padding=1)
     x = x.transpose(1, 2)
     x = x + model.pos_embed[:x.shape[1]].to(dtype)
     tp = getattr(model, "tp", None)  # parallel/tp.py's shard
