@@ -1,9 +1,12 @@
-"""What every part of the harness shares: where things are, the run's
-record, seeds, percentiles and the guard against JAX."""
+"""What every part of the harness shares: where things are, how a file is
+found by its name, the run's record, seeds, percentiles and the guard
+against JAX."""
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -17,6 +20,8 @@ BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(BENCH_DIR)
 # caches of anything the program compiles, at fixed paths in the checkout
 CACHE_DIR = os.path.join(BENCH_DIR, ".cache")
+# the encoder files; a test points it at a directory of its own
+ENCODERS_DIR = os.path.join(BENCH_DIR, "encoders")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "radad_tpu")
 
 
@@ -35,6 +40,54 @@ def load_config(name: str) -> dict:
 
 def load_traffic(name: str) -> dict:
     return load_json(os.path.join(BENCH_DIR, "traffic", f"{name}.json"))
+
+
+def _load_file(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _module_name(kind: str, name: str) -> str:
+    return f"h100_bench_{kind}_{name.replace('.', '_').replace('-', '_')}"
+
+
+def load_module(kind: str, name: str):
+    """``<kind>/<name>.py`` of the harness: a driver or a metric."""
+    return _load_file(os.path.join(BENCH_DIR, kind, f"{name}.py"),
+                      _module_name(kind, name))
+
+
+def encoder(config: dict):
+    """The configuration's encoder file, ``encoders/<encoder>.py``, loaded
+    once a process. It exports:
+
+    - ``weights(arch)``: the ``(name, shape, init)`` list that
+      ``harness/weights.py::make`` draws, in the order it draws them;
+    - ``features(p, arch, pipe, segments, kinds)``: the plain forward,
+      windows ``[N, L]`` → features ``[N, T, D]`` in float32, each product
+      rounded as ``kinds`` says ("encoder", and "mel" where there is one);
+    - ``segment_flops(arch, pipe)``: the operations of one window;
+    - ``attention(arch, pipe)``: (frames, heads, head width) of one
+      window's attention;
+    - ``width(arch)``: the width of a frame's features;
+    - ``TINY``: the CPU cut of the tests, as overrides of
+      ``"architecture"`` and ``"pipeline"``.
+
+    Raises ``FileNotFoundError``, naming the file, where there is none."""
+    name = config["encoder"]
+    path = os.path.join(ENCODERS_DIR, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"configuration {config.get('name')!r}: no encoder file {path}")
+    return _load_encoder(path, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load_encoder(path: str, name: str):
+    return _load_file(path, _module_name("encoders", name))
 
 
 def sub_seed(seed: int, tag: str) -> int:

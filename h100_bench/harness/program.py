@@ -8,6 +8,7 @@ This is the only harness module that imports the program.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
 import time
 from typing import Dict, List, Optional
@@ -16,6 +17,25 @@ import torch
 
 # Config fields the configuration files set, as the program names them
 _TUPLES = ("tpp_levels", "wav2vec2_layers_to_use", "detection_hidden_dims")
+# Every encoder kind of the port (a configuration's "encoder"): the module
+# of radad_tpu_torch.models, its architecture config and its model
+PORT_ENCODERS = {
+    "wav2vec2": ("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Model"),
+    "hubert": ("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Model"),
+    "wavlm": ("wavlm", "WavLMConfig", "WavLMModel"),
+    "whisper": ("whisper", "WhisperConfig", "WhisperEncoder"),
+}
+
+
+def port_encoder(kind: str):
+    """The port's (module, config class, model class) names of an encoder
+    kind. Raises ``ValueError``, naming this file, for a kind the port
+    does not have."""
+    if kind not in PORT_ENCODERS:
+        raise ValueError(f"encoder kind {kind!r} is none of the port's "
+                         f"{sorted(PORT_ENCODERS)} (h100_bench/harness/"
+                         f"program.py)")
+    return PORT_ENCODERS[kind]
 
 
 def program_config(config: dict, data_root: str, seed: int):
@@ -34,7 +54,6 @@ def build_pipeline(config: dict, enc_w: Dict[str, torch.Tensor],
                    data_root: str, seed: int):
     """A ``DetectionPipeline`` with the given encoder and fusion weights
     (loaded strictly: every name and shape must match)."""
-    from radad_tpu_torch.models import wav2vec2, whisper
     from radad_tpu_torch.models.encoder import FrozenEncoder
     from radad_tpu_torch.train.pipeline import DetectionPipeline
     from radad_tpu_torch.utils.device import compute_dtype
@@ -43,13 +62,11 @@ def build_pipeline(config: dict, enc_w: Dict[str, torch.Tensor],
     arch = {k: (tuple(v) if isinstance(v, list) else v)
             for k, v in config["architecture"].items()}
     kind = config["encoder"]
+    module, config_class, model_class = port_encoder(kind)
+    models = importlib.import_module(f"radad_tpu_torch.models.{module}")
     with torch.device(device):
-        if kind == "wav2vec2":
-            arch_cfg = wav2vec2.Wav2Vec2Config(**arch)
-            model = wav2vec2.Wav2Vec2Model(arch_cfg)
-        else:
-            arch_cfg = whisper.WhisperConfig(**arch)
-            model = whisper.WhisperEncoder(arch_cfg)
+        arch_cfg = getattr(models, config_class)(**arch)
+        model = getattr(models, model_class)(arch_cfg)
     model.load_state_dict(enc_w, strict=True)
     encoder = FrozenEncoder(
         name=kind, model_name=config["model_name"], arch_cfg=arch_cfg,

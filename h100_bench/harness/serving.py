@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from harness import check, clips, program, rows as R, weights as W
-from harness.common import Run, file_id, scratch_dir, sub_seed
+from harness.common import Run, encoder, file_id, scratch_dir, sub_seed
 from reference import audio as RA
 from reference import encoders as RE
 from reference import fusion as RF
@@ -48,8 +48,8 @@ def _audio(config: dict, paths: List[str], device) -> torch.Tensor:
 
 
 def reference_embeddings(config, enc_w, paths, device, kinds=None):
-    return RE.clip_embeddings(enc_w, config, _audio(config, paths, device),
-                              kinds=kinds)
+    return RE.clip_embeddings(encoder(config), enc_w, config,
+                              _audio(config, paths, device), kinds=kinds)
 
 
 def inputs(run: Run, enc_w=None) -> Serving:

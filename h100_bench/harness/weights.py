@@ -1,82 +1,25 @@
 """Seeded random weights at the published widths, made on the device in
 one draw, under the names both the program and the reference load.
 
-Scales (the port's own random init, so the activations stay finite through
-every layer): convolutions uniform with the variance of normal /
-sqrt(fan_in); linear weights and biases uniform +-1/sqrt(fan_in); norms at
-1 and 0; the positional convolution's bias 0; Whisper's convolution biases
-0 and its sinusoid table. The fusion model: Xavier-uniform weights and zero
-biases in the projection, He-uniform in the detection head, +-1/sqrt(fan_in)
-in the fuse layer.
+The scales are the port's own random init, so the activations stay finite
+through every layer. An encoder's names, shapes and scales are its encoder
+file's ``weights`` (``encoders/<name>.py``): convolutions uniform with the
+variance of normal / sqrt(fan_in); linear weights and biases uniform
++-1/sqrt(fan_in); norms at 1 and 0; some biases 0 and fixed tables, as the
+file gives them. The fusion model: Xavier-uniform weights and zero biases
+in the projection, He-uniform in the detection head, +-1/sqrt(fan_in) in
+the fuse layer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from harness.common import sub_seed
-from reference.encoders import sinusoids
-
-Spec = List[Tuple[str, tuple, object]]  # (name, shape, bound | "ones" | "zeros" | tensor)
-
-
-def _wav2vec2(arch: dict) -> Spec:
-    spec: Spec = []
-    cin = 1
-    for i, (c, k) in enumerate(zip(arch["conv_dim"], arch["conv_kernel"])):
-        spec.append((f"conv_layers.{i}.kernel", (c, cin, k),
-                     math.sqrt(3.0 / (k * cin))))
-        if i == 0:
-            spec += [("conv_layers.0.norm_scale", (c,), "ones"),
-                     ("conv_layers.0.norm_bias", (c,), "zeros")]
-        cin = c
-    d, f, g = (arch["hidden_size"], arch["intermediate_size"],
-               arch["num_conv_pos_embedding_groups"])
-    k = arch["num_conv_pos_embeddings"]
-    spec += [("feat_proj.ln_scale", (cin,), "ones"),
-             ("feat_proj.ln_bias", (cin,), "zeros"),
-             ("feat_proj.kernel", (d, cin), 1 / math.sqrt(cin)),
-             ("feat_proj.bias", (d,), 1 / math.sqrt(cin)),
-             ("pos_conv.kernel", (d, d // g, k), math.sqrt(3.0 * g / (k * d))),
-             ("pos_conv.bias", (d,), "zeros"),
-             ("encoder_ln.scale", (d,), "ones"),
-             ("encoder_ln.bias", (d,), "zeros")]
-    for i in range(arch["num_hidden_layers"]):
-        spec += _layer(f"layers.{i}", d, f, key_bias=True)
-    return spec
-
-
-def _layer(pre: str, d: int, f: int, key_bias: bool) -> Spec:
-    b = 1 / math.sqrt(d)
-    names = ["qw", "qb", "kw"] + (["kb"] if key_bias else []) + [
-        "vw", "vb", "ow", "ob"]
-    spec: Spec = [(f"{pre}.attn.{n}", (d, d) if n.endswith("w") else (d,), b)
-                  for n in names]
-    for ln in ("ln1", "ln2"):
-        spec += [(f"{pre}.{ln}.scale", (d,), "ones"),
-                 (f"{pre}.{ln}.bias", (d,), "zeros")]
-    spec += [(f"{pre}.ffn.w1", (f, d), b), (f"{pre}.ffn.b1", (f,), b),
-             (f"{pre}.ffn.w2", (d, f), 1 / math.sqrt(f)),
-             (f"{pre}.ffn.b2", (d,), 1 / math.sqrt(f))]
-    return spec
-
-
-def _whisper(arch: dict) -> Spec:
-    d, f, m = arch["d_model"], arch["ffn_dim"], arch["num_mel_bins"]
-    spec: Spec = [("conv1.kernel", (d, m, 3), 1 / math.sqrt(3 * m)),
-                  ("conv1.bias", (d,), "zeros"),
-                  ("conv2.kernel", (d, d, 3), 1 / math.sqrt(3 * d)),
-                  ("conv2.bias", (d,), "zeros"),
-                  ("pos_embed", (arch["max_source_positions"], d),
-                   sinusoids(arch["max_source_positions"], d)),
-                  ("final_ln.scale", (d,), "ones"),
-                  ("final_ln.bias", (d,), "zeros")]
-    for i in range(arch["num_hidden_layers"]):
-        spec += _layer(f"layers.{i}", d, f, key_bias=False)
-    return spec
+from harness.common import encoder, sub_seed
+from reference.encoders import Spec
 
 
 def fusion_spec(d: int, hidden: int = 256, out: int = 128,
@@ -132,8 +75,7 @@ def make(spec: Spec, seed: int, device) -> Dict[str, torch.Tensor]:
 
 
 def encoder_weights(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    spec = (_wav2vec2 if config["encoder"] == "wav2vec2" else _whisper)(
-        config["architecture"])
+    spec = encoder(config).weights(config["architecture"])
     return make(spec, sub_seed(seed, "encoder"), device)
 
 
@@ -146,6 +88,5 @@ def fusion_weights(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
 
 
 def tpp_dim(config: dict) -> int:
-    arch = config["architecture"]
-    width = arch.get("hidden_size", arch.get("d_model"))
+    width = encoder(config).width(config["architecture"])
     return sum(config["pipeline"]["tpp_levels"]) * width

@@ -7,13 +7,17 @@ The cell (``BENCHMARK.json`` ``workloads``) names a configuration
 (``h100_bench/configs/<config>.json``) and a traffic mix
 (``h100_bench/traffic/<traffic>.json``), whose ``driver`` names the code
 that sets it up, runs the window and checks it (``drivers/<driver>.py``).
+The configuration's ``"encoder"`` names its encoder's weights, plain
+forward and operations (``encoders/<encoder>.py``) and is one of the port's
+kinds (``harness/program.py``).
 With ``--trace 0`` the cell's end-to-end metrics are reported; with
 ``--trace 1`` its per-layer metrics, each read by ``metrics/<name>.py``.
 The last line of standard output is the result, as JSON; the numbers
 compared to decide ``correct`` come last on standard error and under
 ``checks`` in the result. No result is printed, and the exit code is not 0,
-where CUDA is missing or has fewer devices than the cell asks for, or where
-JAX or the JAX package was loaded.
+where the encoder file or the port's encoder kind is missing, where CUDA is
+missing or has fewer devices than the cell asks for, or where JAX or the
+JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -33,16 +36,7 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [BENCH_DIR, os.path.dirname(BENCH_DIR)]
 
 from harness import common  # noqa: E402
-
-
-def load_module(kind: str, name: str):
-    path = os.path.join(BENCH_DIR, kind, f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"h100_bench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
-    return mod
+from harness.common import load_module  # noqa: E402
 
 
 def applies(metric: dict, cell: str) -> bool:
@@ -113,6 +107,15 @@ def main(argv=None) -> int:
     config = common.load_config(cell["config"])
     traffic = common.load_traffic(cell["traffic"])
     prepare_environment(config)
+    # a configuration the harness cannot build fails before any CUDA work
+    from harness import program
+
+    try:
+        common.encoder(config)
+        program.port_encoder(config["encoder"])
+    except (FileNotFoundError, ValueError) as e:
+        print(e, file=sys.stderr)
+        return 2
 
     import torch
 

@@ -1,5 +1,5 @@
-"""The harness's operation counts against counts made by hand at the
-published shapes."""
+"""The harness's operation counts, through each encoder file's interface,
+against counts made by hand at the published shapes."""
 
 import tiny  # noqa: F401  (puts the harness on the path)
 from flops import counts, peaks
@@ -20,8 +20,9 @@ def test_wav2vec2_base_segment_by_hand():
     pos = 2 * 99 * 768 * 48 * 128
     layer = 2 * 99 * (4 * 768 * 768 + 2 * 768 * 3072) + 4 * 99 * 99 * 768
     want = conv + proj + pos + 12 * layer
-    got = counts.wav2vec2_segment(_cfg("wav2vec2-base-itw-f32")
-                                  ["architecture"], 32_000)
+    cfg = _cfg("wav2vec2-base-itw-f32")
+    got = common.encoder(cfg).segment_flops(cfg["architecture"],
+                                            cfg["pipeline"])  # 32,000
     assert got == want
     # a 3 s clip is two 2 s windows at a 1 s hop: ~56 GFLOP
     assert counts.windows_per_clip(_cfg("wav2vec2-base-itw-f32")) == 2
@@ -35,7 +36,8 @@ def test_whisper_base_padded_segment_by_hand():
     layer = 2 * 1500 * (4 * 512 * 512 + 2 * 512 * 2048) + 4 * 1500 ** 2 * 512
     want = mel + convs + 6 * layer
     cfg = _cfg("whisper-base-itw-bf16")
-    assert counts.whisper_segment(cfg["architecture"], 32_000, 30.0) == want
+    assert common.encoder(cfg).segment_flops(cfg["architecture"],
+                                             cfg["pipeline"]) == want
     assert counts.attention_shape(cfg, 64) == (128, 1500, 8, 64)
     assert 170e9 < counts.encoder_flops(cfg) < 180e9
 

@@ -1,5 +1,6 @@
-"""The benchmark is data: every name in BENCHMARK.json finds its file, and
-nothing the harness runs imports JAX or the JAX package."""
+"""The benchmark is data: every name in BENCHMARK.json finds its file, every
+configuration its encoder file, and nothing the harness runs imports JAX or
+the JAX package."""
 
 import ast
 import os
@@ -50,6 +51,24 @@ def test_every_cell_finds_its_config_traffic_and_driver():
                    for m in bench["per_layer"])
 
 
+EXPORTS = ("weights", "features", "segment_flops", "attention", "width",
+           "TINY")
+
+
+def test_every_configuration_finds_its_encoder_file_and_its_exports():
+    from harness import program
+
+    for c in _bench()["configs"]:
+        cfg = common.load_config(c["name"])
+        enc = common.encoder(cfg)
+        assert os.path.dirname(enc.__file__) == os.path.join(
+            tiny.BENCH_DIR, "encoders"), c["name"]
+        for name in EXPORTS:
+            assert hasattr(enc, name), (c["name"], name)
+        assert set(enc.TINY) <= {"architecture", "pipeline"}
+        assert program.port_encoder(cfg["encoder"])
+
+
 def _imports(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
@@ -78,6 +97,15 @@ def test_the_reference_imports_nothing_of_the_program():
     for path in _py_files("reference"):
         for name in _imports(path):
             assert name in {"torch", "numpy", "wave", "math", "typing",
+                            "__future__", "reference"}, (path, name)
+
+
+def test_the_encoder_files_import_nothing_of_the_program():
+    files = list(_py_files("encoders"))
+    assert files
+    for path in files:
+        for name in _imports(path):
+            assert name in {"torch", "numpy", "math", "typing",
                             "__future__", "reference"}, (path, name)
 
 

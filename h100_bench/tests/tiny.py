@@ -1,7 +1,8 @@
 """Tiny configurations and a CPU run of a driver, for the harness's tests.
 
-The widths are cut far below the published ones: these runs check the
-harness's control flow and its comparison on the CPU, never a speed."""
+The widths are cut far below the published ones, as each encoder file's
+``TINY`` says: these runs check the harness's control flow and its
+comparison on the CPU, never a speed."""
 
 from __future__ import annotations
 
@@ -20,15 +21,8 @@ from harness import common  # noqa: E402
 
 def tiny_config(name: str) -> dict:
     cfg = copy.deepcopy(common.load_config(name))
-    if cfg["encoder"] == "wav2vec2":
-        cfg["architecture"].update(
-            hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
-            intermediate_size=64, conv_dim=[16] * 7,
-            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
-    else:
-        cfg["architecture"].update(d_model=32, num_hidden_layers=2,
-                                   num_attention_heads=4, ffn_dim=64)
-        cfg["pipeline"]["whisper_pad_seconds"] = None  # 100 frames
+    for part, cut in common.encoder(cfg).TINY.items():
+        cfg[part].update(cut)
     cfg["pipeline"].update(projection_hidden_dim=16, projection_output_dim=8,
                            batch_size=16)
     cfg.update(db_clips=8, index_rows=300)
