@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from radad_tpu_torch.models import encoder_common as C
+from radad_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,24 +114,26 @@ def feature_encoder(model: Wav2Vec2Model, waveform: torch.Tensor
                     ) -> torch.Tensor:
     """Strided conv stack: ``[B, T_samples]`` → ``[B, T_frames, C]``.
     First layer group-normed ("group") or every layer LN'd over channels
-    ("layer"), GELU after every conv, no padding."""
+    ("layer"), GELU after every conv, no padding. In a trace, one
+    ``radad.encoder.frontend`` span."""
     cfg = model.cfg
     x = waveform[:, None, :]  # [B, 1, T]
-    for i, layer in enumerate(model.conv_layers):
-        conv = (layer["kernel"], layer.get("bias"), cfg.conv_stride[i], 0)
-        if "norm_scale" not in layer:
-            x = C.conv1d_gelu(x, *conv)
-            continue
-        x = C.conv1d(x, *conv)  # one step a line, so each frees the last
-        if cfg.feat_extract_norm == "group":
-            x = C.instance_norm_channels(x, layer["norm_scale"],
-                                         layer["norm_bias"])
-            x = C.gelu_bias(x)
-        else:  # GELU on the normed [B, T, C], before the transpose back
-            x = C.layer_norm(x.transpose(1, 2), layer["norm_scale"],
-                             layer["norm_bias"])
-            x = C.gelu_bias(x).transpose(1, 2)
-    return x.transpose(1, 2)
+    with annotate("radad.encoder.frontend"):
+        for i, layer in enumerate(model.conv_layers):
+            conv = (layer["kernel"], layer.get("bias"), cfg.conv_stride[i], 0)
+            if "norm_scale" not in layer:
+                x = C.conv1d_gelu(x, *conv)
+                continue
+            x = C.conv1d(x, *conv)  # one step a line, so each frees the last
+            if cfg.feat_extract_norm == "group":
+                x = C.instance_norm_channels(x, layer["norm_scale"],
+                                             layer["norm_bias"])
+                x = C.gelu_bias(x)
+            else:  # GELU on the normed [B, T, C], before the transpose back
+                x = C.layer_norm(x.transpose(1, 2), layer["norm_scale"],
+                                 layer["norm_bias"])
+                x = C.gelu_bias(x).transpose(1, 2)
+        return x.transpose(1, 2)
 
 
 def positional_conv(model: Wav2Vec2Model, x: torch.Tensor) -> torch.Tensor:

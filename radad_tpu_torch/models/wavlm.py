@@ -14,7 +14,11 @@ forward, and every layer gates it from its own attention input:
   bias     = gate[b, t, h] * pos_bias[h, t, s]            → the logits
 
 The factored ``(gate, pos_bias)`` pair goes to the attention, where the
-fused kernel forms the bias in registers (``ops/attention.py``).
+fused kernel forms the bias in registers (``ops/attention.py``). The
+bucket matrix is built once for each frame count and device and kept on
+the model, so a forward copies nothing from the host. Spans (in a trace
+only): ``radad.wavlm.pos_bias`` around ``pos_bias`` in the forward's
+dtype, ``radad.wavlm.gate`` around each layer's gate.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 
 from radad_tpu_torch.models import encoder_common as C
 from radad_tpu_torch.models import wav2vec2 as W
+from radad_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +90,8 @@ def relative_position_buckets(seq_len: int, num_buckets: int,
 class WavLMModel(W.Wav2Vec2Model):
     """Frozen parameters of one WavLM encoder: the wav2vec2 skeleton, a
     ``gate`` dict per layer (``w [8, head_dim]``, ``b [8]``,
-    ``const [H]``) and ``rel_attn_embed [num_buckets, H]``."""
+    ``const [H]``) and ``rel_attn_embed [num_buckets, H]``; and the bucket
+    matrices ``position_bias`` has built, by (frames, device)."""
 
     def __init__(self, cfg: WavLMConfig):
         super().__init__(cfg)
@@ -96,6 +102,7 @@ class WavLMModel(W.Wav2Vec2Model):
                 "w": W._param(8, hd), "b": W._param(8),
                 "const": nn.Parameter(torch.ones(h), requires_grad=False)})
         self.rel_attn_embed = W._param(cfg.num_buckets, h)
+        self.buckets = {}  # (T, device) -> relative_position_buckets [T, T]
 
 
 def gated_bias_factors(x: torch.Tensor, gate_p, num_heads: int
@@ -104,20 +111,28 @@ def gated_bias_factors(x: torch.Tensor, gate_p, num_heads: int
     bias, from that layer's attention input ``x [B, T, D]``, in x's dtype
     (gru_rel_pos_const cast to it, as JAX's ``_gated_bias_factors``)."""
     b, t, d = x.shape
-    proj = C.linear(x.reshape(b, t, num_heads, d // num_heads), gate_p["w"],
-                    gate_p["b"])  # [B, T, H, 8]
-    gates = torch.sigmoid(proj.reshape(b, t, num_heads, 2, 4).sum(-1))
-    const = gate_p["const"].reshape(1, 1, num_heads).to(x.dtype)
-    return gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
+    with annotate("radad.wavlm.gate"):
+        proj = C.linear(x.reshape(b, t, num_heads, d // num_heads),
+                        gate_p["w"], gate_p["b"])  # [B, T, H, 8]
+        gates = torch.sigmoid(proj.reshape(b, t, num_heads, 2, 4).sum(-1))
+        const = gate_p["const"].reshape(1, 1, num_heads).to(x.dtype)
+        return gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
 
 
 def position_bias(model: WavLMModel, t: int) -> torch.Tensor:
-    """``pos_bias [H, T, T]`` for ``t`` frames."""
+    """``pos_bias [H, T, T]`` for ``t`` frames. The bucket matrix is copied
+    to the device on the first call for ``t`` there and kept in
+    ``model.buckets``."""
     cfg = model.cfg
-    buckets = torch.as_tensor(relative_position_buckets(
-        t, cfg.num_buckets, cfg.max_bucket_distance),
-        device=model.rel_attn_embed.device)
-    return model.rel_attn_embed[buckets].permute(2, 0, 1).contiguous()
+    table = model.rel_attn_embed
+    key = (t, table.device)
+    buckets = model.buckets.get(key)
+    if buckets is None:
+        buckets = model.buckets[key] = torch.as_tensor(
+            relative_position_buckets(t, cfg.num_buckets,
+                                      cfg.max_bucket_distance),
+            device=table.device)
+    return table[buckets].permute(2, 0, 1).contiguous()
 
 
 def encode(model: WavLMModel, waveform: torch.Tensor,
@@ -131,7 +146,8 @@ def encode(model: WavLMModel, waveform: torch.Tensor,
     enc_ln = model.encoder_ln
     if not cfg.do_stable_layer_norm:
         x = C.layer_norm(x, enc_ln["scale"], enc_ln["bias"], eps)
-    pos = position_bias(model, x.shape[1]).to(x.dtype)
+    with annotate("radad.wavlm.pos_bias"):
+        pos = position_bias(model, x.shape[1]).to(x.dtype)
     hidden = [x]
     tp = getattr(model, "tp", None)  # parallel/tp.py's shard
     for layer in model.layers:
