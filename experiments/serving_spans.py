@@ -16,7 +16,14 @@ benchmark's harness (``h100_bench/``) with its trace on, as
   ``gc:gen<N>``, so that the idle time it holds is named;
 * the device ms per call under the program's ``radad.embed``,
   ``radad.search`` and ``radad.model`` spans beside the harness's own
-  ``embed:``, ``search`` and ``model`` ranges around the same calls.
+  ``embed:``, ``search`` and ``model`` ranges around the same calls;
+* the batch decode's counters (``data.audio.decode_counts``) over the
+  whole run, warm-up included, where the program has them;
+* with ``--decode-times``, each batch decode's wall time on the host's
+  clock and, for its slowest calls, when each thread of the pool finished
+  its rows and the longest row, so that a slow call shows whether one
+  thread or every thread was late (no spans: ``data.audio._decode_row`` and
+  ``load_audio_batch`` are wrapped in this process only).
 
 ``--cost`` times ``utils.profiling.annotate`` per span entered and left,
 with no profiler on the thread and with ``torch.profiler`` (CPU and CUDA)
@@ -106,9 +113,75 @@ def gc_ranges() -> None:
     gc.callbacks.append(callback)
 
 
-def cell(name: str, seed: int, seconds: float) -> None:
+def decode_times():
+    """Wrap the batch decode and its per-row decode with host clock reads.
+    → a function that prints what they recorded; None where the program
+    has no batch decode."""
+    import statistics
+    import threading
+
+    from radad_tpu_torch.data import audio
+    from radad_tpu_torch.train import pipeline
+
+    if not hasattr(audio, "_decode_row"):
+        return None
+    calls, rows_ = [], []
+    row, batch = audio._decode_row, audio.load_audio_batch
+
+    def timed_row(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return row(*a, **k)
+        finally:
+            rows_.append((threading.get_ident(), t0, time.perf_counter()))
+
+    def timed_batch(paths, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return batch(paths, *a, **k)
+        finally:
+            calls.append((t0, time.perf_counter(), len(paths)))
+
+    audio._decode_row = timed_row
+    audio.load_audio_batch = pipeline.load_audio_batch = timed_batch
+
+    def show(slowest: int = 8) -> None:
+        pooled = sorted(c for c in calls if c[2] > 1)
+        if not pooled:
+            return
+        ms = [(t1 - t0) * 1e3 for t0, t1, _ in pooled]
+        q1, med, q3 = statistics.quantiles(ms, n=4)
+        print(f"decode calls of 2 rows or more: {len(ms)}, ms median "
+              f"{med:.3f} q1 {q1:.3f} q3 {q3:.3f} max {max(ms):.3f}; "
+              f"over 3x the median {sum(m > 3 * med for m in ms)}")
+        starts = [t0 for t0, _, _ in pooled]
+        by_call = [[] for _ in pooled]
+        for tid, t0, t1 in rows_:
+            i = bisect.bisect_right(starts, t0) - 1
+            if i >= 0 and t1 <= pooled[i][1]:
+                by_call[i].append((tid, t0, t1))
+        for i in sorted(range(len(pooled)), key=lambda i: -ms[i])[:slowest]:
+            c0 = pooled[i][0]
+            done = {}
+            for tid, t0, t1 in by_call[i]:
+                done[tid] = max(done.get(tid, 0.0), t1 - c0)
+            ends = sorted(1e3 * v for v in done.values())
+            longest = max(((t1 - t0) * 1e3 for _, t0, t1 in by_call[i]),
+                          default=0.0)
+            first = min(((t0 - c0) * 1e3 for _, t0, _ in by_call[i]),
+                        default=0.0)
+            print(f"  call at {c0:.3f} s: {ms[i]:.3f} ms, {pooled[i][2]} "
+                  f"rows, {len(done)} threads finished at ms "
+                  f"{[round(e, 2) for e in ends]}, longest row "
+                  f"{longest:.3f} ms, first row began {first:.3f} ms in")
+    return show
+
+
+def cell(name: str, seed: int, seconds: float,
+         times: bool = False) -> None:
     sys.path[:0] = [BENCH, ROOT]
     gc_ranges()
+    show = decode_times() if times else None
     import run as runner
     from harness import common
 
@@ -123,6 +196,13 @@ def cell(name: str, seed: int, seconds: float) -> None:
     metrics = runner.execute(bench, c, r)
     print(f"cell {name} seed {seed}: correct {r.correct}")
     report(r, metrics)
+    # the batch decode's counters, where the program has them
+    from radad_tpu_torch.data import audio
+    counts = getattr(audio, "decode_counts", None)
+    if counts is not None:
+        print(f"decode counts: {vars(counts)}")
+    if show is not None:
+        show()
 
 
 def report(r, metrics: dict) -> None:
@@ -193,11 +273,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--seconds", type=float, default=51.0)
     ap.add_argument("--cost", action="store_true")
+    ap.add_argument("--decode-times", action="store_true")
     args = ap.parse_args()
     if args.cost:
         cost()
     if args.cell:
-        cell(args.cell, args.seed, args.seconds)
+        cell(args.cell, args.seed, args.seconds, args.decode_times)
     return 0
 
 

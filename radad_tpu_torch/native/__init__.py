@@ -8,7 +8,7 @@ git-ignored ``radad_tpu_torch/build/libradad_audio.so``, and a library older
 than its source is rebuilt. ``load`` raises where there is no toolchain or
 the build fails, and ``radad_tpu_torch.data.audio`` then stays on its
 pure-Python decoder, as the JAX package does. The C calls release the GIL,
-so the thread-pool loader decodes in parallel.
+so the thread-pool loader and ``load_audio_batch`` decode in parallel.
 
 Run: ``from radad_tpu_torch.native import load; load().decode(path)``.
 """
@@ -90,6 +90,17 @@ class AudioNative:
             if n <= cap:
                 return out[:n].copy(), int(sr.value)
             cap = int(n)
+
+    def decode_into(self, path: str, out: np.ndarray):
+        """Decode at native rate into ``out`` (float32, contiguous): its
+        first min(n, len(out)) samples. → (n, sample_rate), with n the
+        clip's whole length, negative on failure."""
+        sr = ctypes.c_int(0)
+        n = self._lib.radad_decode_full(
+            path.encode(), out.ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)), out.shape[0],
+            ctypes.byref(sr))
+        return int(n), int(sr.value)
 
     def decode_fixed(self, path: str, target_len: int, target_sr: int):
         """Decode + resample + pad/truncate in one native call → float32

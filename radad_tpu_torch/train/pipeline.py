@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from radad_tpu_torch.config import Config
-from radad_tpu_torch.data.audio import load_audio
+from radad_tpu_torch.data.audio import load_audio, load_audio_batch
 from radad_tpu_torch.data.loader import iterate_batches
 from radad_tpu_torch.data.manifest import (Manifest, file_id,
                                            validate_no_leakage)
@@ -758,9 +758,10 @@ class DetectionPipeline:
         return ret
 
     @torch.inference_mode()
-    def _predict_tensors(self, waves: np.ndarray, exclude: List[int],
+    def _predict_tensors(self, waves, exclude: List[int],
                          lengths: Optional[List[int]], exclude_mode: str):
-        """Embed → retrieve (with the per-row unexcluded retry) → model.
+        """Embed → retrieve (with the per-row unexcluded retry) → model
+        of the host batch ``waves`` (an array or a tensor).
         → (logits, nlabels, dists, idx) tensors on the device.
 
         On a mesh the batch is padded to a multiple of the 'data' axis
@@ -770,13 +771,15 @@ class DetectionPipeline:
         hang the others), and the results are all-gathered over 'data'."""
         dev, k = self.device, self.config.top_k
         true_b = len(exclude)
+        waves = torch.as_tensor(waves)  # on the host; an array is shared
         if self.mesh is not None:
             waves, exclude, lengths = self._pad_serving_batch(
                 waves, exclude, lengths)
             local = self._data_slice(len(exclude))
             waves, exclude = waves[local], exclude[local]
             lengths = None if lengths is None else lengths[local]
-        audio = torch.as_tensor(waves, device=dev)
+        # one DMA where the batch is page-locked (predict_batch's)
+        audio = waves.to(dev, non_blocking=True)
         lens = (None if lengths is None
                 else torch.as_tensor(lengths, device=dev))
         with annotate("radad.embed"):
@@ -828,16 +831,16 @@ class DetectionPipeline:
         lo = self.mesh.coord(DATA_AXIS) * step
         return slice(lo, lo + step)
 
-    def _pad_serving_batch(self, waves: np.ndarray, exclude: List[int],
+    def _pad_serving_batch(self, waves, exclude: List[int],
                            lengths: Optional[List[int]]):
-        """A serving batch padded to a multiple of the 'data' axis with
-        zero audio, the -2 no-exclusion sentinel and length 1 (JAX
-        ``_pad_serving_batch``, pipeline.py:773-797); the caller slices the
-        results back."""
+        """A serving batch (a host tensor) padded to a multiple of the
+        'data' axis with zero audio, the -2 no-exclusion sentinel and
+        length 1 (JAX ``_pad_serving_batch``, pipeline.py:773-797); the
+        caller slices the results back."""
         pad = -len(exclude) % self.mesh.data
         if not pad:
             return waves, exclude, lengths
-        waves = np.pad(np.asarray(waves), ((0, pad), (0, 0)))
+        waves = torch.nn.functional.pad(waves, (0, 0, 0, pad))
         lengths = None if lengths is None else list(lengths) + [1] * pad
         return waves, list(exclude) + [-2] * pad, lengths
 
@@ -899,25 +902,28 @@ class DetectionPipeline:
         certificate and retry checks and the four copies to the host),
         payload assembly, batch size. The three stages run inside the spans
         ``radad.decode``, ``radad.device`` and ``radad.payload``
-        (``utils.profiling.annotate``)."""
+        (``utils.profiling.annotate``).
+
+        The clips are decoded on ``load_audio_batch``'s pool of threads
+        into one host batch, page-locked on CUDA, uploaded in one copy."""
         cfg = self.config
         t0 = time.perf_counter()
-        lengths = None
+        if cfg.max_duration is None:
+            width, duration = cfg.clip_samples, cfg.clip_duration
+        else:
+            width, duration = self._grid_pad(), cfg.max_duration
         with annotate("radad.decode"):
-            if cfg.max_duration is None:
-                waves = np.stack([
-                    load_audio(p, sample_rate=cfg.sample_rate,
-                               duration=cfg.clip_duration)
-                    for p in audio_paths])
-            else:
-                raw = [load_audio(p, sample_rate=cfg.sample_rate,
-                                  duration=cfg.max_duration, pad=False)
-                       for p in audio_paths]
-                waves = np.zeros((len(raw), self._grid_pad()), np.float32)
-                for row, w in enumerate(raw):
-                    waves[row, :len(w)] = w
-                lengths = [max(min(len(w), cfg.analysis_samples), 1)
-                           for w in raw]
+            # on CUDA the caching host allocator's block, which it hands
+            # out again only once the upload from it has completed
+            waves = torch.empty((len(audio_paths), width),
+                                dtype=torch.float32,
+                                pin_memory=self.device.type == "cuda")
+            lengths = load_audio_batch(
+                audio_paths, waves, sample_rate=cfg.sample_rate,
+                duration=duration, pad=cfg.max_duration is None)
+            if lengths is not None:
+                lengths = [max(min(n, cfg.analysis_samples), 1)
+                           for n in lengths]
             exclude = [file_id(p) for p in audio_paths]
         t_decode = time.perf_counter()
         with annotate("radad.device"):

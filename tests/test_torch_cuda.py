@@ -690,3 +690,66 @@ def test_ivf_search_on_card_matches_cpu(cuda, tmp_path, route, b):
         gd, wd = ((xx - qd[row]).square().sum(-1).sort().values
                   for xx in xs)
         assert float((gd - wd).abs().max()) <= tol, (row, gd, wd, tol)
+
+
+def test_predict_batch_uploads_its_page_locked_batch_on_card(cuda, tmp_path):
+    """``predict_batch`` on the card decodes into a page-locked batch and
+    uploads it with ``non_blocking=True``: the device tensor the encoder
+    is given equals ``torch.as_tensor`` of the serially decoded, stacked
+    clips; a second call, made as the first returns, on other clips of
+    the same shape gets its own clips."""
+    import numpy as np
+
+    from radad_tpu_torch.config import Config
+    from radad_tpu_torch.data import audio
+    from radad_tpu_torch.models.encoder import FrozenEncoder
+    from radad_tpu_torch.models.wav2vec2 import (Wav2Vec2Config,
+                                                 Wav2Vec2Model, init_params)
+    from radad_tpu_torch.train.pipeline import DetectionPipeline
+
+    arch = Wav2Vec2Config(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        intermediate_size=64, conv_dim=(16, 16, 16, 16),
+        conv_kernel=(10, 8, 4, 4), conv_stride=(5, 4, 4, 4),
+        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+    model = init_params(Wav2Vec2Model(arch),
+                        torch.Generator().manual_seed(0)).to(cuda).eval()
+    enc = FrozenEncoder(name="wav2vec2", model_name="tiny", arch_cfg=arch,
+                        model=model, pretrained=False, layers_to_use=(-2, -1))
+    cfg = Config().replace(data_root=str(tmp_path),
+                           vector_db_path=str(tmp_path / "vdb"),
+                           use_layer_norm=True, use_batch_norm=False)
+    pipe = DetectionPipeline(cfg, encoder=enc, device=cuda)
+    rng = np.random.default_rng(3)
+    paths = []
+    for i in range(16):
+        p = str(tmp_path / f"c{i}.wav")
+        audio.write_wav(p, rng.uniform(-0.5, 0.5, 48000 - 997 * i)
+                        .astype(np.float32))
+        paths.append(p)
+    given = []
+    inner = pipe._embed
+
+    def record(waves, lengths=None):
+        given.append(waves.clone())
+        return inner(waves, lengths)
+
+    pipe._embed = record
+    host = []
+    tensors = pipe._predict_tensors
+
+    def record_host(waves, *a):
+        host.append(waves.is_pinned())
+        return tensors(waves, *a)
+
+    pipe._predict_tensors = record_host
+    pinned = audio.decode_counts.pinned
+    for batch in (paths[:8], paths[8:]):
+        pipe.predict_batch(batch)
+    assert host == [True, True]
+    assert audio.decode_counts.pinned == pinned + 2
+    for batch, got in zip((paths[:8], paths[8:]), given):
+        want = torch.as_tensor(np.stack([audio.load_audio(p) for p in batch]),
+                               device=cuda)
+        assert got.device == want.device
+        assert torch.equal(got, want)

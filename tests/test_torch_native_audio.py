@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 import wave as wave_mod
+import zlib
 
 import numpy as np
 import pytest
@@ -203,3 +204,138 @@ def test_subprocess_loads_no_radad_tpu_library(tmp_path):
     libs = eval(proc.stdout.strip().splitlines()[-1])
     assert libs == [tnative.LIBRARY], libs
     assert not any(os.sep + "radad_tpu" + os.sep in lib for lib in libs)
+
+
+def _clip(tmp_path, case):
+    """One clip of ``case`` → its path (written as the case needs)."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    path = str(tmp_path / f"{case}.wav")
+    sig = 0.4 * np.sin(np.arange(56000) / 11.0) + 0.05 * rng.standard_normal(
+        56000)
+    if case in ("mono16", "python_parser"):
+        _write(path, _pcm16(sig[:48000]), 16000)
+    elif case == "long":  # 3.5 s: truncated
+        _write(path, _pcm16(sig), 16000)
+    elif case == "short":  # 1.25 s: padded
+        _write(path, _pcm16(sig[:20000]), 16000)
+    elif case == "stereo16":
+        _write(path, np.stack([_pcm16(sig[:48000]), _pcm16(-sig[:48000])],
+                              1), 16000, channels=2)
+    elif case == "mono24":
+        v = (np.clip(sig[:48000], -1, 1) * (2 ** 23 - 1)).astype(np.int32)
+        _write(path, np.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF],
+                              1).astype(np.uint8), 16000, sampwidth=3)
+    elif case == "mono8":
+        _write(path, ((np.clip(sig[:48000], -1, 1) + 1) * 127.5).astype(
+            np.uint8), 16000, sampwidth=1)
+    elif case == "float32":
+        from scipy.io import wavfile
+
+        wavfile.write(path, 16000, sig[:48000].astype(np.float32))
+    elif case == "resampled":  # 8 kHz
+        _write(path, _pcm16(sig[:24000]), 8000)
+    elif case == "missing":
+        path = str(tmp_path / "missing.wav")
+    elif case == "corrupt":
+        with open(path, "wb") as f:
+            f.write(b"RIFF\x00\x00\x00\x00WAVEnot a chunk at all")
+    elif case == "mp3_without_ffmpeg":
+        path = str(tmp_path / "clip.mp3")
+        with open(path, "wb") as f:
+            f.write(b"\xff\xfbnot really an mp3")
+    return path
+
+
+BATCH_CASES = ["mono16", "long", "short", "stereo16", "mono24", "mono8",
+               "float32", "resampled", "missing", "corrupt",
+               "mp3_without_ffmpeg", "python_parser", "same_path_twice",
+               "batch_of_1", "batch_of_64"]
+
+
+@pytest.mark.parametrize("case", BATCH_CASES)
+def test_load_audio_batch_equals_serial_load_audio(tmp_path, monkeypatch,
+                                                   case):
+    """Each row equals ``load_audio`` of its clip bit for bit, zeros past
+    its end: padded rows as ``np.stack`` of the padded clips gives them, and
+    unpadded ones (wider rows, as ``predict_batch``'s ``max_duration``
+    path uses) with the clip's length; the counters count the call."""
+    monkeypatch.setattr(taudio, "have_ffmpeg", lambda: False)
+    if case == "python_parser":
+        def no_toolchain():
+            raise RuntimeError("no C++ compiler")
+
+        monkeypatch.setattr(taudio, "_native", None)
+        monkeypatch.setattr(tnative, "load", no_toolchain)
+    base = _clip(tmp_path, "mono16")
+    if case == "same_path_twice":
+        paths = [base, _clip(tmp_path, "short"), base]
+    elif case == "batch_of_1":
+        paths = [_clip(tmp_path, "short")]
+    elif case == "batch_of_64":
+        cases = BATCH_CASES[:12]
+        paths = [_clip(tmp_path, cases[i % len(cases)]) for i in range(64)]
+    else:
+        paths = [base, _clip(tmp_path, case)]
+    for pad, extra in ((True, 0), (False, 123)):
+        width = 48000 + extra
+        want = [taudio.load_audio(p, sample_rate=16000, duration=3.0,
+                                  pad=pad) for p in paths]
+        out = np.full((len(paths), width), np.nan, np.float32)
+        before = dict(vars(taudio.decode_counts))
+        lengths = taudio.load_audio_batch(paths, out, sample_rate=16000,
+                                          duration=3.0, pad=pad)
+        after = vars(taudio.decode_counts)
+        stacked = np.zeros_like(out)
+        for r, w in enumerate(want):
+            stacked[r, :len(w)] = w
+        if pad:
+            assert lengths is None
+            np.testing.assert_array_equal(out[:, :48000], np.stack(want))
+        else:
+            assert lengths == [len(w) for w in want]
+        assert out.tobytes() == stacked.tobytes()
+        pooled = len(paths) if len(paths) > 1 and after["workers"] > 1 else 0
+        assert {k: after[k] - before[k] for k in
+                ("calls", "clips", "pooled", "pinned")} == {
+            "calls": 1, "clips": len(paths), "pooled": pooled, "pinned": 0}
+    if case == "python_parser":
+        assert taudio._native is False
+
+
+def test_load_audio_batch_refuses_a_batch_it_cannot_fill(tmp_path):
+    path = _clip(tmp_path, "mono16")
+    for bad in (np.zeros((1, 47999), np.float32),
+                np.zeros((2, 48000), np.float32),
+                np.zeros((1, 48000), np.float64),
+                np.zeros((1, 96000), np.float32)[:, ::2]):
+        with pytest.raises(ValueError, match="load_audio_batch needs"):
+            taudio.load_audio_batch([path], bad)
+
+
+def test_load_audio_batch_decodes_on_the_pool(tmp_path, monkeypatch):
+    """A call of two or more clips decodes its rows off the calling thread
+    on the pool, whose threads all start with it; a call of one stays on
+    the calling thread."""
+    import threading
+
+    paths = [_clip(tmp_path, "mono16")] * 37
+    seen = []
+    inner = taudio._decode_row
+
+    def recording(path, row, *a):
+        seen.append(threading.get_ident())
+        return inner(path, row, *a)
+
+    monkeypatch.setattr(taudio, "_decode_row", recording)
+    taudio.load_audio_batch(paths[:1], np.zeros((1, 48000), np.float32))
+    assert seen == [threading.get_ident()]
+    seen.clear()
+    taudio.load_audio_batch(paths, np.zeros((37, 48000), np.float32))
+    workers = taudio.decode_counts.workers
+    assert workers == min(len(os.sched_getaffinity(0)),
+                          taudio._MAX_DECODE_THREADS)
+    pool = {t.ident for t in threading.enumerate()
+            if t.name.startswith("radad-decode")}
+    assert len(pool) == workers
+    if workers > 1:
+        assert set(seen) <= pool

@@ -126,6 +126,120 @@ def test_predict_batch_per_row_wipe_retry(pair):
         tpipe.index = old
 
 
+def _serial_predict_batch(tpipe, paths, max_duration=None):
+    """``predict_batch``'s inputs and answers as it made them before it
+    decoded on a pool: ``load_audio`` a clip in turn, stacked."""
+    from radad_tpu_torch.data.audio import load_audio
+    from radad_tpu_torch.data.manifest import file_id
+
+    cfg = tpipe.config
+    lengths = None
+    if max_duration is None:
+        waves = np.stack([load_audio(p, sample_rate=cfg.sample_rate,
+                                     duration=cfg.clip_duration)
+                          for p in paths])
+    else:
+        raw = [load_audio(p, sample_rate=cfg.sample_rate,
+                          duration=max_duration, pad=False) for p in paths]
+        waves = np.zeros((len(raw), tpipe._grid_pad()), np.float32)
+        for row, w in enumerate(raw):
+            waves[row, :len(w)] = w
+        lengths = [max(min(len(w), cfg.analysis_samples), 1) for w in raw]
+    logits, nlabels, dists, idx = tpipe._predict_tensors(
+        waves, [file_id(p) for p in paths], lengths, "self")
+    answers = [tpipe._payload(float(logits[r]), idx[r].tolist(),
+                              nlabels[r].tolist(), dists[r].tolist())
+               for r in range(len(paths))]
+    return waves, lengths, answers
+
+
+def _recording_inputs(tpipe, monkeypatch):
+    """Record a copy of each batch and its lengths ``_predict_tensors``
+    is given."""
+    seen = []
+    inner = tpipe._predict_tensors
+
+    def record(waves, exclude, lengths, mode):
+        seen.append((np.array(waves, copy=True), lengths))
+        return inner(waves, exclude, lengths, mode)
+
+    monkeypatch.setattr(tpipe, "_predict_tensors", record)
+    return seen
+
+
+def _answer(o):
+    return {k: v for k, v in o.items() if k != "stage_ms"}
+
+
+@pytest.mark.parametrize("max_duration", [None, 2.5])
+def test_predict_batch_decode_equals_serial_decode(pair, monkeypatch,
+                                                   max_duration):
+    """The batch the device path is given, its lengths (the max_duration
+    path) and the answers equal those of the serial decode bit for bit;
+    the decode's counters count the call."""
+    from radad_tpu_torch.data import audio
+
+    _, tpipe, splits = pair
+    monkeypatch.setattr(tpipe, "config",
+                        tpipe.config.replace(max_duration=max_duration))
+    paths = list(splits["val"].paths[:5]) + [splits["train"].paths[0]] * 2
+    waves, lengths, want = _serial_predict_batch(tpipe, paths, max_duration)
+    seen = _recording_inputs(tpipe, monkeypatch)
+    before = dict(vars(audio.decode_counts))
+    got = tpipe.predict_batch(paths)
+    after = vars(audio.decode_counts)
+    (got_waves, got_lengths), = seen
+    assert got_waves.dtype == np.float32
+    assert got_waves.tobytes() == waves.tobytes()
+    assert got_lengths == lengths
+    assert [_answer(o) for o in got] == want
+    pooled = len(paths) if after["workers"] > 1 else 0
+    assert {k: after[k] - before[k] for k in
+            ("calls", "clips", "pooled", "pinned")} == {
+        "calls": 1, "clips": len(paths), "pooled": pooled, "pinned": 0}
+    # a second call of the shape, on other clips, uploads its own clips
+    other = list(splits["train"].paths[1:8])
+    waves, lengths, want = _serial_predict_batch(tpipe, other, max_duration)
+    seen.clear()
+    assert [_answer(o) for o in tpipe.predict_batch(other)] == want
+    (got_waves, got_lengths), = seen
+    assert got_waves.tobytes() == waves.tobytes()
+    assert got_lengths == lengths
+
+
+def test_predict_batch_calls_in_flight_never_share_a_batch(pair,
+                                                           monkeypatch):
+    """Two threads in ``predict_batch`` at once, each past its decode
+    before either reaches the device, on different clips of one batch
+    shape: each uploads its own clips and gets its own answers."""
+    _, tpipe, splits = pair
+    batches = [list(splits["val"].paths[:4]), list(splits["train"].paths[:4])]
+    want = [[_answer(o) for o in tpipe.predict_batch(b)] for b in batches]
+    inputs = [_serial_predict_batch(tpipe, b)[0].tobytes() for b in batches]
+    both = threading.Barrier(2, timeout=60)
+    inner = tpipe._predict_tensors
+    given = {}
+
+    def meet(waves, exclude, *a):
+        both.wait()  # both decoded, neither on the device yet
+        given[tuple(exclude)] = np.array(waves, copy=True).tobytes()
+        return inner(waves, exclude, *a)
+
+    monkeypatch.setattr(tpipe, "_predict_tensors", meet)
+    got = [None, None]
+
+    def call(i):
+        got[i] = [_answer(o) for o in tpipe.predict_batch(batches[i])]
+    threads = [threading.Thread(target=call, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert got == want
+    from radad_tpu_torch.data.manifest import file_id
+    assert [given[tuple(file_id(p) for p in b)] for b in batches] == inputs
+
+
 def test_checkpoint_and_db_roundtrip(pair, tmp_path):
     from radad_tpu_torch.train.pipeline import DetectionPipeline
 

@@ -76,30 +76,53 @@ def batched(pipe, paths, tmp_path_factory):
     profiler is started from inside its first call and stopped from inside
     its third, on the batcher's thread: the first call holds until three
     more requests are queued, so they go out as one call of 3 padded to 4
-    after the linger. → (spans, the three answers of call 2)."""
+    after the linger; the fifth is sent once the worker waits on its empty
+    queue again. Each step waits on an event of the batcher's thread, not
+    on a sleep. → (spans, the three answers of call 2)."""
     from radad_tpu_torch.serve.app import PredictBatcher
 
     trace = str(tmp_path_factory.mktemp("spans_trace") / "trace.json")
-    queued = threading.Event()
+    started, queued, idle = (threading.Event(), threading.Event(),
+                             threading.Event())
+    puts = threading.Semaphore(0)
     prof = {}
+    done = []
     inner = pipe.predict_batch
 
     def predict_batch(batch):
         if "on" not in prof:
             prof["on"] = profile(activities=[ProfilerActivity.CPU])
             prof["on"].start()
+            started.set()
             assert queued.wait(60)
         elif "done" not in prof and len(batch) == 1:
             prof["on"].stop()
             prof["on"].export_chrome_trace(trace)
             prof["done"] = True
-        return inner(batch)
+        out = inner(batch)
+        done.append(len(batch))
+        return out
 
     pipe.predict_batch = predict_batch
     batcher = PredictBatcher(pipe, max_batch=4, linger_ms=100.0)
+    put, get = batcher._q.put, batcher._q.get
+
+    def counted_put(item, *a, **kw):
+        put(item, *a, **kw)
+        puts.release()
+
+    def watched_get(block=True, timeout=None):
+        # the worker's wait on an empty queue after the second call
+        if block and timeout is None and len(done) == 2:
+            idle.set()
+        return get(block, timeout)
+
+    batcher._q.put, batcher._q.get = counted_put, watched_get
     try:
         first = threading.Thread(target=batcher.predict, args=(paths[0],))
         first.start()
+        # the worker holds the first request alone before the others come
+        assert started.wait(60)
         out = [None] * 3
 
         def send(i):
@@ -107,13 +130,11 @@ def batched(pipe, paths, tmp_path_factory):
         three = [threading.Thread(target=send, args=(i,)) for i in range(3)]
         for t in three:
             t.start()
-        deadline = time.monotonic() + 60
-        while batcher._q.qsize() < 3 and time.monotonic() < deadline:
-            time.sleep(0.005)
+        assert all(puts.acquire(timeout=60) for _ in range(4))
         queued.set()
         for t in [first] + three:
             t.join(60)
-        time.sleep(0.05)  # the worker back in its wait on an empty queue
+        assert idle.wait(60)
         batcher.predict(paths[4])
     finally:
         batcher.close()
@@ -257,3 +278,53 @@ def test_linger_deadline_reads_the_monotonic_clock(pipe, paths,
     # the straggler, sent 0.1 s into a 1 s linger, joined the second call
     assert sizes == [1, 4]
     assert results.qsize() == 4
+
+
+def test_pooled_decode_stays_in_one_span_on_the_calling_thread(
+        pipe, paths, monkeypatch):
+    """With the batch decode on its pool, ``radad.decode`` is one span on
+    the calling thread that opens before the first row's decode starts and
+    closes after the last one ends; no span opens on a pool thread."""
+    import contextlib
+
+    from radad_tpu_torch.data import audio
+    from radad_tpu_torch.train import pipeline as pl
+    from radad_tpu_torch.utils import profiling
+
+    events = []  # (what, thread, start, end)
+
+    @contextlib.contextmanager
+    def recording_annotate(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            events.append((name, threading.get_ident(), t0,
+                           time.perf_counter()))
+
+    inner = audio._decode_row
+
+    def recording_row(*a):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a)
+        finally:
+            events.append(("row", threading.get_ident(), t0,
+                           time.perf_counter()))
+
+    monkeypatch.setattr(pl, "annotate", recording_annotate)
+    monkeypatch.setattr(profiling, "annotate", recording_annotate)
+    monkeypatch.setattr(audio, "_decode_row", recording_row)
+    before = audio.decode_counts.pooled
+    batch = (paths * 2)[:9]
+    pipe.predict_batch(batch)
+    me = threading.get_ident()
+    rows = [e for e in events if e[0] == "row"]
+    spans = [e for e in events if e[0] != "row"]
+    assert len(rows) == len(batch)
+    assert all(e[1] == me for e in spans)
+    (decode,) = [e for e in spans if e[0] == "radad.decode"]
+    assert all(decode[2] <= r[2] and r[3] <= decode[3] for r in rows)
+    if audio.decode_counts.workers > 1:
+        assert audio.decode_counts.pooled - before == len(batch)
+        assert all(r[1] != me for r in rows)
