@@ -749,10 +749,10 @@ def _exact_dot_form_call(torch, q, x, cidx, form: str):
     """A call of exact_dot's C entry with the form given (the wrapper picks
     the form by shape; this checks and times the other one beside it)."""
     from radad_tpu_torch.ops import _native
-    from radad_tpu_torch.ops.rerank import _X_KIND, FORMS, _entry
+    from radad_tpu_torch.ops.rerank import _X_KIND, FORMS
 
     out = torch.empty(cidx.shape, dtype=torch.float32, device=q.device)
-    fn = _entry()
+    fn = _native.library("exact_dot").radad_exact_dot
 
     def call():
         _native.check_launch("exact_dot", fn(
@@ -1265,8 +1265,6 @@ def _bf16_form_call(qkv, h, extra, form: str):
     wrapper picks the form by shape; this times the other one beside it):
     "streamed", "resident", or "resident_mma" (the resident form's
     mma.sync kernel also at head width 64 without bias)."""
-    import ctypes
-
     import torch
 
     from radad_tpu_torch.ops import _native
@@ -1276,9 +1274,6 @@ def _bf16_form_call(qkv, h, extra, form: str):
     b, t, d = q.shape
     out = torch.empty_like(q)
     fn = _native.library("fused_mha").radad_fused_mha_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     gate, pos = extra.get("gate"), extra.get("pos_bias")
 
     def call():
@@ -2163,9 +2158,10 @@ def stage_ms(torch, pipe, paths, reps=5):
     """Median milliseconds per stage of one predict_batch's work on
     ``paths``, each stage ended by a device synchronize: decode, embed
     (segment + encoder + TPP), search, neighbor gather, fusion model. An
-    SQ8 or IVF pipeline's search stage is its own dispatch (``_retrieve``
-    as predict_batch calls it: ``retrieve_on_device_sq8``, or IVF's gather
-    route or unprobed search), neighbors included (no gather stage)."""
+    SQ8 or IVF pipeline's search stage is its index's ``retrieve``
+    (``_retrieve`` as predict_batch calls it: ``retrieve_on_device_sq8``,
+    or IVF's gather route or unprobed search), neighbors included (no
+    gather stage)."""
     import numpy as np
 
     from radad_tpu_torch.data.audio import load_audio
@@ -2174,7 +2170,7 @@ def stage_ms(torch, pipe, paths, reps=5):
     from radad_tpu_torch.ops.gather import gather_rows
 
     cfg, ix = pipe.config, pipe.index
-    # SQ8 and IVF: the pipeline's own dispatch, neighbors included
+    # SQ8 and IVF: the index's retrieve, neighbors included
     fused = pipe.is_quantized or ix.metric == "IVF"
     stages = (("decode", "embed", "search", "model") if fused
               else ("decode", "embed", "search", "gather", "model"))
@@ -4471,7 +4467,7 @@ def _case_serve(torch, mesh, job, sizes=(8, 64)):
     hold to the f64 scan and to the one-device fusion model; call ms;
     one B = 64 call's collectives."""
     pipe = _mesh_pipeline(torch, mesh, job)
-    out = {"rows_a_rank": int(pipe._shard["vectors"].shape[0])}
+    out = {"rows_a_rank": int(pipe.sharded.vectors.shape[0])}
     for b in sizes:
         paths = job["sets"][b]
         outs, ms = _timed_serve(torch, pipe, paths, 3)
@@ -4524,7 +4520,7 @@ def _table_from_flat(torch, job):
 
 
 def _searched(torch, pipe, paths, mode):
-    """The sharded search (``_retrieve_mesh``) of ``paths``' embeddings on
+    """The sharded search (the rank's ``ShardedIndex``) of ``paths``' embeddings on
     this mesh, gathered over 'data', and the same embeddings."""
     from radad_tpu_torch.data.manifest import file_id
     from radad_tpu_torch.parallel.sharded_index import ShardedRetrieval
@@ -4558,9 +4554,9 @@ def _case_sq8(torch, mesh, job):
         pipe.index.add(table[0], table[1], table[2], ids=table[3])
         pipe._place_index_on_mesh()
         rec = {"build_s": time.perf_counter() - t0,
-               "rows_a_rank": int(pipe._shard["codes"].shape[0])}
+               "rows_a_rank": int(pipe.sharded.codes.shape[0])}
         ix, dev = pipe.index, pipe.device  # the index itself on the host
-        cap = pipe._shard["codes"].shape[0] * mesh.index
+        cap = pipe.sharded.codes.shape[0] * mesh.index
         host = [pad_rows(t, cap, f) for t, f in (
             (ix.codes, 0), (ix.scales, 0), (ix.norm_sq, 0), (ix.labels, 0),
             (ix.ids, -1))]
@@ -4616,11 +4612,11 @@ def _case_ivf(torch, mesh, job):
     pipe.index.add(table[0], table[1], table[2], ids=table[3])
     pipe._place_index_on_mesh()
     ix, dev, k = pipe.index, pipe.device, cfg.top_k  # ix on the host
-    rows = int(pipe._shard["vectors"].shape[0])
+    rows = int(pipe.sharded.vectors.shape[0])
     cap = rows * mesh.index
     nprobe = min(ix.nprobe, ix.centroids.shape[0])
-    budget = pipe._mesh_gather_budget(nprobe)
-    w = int(pipe._mesh_ivf["chunk_rows"].shape[1])
+    budget = pipe.sharded.gather_budget(nprobe)
+    w = int(pipe.sharded.chunk_rows.shape[1])
     out = {"build_s": time.perf_counter() - t0, "rows_a_rank": rows,
            "budget": budget, "chunk": w}
     cells = pad_rows(ix.cells, cap)

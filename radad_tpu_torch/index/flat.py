@@ -44,6 +44,11 @@ takes the masked route: the probe mask joins the certified search's mask.
 IVF keeps the certified route under ``use_pallas``, as in JAX
 (``flat_topk`` has no probe mask).
 
+``FlatIndex.retrieve`` is the pipeline's search: ``retrieve_on_device``
+(the search above plus the neighbor rows and labels), or on the predict
+paths of an IVF index the chunked gather route under the JAX pipeline's
+own gate; it counts every search it runs.
+
 Persistence writes the JAX package's files (``index_arrays.npz``,
 ``index_meta.json``, ``index_host.pkl``), so an index saved by either
 package loads in the other. Paths and metadata stay host-side.
@@ -496,6 +501,39 @@ class FlatIndex:
         self.count_gather_search(fell_back)
         return dists.cpu().numpy(), idx.cpu().numpy().astype(np.int64)
 
+    def retrieve(self, tpp, exclude_ids, *, k: int,
+                 exclude_mode: str = "batch", serving: bool = False):
+        """Search + neighbors on the device, counted → (neighbors [B, k, D]
+        f32, labels [B, k], dists [B, k], idx [B, k]), as the JAX package's
+        single-device dispatch (``radad_tpu/train/pipeline.py:660-689``).
+        IVF with ``serving`` (the predict paths) takes the chunked gather
+        route when 2 B budget chunk < n; everything else (train, eval,
+        larger predict batches) is ``retrieve_on_device`` without the
+        centroids: the search over every row, unprobed."""
+        if (serving and self.metric == "IVF"
+                and self.ivf_chunk_rows is not None):
+            from radad_tpu_torch.index.ivf_gather import (
+                retrieve_on_device_ivf_gather_chunked)
+
+            nprobe = min(self.nprobe, self.ivf_cell_chunks.shape[0])
+            budget = self.chunk_budget(nprobe)
+            if 2 * tpp.shape[0] * budget * self.ivf_chunk_rows.shape[1] \
+                    < self.n:
+                *out, fell_back = retrieve_on_device_ivf_gather_chunked(
+                    tpp, self.vectors, self.norms_sq, self.labels, self.ids,
+                    exclude_ids, self.centroids, self.ivf_chunk_rows,
+                    self.ivf_cell_chunks, self.cells, k=k, nprobe=nprobe,
+                    budget=budget, n_valid=self.n, exclude_mode=exclude_mode)
+                self.count_gather_search(fell_back)
+                return tuple(out)
+        *out, fell_back = retrieve_on_device(
+            tpp, self.vectors, self.labels, self.ids, exclude_ids, k=k,
+            metric=self.metric, n_valid=self.n, xsq=self.norms_sq,
+            scan_bf16=self.scan_bf16, resid_bf16=self.resid_bf16,
+            exclude_mode=exclude_mode, use_pallas=self.use_pallas)
+        self.count_search(fell_back)
+        return tuple(out)
+
     def count_search(self, fell_back: bool) -> None:
         self.searches += 1
         self.fallbacks += int(fell_back)
@@ -847,3 +885,29 @@ def _search_device(q, vectors, ids, exclude_ids, k, *, metric, n_valid, xsq,
         return dists, idx, False
     dists, idx = _full_scan(q, vectors, xsq, mask, k, larger_better)
     return dists, idx, True
+
+
+def retrieve_on_device(tpp, vectors, labels, ids, exclude_ids, *, k, metric,
+                       n_valid, xsq, scan_bf16, resid_bf16=None,
+                       exclude_mode="batch", use_pallas=False):
+    """Search (certified, or ``flat_topk`` + re-rank with ``use_pallas``) +
+    neighbor/label gather (JAX ``train/pipeline.py::retrieve_on_device``).
+    → (neighbors [B, k, D] f32, labels [B, k], dists [B, k], idx [B, k],
+    fell_back). Missing neighbors are zero vectors with label 0 and index
+    -1 (reference pipeline.py:511-515)."""
+    q = tpp
+    if metric == "COSINE":
+        q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    dists, idx, fell_back = _search_device(
+        q, vectors, ids, exclude_ids, k, metric=metric, n_valid=n_valid,
+        xsq=xsq, scan_bf16=scan_bf16, resid_bf16=resid_bf16,
+        exclude_mode=exclude_mode, use_pallas=use_pallas)
+    safe = idx.clamp_min(0).to(torch.int32)
+    d = vectors.shape[-1]
+    neighbors = gather_rows(vectors, safe.reshape(-1)).float()
+    neighbors = neighbors.reshape(idx.shape + (d,))
+    ok = idx >= 0
+    neighbors = torch.where(ok[..., None], neighbors,
+                            torch.zeros_like(neighbors))
+    nlabels = torch.where(ok, labels[safe.long()], torch.zeros_like(dists))
+    return neighbors, nlabels, dists, idx, fell_back

@@ -294,3 +294,32 @@ def _masked_probed_scan(q, qsq, vectors, xsq, ids, exclude_ids, probe, cells,
     s2 = -(qsq[:, None] - 2.0 * qx2 + xsq[ci])
     top, p = top_k_stable(s2.masked_fill(~torch.isfinite(cs), NEG_INF), kk)
     return top, ci.gather(1, p)
+
+
+def retrieve_on_device_ivf_gather_chunked(
+        tpp, vectors, xsq, labels, ids, exclude_ids, centroids, chunk_rows,
+        cell_chunks, cells, *, k, nprobe, budget, n_valid,
+        exclude_mode="batch"):
+    """``ivf_gather_search_chunked`` + the neighbor rows and labels, with
+    ``flat.retrieve_on_device``'s output contract (missing neighbors are
+    zero vectors with label 0, distance +inf and index -1). → (neighbors,
+    nlabels, dists, idx, fell_back)."""
+    dists, idx, fell_back = ivf_gather_search_chunked(
+        tpp, vectors, xsq, ids, exclude_ids, centroids, chunk_rows,
+        cell_chunks, cells, k, nprobe=nprobe, budget=budget,
+        n_valid=n_valid, exclude_mode=exclude_mode)
+    return _gathered_to_neighbors(vectors, labels, dists, idx) + (fell_back,)
+
+
+def _gathered_to_neighbors(vectors, labels, dists, idx):
+    """Neighbor rows and labels of ``idx`` by ``index_select`` (JAX's XLA
+    take on this route, not the ``gather_rows`` kernel). → (neighbors
+    [B, k, D] f32, labels [B, k], dists, idx)."""
+    safe = idx.clamp_min(0).long()
+    neighbors = vectors.index_select(0, safe.reshape(-1)).float().reshape(
+        idx.shape + (vectors.shape[-1],))
+    ok = idx >= 0
+    neighbors = torch.where(ok[..., None], neighbors,
+                            torch.zeros_like(neighbors))
+    nlabels = torch.where(ok, labels[safe], torch.zeros_like(dists))
+    return neighbors, nlabels, dists, idx

@@ -224,7 +224,7 @@ def retrieve_on_device_sq8(tpp, codes, scales, norm_sq, labels, ids,
                            exclude_ids, *, k, metric, n_valid, accel=True,
                            exclude_mode="batch", centroids=None, cells=None,
                            codes2=None, scales2=None, rerank_depth=None):
-    """SQ8 retrieval with the contract of ``pipeline.retrieve_on_device``:
+    """SQ8 retrieval with the contract of ``flat.retrieve_on_device``:
     → (dequantized neighbors [B, k, D], labels [B, k], dists [B, k], idx
     [B, k]); a missing neighbor is a zero vector with label 0 and index
     -1."""
@@ -289,7 +289,7 @@ class QuantizedIndex:
         self._centroids_host: Optional[np.ndarray] = None
         self.paths: List[str] = []
         self.metadata: List[dict] = []
-        self.searches = 0  # searches run (counted by the caller)
+        self.searches = 0  # searches run (search, retrieve)
         self.fallbacks = 0  # always 0: no route falls back
 
     @property
@@ -303,6 +303,19 @@ class QuantizedIndex:
     def count_search(self, fell_back: bool = False) -> None:
         self.searches += 1
         self.fallbacks += int(fell_back)
+
+    def retrieve(self, tpp, exclude_ids, *, k: int,
+                 exclude_mode: str = "batch", serving: bool = False):
+        """``retrieve_on_device_sq8`` over the index, counted: ``FlatIndex.
+        retrieve``'s contract (``serving`` picks no route here)."""
+        del serving
+        out = retrieve_on_device_sq8(
+            tpp, self.codes, self.scales, self.norm_sq, self.labels,
+            self.ids, exclude_ids, k=k, metric=self.metric, n_valid=self.n,
+            accel=self.build_accel, exclude_mode=exclude_mode,
+            rerank_depth=self.rerank_depth, **self._arrays())
+        self.count_search()
+        return out
 
     def _arrays(self) -> dict:
         """The search arrays as ``_sq8_search``'s keyword arguments."""

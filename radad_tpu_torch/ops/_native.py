@@ -21,8 +21,22 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("gather_rows", "exact_dot", "extract_candidates", "fused_mha",
-           "flat_topk", "bias_gelu")
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# each library's C entries and their arguments, declared once at load;
+# every entry returns a cudaError code
+ENTRIES = {
+    "gather_rows": {"radad_gather_rows": [_P] * 3 + [_I64] * 3 + [_P]},
+    "exact_dot": {"radad_exact_dot": [_P] * 4 + [_I64] * 2 + [_I] * 4
+                  + [_P]},
+    "extract_candidates": {
+        "radad_extract_candidates": [_P] * 5 + [_I64] + [_I] * 3 + [_P]},
+    "fused_mha": {"radad_fused_mha": [_P] * 6 + [_I64] + [_I] * 3 + [_P],
+                  "radad_fused_mha_bf16": [_P] * 6 + [_I64] + [_I] * 4
+                  + [_P]},
+    "flat_topk": {"radad_flat_topk": [_P] * 7 + [_I] * 8 + [_P]},
+    "bias_gelu": {"radad_bias_gelu": [_P] * 3 + [_I64] * 3 + [_P]},
+}
+SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,12 +102,16 @@ def build(names: Iterable[str] = SOURCES) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``lib<name>.so``, built first if needed."""
+    """The loaded kernel library ``lib<name>.so``, built first if needed,
+    with its entries' signatures (``ENTRIES``) set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             _build_locked([name])
             lib = ctypes.CDLL(_paths(name)[1])
+            for entry, args in ENTRIES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = args, ctypes.c_int
             _libs[name] = lib
         return lib
 

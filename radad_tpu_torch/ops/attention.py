@@ -54,7 +54,6 @@ to both tolerances on the card.
 
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import Optional
 
@@ -186,9 +185,6 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn, extra = lib.radad_fused_mha_bf16, [_FORMS.index(form)]
     else:
         fn, extra = lib.radad_fused_mha, []
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
-                   + [ctypes.c_int] * (3 + len(extra)) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if gate is None else gate.data_ptr(),
             None if gate is None else pos_bias.data_ptr(), out.data_ptr(),

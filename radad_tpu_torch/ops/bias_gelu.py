@@ -19,7 +19,6 @@ ran op by op; ``reset_counts`` sets both to 0.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
@@ -99,10 +98,6 @@ def bias_gelu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                          f"elements needs 64-bit indices")
     piece = (_INT31 - 1) // period * period
     fn = _native.library("bias_gelu").radad_bias_gelu
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = _native.stream_of(x)
     bias_ptr = None if bias is None else bias.data_ptr()
     for start in range(0, n, piece):

@@ -12,8 +12,6 @@ stay ``[N, D]``, so there is no ``to_gather_layout``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from radad_tpu_torch.ops import _native
@@ -51,10 +49,6 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather_rows: row of {row_bytes} bytes is not "
                          f"a multiple of 2")
     fn = _native.library("gather_rows").radad_gather_rows
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rc = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes, m,
             _native.stream_of(x))
     _native.check_launch("gather_rows", rc)

@@ -16,8 +16,6 @@ order, so two calls on the same inputs give bitwise-equal dots.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from radad_tpu_torch.ops import _native
@@ -88,25 +86,14 @@ def exact_dot(q: torch.Tensor, x: torch.Tensor,
     if b == 0 or r == 0:
         return out
     form = exact_dot_form(b, r, d)
-    rc = _entry()(q.data_ptr(), x.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                  b, x.shape[0], d, r, kind, FORMS.index(form),
-                  _native.stream_of(q))
+    rc = _native.library("exact_dot").radad_exact_dot(
+        q.data_ptr(), x.data_ptr(), idx.data_ptr(), out.data_ptr(), b,
+        x.shape[0], d, r, kind, FORMS.index(form), _native.stream_of(q))
     _native.check_launch("exact_dot", rc)
     exact_dot.launches += 1
     exact_dot.form_launches[form] += 1
     exact_dot.kind_launches[KINDS[kind]] += 1
     return out
-
-
-def _entry():
-    """The C entry ``radad_exact_dot`` with its argument types."""
-    fn = _native.library("exact_dot").radad_exact_dot
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 exact_dot.launches = 0  # kernel launches (never the CPU plain version)

@@ -16,7 +16,6 @@ CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -97,10 +96,6 @@ def extract_candidates(cand: torch.Tensor, tsel: torch.Tensor, m: int,
     if b * t == 0:
         return vals, rows, left
     fn = _native.library("extract_candidates").radad_extract_candidates
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rc = fn(cand.data_ptr(), tsel.data_ptr(), vals.data_ptr(),
             rows.data_ptr(), left.data_ptr(), b, t, m, nt,
             _native.stream_of(cand))
@@ -251,9 +246,6 @@ def flat_topk(q: torch.Tensor, vectors: torch.Tensor, k: int, *,
                           dtype=torch.bfloat16, device=q.device)
               if fast_scan else None)
     fn = _native.library("flat_topk").radad_flat_topk
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rc = fn(q.data_ptr(), None if q_bf16 is None else q_bf16.data_ptr(),
             vectors.data_ptr(),
             None if ids is None else ids.data_ptr(),

@@ -50,9 +50,11 @@ from radad_tpu_torch.index.flat import probe_cells, probe_mask
 from radad_tpu_torch.index.ivf_gather import (build_chunk_table,
                                               default_chunk_budget,
                                               ivf_gather_search_chunked)
-from radad_tpu_torch.index.quantized import _dequantize, int8_scan
+from radad_tpu_torch.index.quantized import (QuantizedIndex, _dequantize,
+                                             int8_scan)
 from radad_tpu_torch.ops.topk import NEG_INF, top_k_stable
-from radad_tpu_torch.parallel.mesh import DATA_AXIS, INDEX_AXIS, Mesh
+from radad_tpu_torch.parallel.mesh import (DATA_AXIS, INDEX_AXIS, Mesh,
+                                           index_sharding)
 
 
 class ShardedRetrieval(NamedTuple):
@@ -416,11 +418,31 @@ def pad_rows(x, cap: int, fill=0):
     return np.pad(x, pad, constant_values=fill)
 
 
+def move_index(index, device) -> None:
+    """Every tensor of ``index`` (a ``FlatIndex`` or ``QuantizedIndex``) to
+    ``device``, which becomes the index's."""
+    device = torch.device(device)
+    for name, val in list(vars(index).items()):
+        if isinstance(val, torch.Tensor):
+            setattr(index, name, val.to(device))
+    index.device = device
+
+
 class ShardedIndex:
-    """A rank's block of a row-sharded flat index: the capacity padded to a
+    """A rank's block of a row-sharded index: the capacity padded to a
     multiple of the 'index' axis, each rank keeping its own rows (on the
-    mesh's device); with ``build_ivf``, the replicated coarse quantizer and
-    the rank's chunk tables."""
+    mesh's device); with IVF, the replicated coarse quantizer and the
+    rank's chunk tables. ``build`` / ``build_ivf`` take a whole table (JAX
+    ``ShardedIndex``); ``from_index`` takes the pipeline's index (JAX
+    ``_place_index_on_mesh``): flat, IVF, or SQ8 plain or residual.
+
+    ``retrieve`` is the index classes' (``FlatIndex.retrieve``): SQ8's
+    sharded search; IVF's gather route on the predict paths (``serving``)
+    where 2 b budget chunk < the rows of a shard, each rank deciding for
+    its own batch slice; otherwise the flat search, which with IVF masks
+    each query's unprobed cells at ``nprobe`` (on a mesh train and eval
+    probe too, unlike the single-device dispatch). A block made by
+    ``from_index`` counts its searches in that index."""
 
     def __init__(self, mesh: Mesh, dimension: int, metric: str = "L2"):
         self.mesh = mesh
@@ -428,23 +450,27 @@ class ShardedIndex:
         self.metric = metric.upper()
         self.n = 0
         self.vectors = self.labels = self.ids = self.row_valid = None
-        self.paths: list = []
+        self.norms_sq = None  # the rows' |x|^2 (None: from the rows)
+        self.codes = self.scales = self.norm_sq = None  # SQ8
         self.centroids = self.cells = None
+        self.nprobe = 32
         self.chunk_rows = self.cell_chunks = None
         self.n_valid_shard = 0
         self._budget_stats = None
+        self._budgets: dict = {}  # nprobe -> the budget every shard shares
+        self.host = None  # the index that counts the searches
 
     @property
     def num_shards(self) -> int:
         return self.mesh.index
 
-    def _local(self, arr: np.ndarray) -> torch.Tensor:
-        shard = self.mesh.coord(INDEX_AXIS)
-        rows = arr.shape[0] // self.num_shards
-        return torch.as_tensor(arr[shard * rows:(shard + 1) * rows].copy(),
-                               device=self.mesh.device)
+    def _local(self, x) -> torch.Tensor:
+        """This rank's row block of ``x`` (numpy or a tensor), copied onto
+        the mesh's device."""
+        return index_sharding(self.mesh, torch.as_tensor(x)).to(
+            self.mesh.device, copy=True)
 
-    def build(self, vectors: np.ndarray, labels, ids, paths=None) -> None:
+    def build(self, vectors: np.ndarray, labels, ids) -> None:
         """Every rank passes the whole table; each keeps its block."""
         vectors = np.asarray(vectors, np.float32)
         n, d = vectors.shape
@@ -460,16 +486,46 @@ class ShardedIndex:
         self.ids = self._local(pad_rows(np.asarray(ids, np.int32), cap, -1))
         self.row_valid = self._local(np.arange(cap) < n)
         self.n = n
-        self.paths = list(paths) if paths is not None else []
 
-    def retrieve(self, q, exclude_ids, k: int,
-                 exclude_mode: str = "batch") -> ShardedRetrieval:
-        if self.metric == "COSINE":
-            q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-        return sharded_retrieve(
-            self.mesh, q, self.vectors, self.labels, self.ids,
-            self.row_valid, exclude_ids, k=k, metric=self.metric,
-            exclude_mode=exclude_mode)
+    @classmethod
+    def from_index(cls, mesh: Mesh, index) -> "ShardedIndex":
+        """This rank's block of ``index`` (the same rows on every rank):
+        the capacity padded by ``shard_capacity`` to a multiple of
+        ``SQ8_SHARD_ROWS`` x the 'index' axis (padding rows have id -1),
+        the stored ``norms_sq`` as the scan's |x|^2, the IVF and
+        residual-SQ8 centroids whole, IVF's chunk tables. ``index`` then
+        moves to the host, where it serves saves and later adds, never a
+        search. Its rows were normalized at add, and JAX's mesh search
+        leaves a COSINE query as it is: COSINE searches as IP here."""
+        metric = {"IVF": "L2", "COSINE": "IP"}.get(index.metric,
+                                                   index.metric)
+        self = cls(mesh, index.dimension, metric)
+        cap = shard_capacity(index.ids.shape[0], mesh.index, SQ8_SHARD_ROWS)
+
+        def block(t, fill=0):
+            return self._local(pad_rows(t, cap, fill))
+
+        quantized = isinstance(index, QuantizedIndex)
+        if quantized:
+            self.codes, self.scales, self.norm_sq = (
+                block(index.codes), block(index.scales),
+                block(index.norm_sq))
+        else:
+            self.vectors = block(index.vectors)
+            self.norms_sq = block(index.norms_sq)
+        self.labels, self.ids = block(index.labels), block(index.ids, -1)
+        self.row_valid = self.ids >= 0
+        self.n = index.ntotal
+        self.host = index
+        if index.centroids is not None and quantized:
+            self.centroids = index.centroids.to(mesh.device, copy=True)
+            self.cells = block(index.cells)
+        elif index.centroids is not None:
+            self.nprobe = index.nprobe
+            self.build_ivf(index.centroids.cpu().numpy(),
+                           index.cells[: index.n].cpu().numpy())
+        move_index(index, "cpu")
+        return self
 
     def build_ivf(self, centroids: np.ndarray, cells: np.ndarray) -> None:
         """The replicated quantizer and this rank's chunk tables over the
@@ -490,9 +546,49 @@ class ShardedIndex:
         self.cell_chunks = self._local(cell_chunks)
         self.n_valid_shard = int(n_valid_shard[self.mesh.coord(INDEX_AXIS)])
         self._budget_stats = stats
+        self._budgets = {}
 
     def gather_budget(self, nprobe: int) -> int:
-        return gather_budget(self._budget_stats, nprobe)
+        if nprobe not in self._budgets:
+            self._budgets[nprobe] = gather_budget(self._budget_stats, nprobe)
+        return self._budgets[nprobe]
+
+    def _count(self, gather: bool = False, fell_back: bool = False) -> None:
+        if self.host is not None:
+            count = (self.host.count_gather_search if gather
+                     else self.host.count_search)
+            count(fell_back)
+
+    def retrieve(self, tpp, exclude_ids, *, k: int,
+                 exclude_mode: str = "batch",
+                 serving: bool = False) -> ShardedRetrieval:
+        """``tpp [b, D]`` and ``exclude_ids [b]``, the rank's batch slice →
+        its queries' (neighbors, labels, dists, indices), the same on every
+        rank of its index group (class docstring)."""
+        q = tpp
+        if self.metric == "COSINE":
+            q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        if self.codes is not None:
+            ret = sharded_retrieve_sq8(
+                self.mesh, q, self.codes, self.scales, self.norm_sq,
+                self.labels, self.ids, exclude_ids, k=k, metric=self.metric,
+                centroids=self.centroids, cells=self.cells,
+                exclude_mode=exclude_mode)
+            self._count()
+            return ret
+        if serving and self.chunk_rows is not None:
+            nprobe = min(self.nprobe, self.centroids.shape[0])
+            if (2 * q.shape[0] * self.gather_budget(nprobe)
+                    * self.chunk_rows.shape[1] < self.vectors.shape[0]):
+                return self.retrieve_gather(q, exclude_ids, k, nprobe,
+                                            exclude_mode)
+        ret = sharded_retrieve(
+            self.mesh, q, self.vectors, self.labels, self.ids,
+            self.row_valid, exclude_ids, k=k, metric=self.metric,
+            centroids=self.centroids, cells=self.cells, nprobe=self.nprobe,
+            exclude_mode=exclude_mode, xsq=self.norms_sq)
+        self._count()
+        return ret
 
     def retrieve_gather(self, q, exclude_ids, k: int, nprobe: int,
                         exclude_mode: str = "batch") -> ShardedRetrieval:
@@ -500,9 +596,11 @@ class ShardedIndex:
         candidates, each shard touching only its probed cells' chunks."""
         if self.chunk_rows is None:
             raise RuntimeError("build_ivf() before retrieve_gather()")
-        return sharded_retrieve_ivf_gather(
+        ret, scanned = sharded_retrieve_ivf_gather(
             self.mesh, q, self.vectors, self.labels, self.ids, exclude_ids,
             self.centroids, self.cells, self.chunk_rows, self.cell_chunks,
             self.n_valid_shard, k=k, nprobe=nprobe,
             budget=self.gather_budget(nprobe), metric=self.metric,
-            exclude_mode=exclude_mode)[0]
+            exclude_mode=exclude_mode, xsq=self.norms_sq)
+        self._count(gather=True, fell_back=scanned)
+        return ret

@@ -1,22 +1,24 @@
 """DetectionPipeline: DB build, training, evaluation, predict.
 
 Counterpart: ``radad_tpu/train/pipeline.py`` (``make_embed_fn``,
-``grid_cover_samples``, ``retrieve_on_device``, ``make_step_fns``,
-``DetectionPipeline``'s ``build_vector_database``, ``train``,
-``evaluate_with_scores``, ``evaluate``, ``load_vector_database``,
-``predict``, ``predict_batch``, ``save_models``, ``load_models``,
-``print_dataset_statistics``), with the SQ8 index
-(``index/quantized.py``: ``vector_db_index_type="SQ8"``, plain, residual
-or int4-refined; ``retrieve_on_device_sq8`` in serving and in the train
-step) and the IVF index (``retrieve_on_device_ivf_gather_chunked`` on the
-predict paths; see ``_retrieve``).
+``grid_cover_samples``, ``make_step_fns``, ``DetectionPipeline``'s
+``build_vector_database``, ``train``, ``evaluate_with_scores``,
+``evaluate``, ``load_vector_database``, ``predict``, ``predict_batch``,
+``save_models``, ``load_models``, ``print_dataset_statistics``), with the
+flat, IVF and SQ8 indexes (``vector_db_index_type``; SQ8 plain, residual
+or int4-refined). The pipeline picks the index kind and decides nothing
+about how it searches: every search is one call of the searcher's
+``retrieve`` (``_retrieve``): ``FlatIndex.retrieve`` (``index/flat.py``,
+with JAX's ``retrieve_on_device``, and IVF's chunked gather route on the
+predict paths), ``QuantizedIndex.retrieve`` (``index/quantized.py``) or,
+on a mesh, this rank's ``ShardedIndex`` (``parallel/sharded_index.py``).
 
 On a mesh (``DetectionPipeline(mesh=parallel.make_mesh(...))``) the
 pipeline runs SPMD, one process a rank, every rank called with the same
 arguments: the DB rows split over 'index' (each rank keeps its block on its
 device; the whole index stays on the host for saves and adds), batches
 over 'data' (each rank embeds, retrieves and steps on its slice), the
-search is ``parallel/sharded_index.py`` (no accelerator arrays, as JAX's
+search is the rank's ``ShardedIndex`` (no accelerator arrays, as JAX's
 ``build_accel = mesh is None``), the train step is the global batch's
 (``make_step_fns(mesh=...)``), and every rank returns the full results.
 Rank 0 alone writes files.
@@ -64,23 +66,15 @@ from radad_tpu_torch.data.audio import load_audio, load_audio_batch
 from radad_tpu_torch.data.loader import iterate_batches
 from radad_tpu_torch.data.manifest import (Manifest, file_id,
                                            validate_no_leakage)
-from radad_tpu_torch.index.flat import FlatIndex, _search_device
-from radad_tpu_torch.index.ivf_gather import (ivf_gather_search,
-                                              ivf_gather_search_chunked)
-from radad_tpu_torch.index.quantized import (QuantizedIndex,
-                                             retrieve_on_device_sq8)
+from radad_tpu_torch.index.flat import FlatIndex
+from radad_tpu_torch.index.quantized import QuantizedIndex
 from radad_tpu_torch.models.encoder import FrozenEncoder, build_encoder
 from radad_tpu_torch.models.fusion import build_radad_model
-from radad_tpu_torch.ops.gather import gather_rows
 from radad_tpu_torch.ops.segmenter import segment_audio
 from radad_tpu_torch.ops.tpp import temporal_pyramid_pool, tpp_output_dim
-from radad_tpu_torch.parallel.mesh import (DATA_AXIS, INDEX_AXIS,
-                                           all_reduce_sum, batch_sharding,
-                                           index_sharding)
-from radad_tpu_torch.parallel.sharded_index import (
-    SQ8_SHARD_ROWS, build_sharded_chunk_tables, gather_budget, pad_rows,
-    shard_capacity, sharded_retrieve, sharded_retrieve_ivf_gather,
-    sharded_retrieve_sq8)
+from radad_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce_sum,
+                                           batch_sharding)
+from radad_tpu_torch.parallel.sharded_index import ShardedIndex, move_index
 from radad_tpu_torch.train import metrics as M
 from radad_tpu_torch.train.artifacts import ArtifactWriter, WandbShim
 from radad_tpu_torch.train.checkpoint import (checkpoint_path,
@@ -129,72 +123,6 @@ def grid_cover_samples(samples: int, segment_samples: int,
     touches the first ``samples`` real samples."""
     n_win = max(1, -(-samples // hop_samples))
     return (n_win - 1) * hop_samples + segment_samples
-
-
-def retrieve_on_device(tpp, vectors, labels, ids, exclude_ids, *, k, metric,
-                       n_valid, xsq, scan_bf16, resid_bf16=None,
-                       exclude_mode="batch", use_pallas=False):
-    """Search (certified, or ``flat_topk`` + re-rank with ``use_pallas``) +
-    neighbor/label gather. → (neighbors [B, k, D] f32, labels [B, k],
-    dists [B, k], idx [B, k], fell_back). Missing neighbors are zero
-    vectors with label 0 and index -1 (reference pipeline.py:511-515)."""
-    q = tpp
-    if metric == "COSINE":
-        q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    dists, idx, fell_back = _search_device(
-        q, vectors, ids, exclude_ids, k, metric=metric, n_valid=n_valid,
-        xsq=xsq, scan_bf16=scan_bf16, resid_bf16=resid_bf16,
-        exclude_mode=exclude_mode, use_pallas=use_pallas)
-    safe = idx.clamp_min(0).to(torch.int32)
-    d = vectors.shape[-1]
-    neighbors = gather_rows(vectors, safe.reshape(-1)).float()
-    neighbors = neighbors.reshape(idx.shape + (d,))
-    ok = idx >= 0
-    neighbors = torch.where(ok[..., None], neighbors,
-                            torch.zeros_like(neighbors))
-    nlabels = torch.where(ok, labels[safe.long()], torch.zeros_like(dists))
-    return neighbors, nlabels, dists, idx, fell_back
-
-
-def retrieve_on_device_ivf_gather(tpp, vectors, xsq, labels, ids,
-                                  exclude_ids, centroids, table, overflow,
-                                  *, k, nprobe, exclude_mode="batch"):
-    """Gather-probed IVF retrieval over the span table
-    (``index/ivf_gather.py``): ``retrieve_on_device``'s output contract
-    (missing neighbors are zero vectors with label 0, distance +inf and
-    index -1), reading only the probed cells' rows."""
-    dists, idx = ivf_gather_search(
-        tpp, vectors, xsq, ids, exclude_ids, centroids, table, overflow, k,
-        nprobe=nprobe, exclude_mode=exclude_mode)
-    return _gathered_to_neighbors(vectors, labels, dists, idx)
-
-
-def retrieve_on_device_ivf_gather_chunked(
-        tpp, vectors, xsq, labels, ids, exclude_ids, centroids, chunk_rows,
-        cell_chunks, cells, *, k, nprobe, budget, n_valid,
-        exclude_mode="batch"):
-    """The same over the chunk table, with the dense masked probed scan
-    when the probed cells exceed ``budget`` chunks. → (neighbors, nlabels,
-    dists, idx, fell_back)."""
-    dists, idx, fell_back = ivf_gather_search_chunked(
-        tpp, vectors, xsq, ids, exclude_ids, centroids, chunk_rows,
-        cell_chunks, cells, k, nprobe=nprobe, budget=budget,
-        n_valid=n_valid, exclude_mode=exclude_mode)
-    return _gathered_to_neighbors(vectors, labels, dists, idx) + (fell_back,)
-
-
-def _gathered_to_neighbors(vectors, labels, dists, idx):
-    """Neighbor rows and labels of ``idx`` by ``index_select`` (JAX's XLA
-    take on this route, not the ``gather_rows`` kernel). → (neighbors
-    [B, k, D] f32, labels [B, k], dists, idx)."""
-    safe = idx.clamp_min(0).long()
-    neighbors = vectors.index_select(0, safe.reshape(-1)).float().reshape(
-        idx.shape + (vectors.shape[-1],))
-    ok = idx >= 0
-    neighbors = torch.where(ok[..., None], neighbors,
-                            torch.zeros_like(neighbors))
-    nlabels = torch.where(ok, labels[safe], torch.zeros_like(dists))
-    return neighbors, nlabels, dists, idx
 
 
 ACC_KEYS = ("loss_sum", "correct", "count", "nnz_sum", "gn_proj_sum",
@@ -363,16 +291,6 @@ def make_step_fns(model, opt: GroupAdam, retrieve, *, watch_grads=False,
                    eval_step)
 
 
-def _move_index(index, device) -> None:
-    """Every tensor of ``index`` (a ``FlatIndex`` or ``QuantizedIndex``) to
-    ``device``, which becomes the index's."""
-    device = torch.device(device)
-    for name, val in list(vars(index).items()):
-        if isinstance(val, torch.Tensor):
-            setattr(index, name, val.to(device))
-    index.device = device
-
-
 class DetectionPipeline:
     """Encoder → TPP → index → fusion model: DB build, training,
     evaluation and serving."""
@@ -408,9 +326,7 @@ class DetectionPipeline:
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.random_seed + (0 if mesh is None else mesh.rank))
         # on a mesh: this rank's block of the index (_place_index_on_mesh)
-        # and the sharded gather-probed IVF's chunk tables
-        self._shard: Optional[Dict[str, torch.Tensor]] = None
-        self._mesh_ivf: Optional[dict] = None
+        self.sharded: Optional[ShardedIndex] = None
         self._steps_fns: Optional[StepFns] = None
         # frozen-encoder embeddings, (hash(paths), len) -> [N, D] on the
         # device (config.cache_embeddings)
@@ -569,7 +485,7 @@ class DetectionPipeline:
         on its device, rank 0 saves (then a barrier), and each rank keeps
         its block (``_place_index_on_mesh``)."""
         if self.mesh is not None:
-            _move_index(self.index, self.device)
+            move_index(self.index, self.device)
         self.index.add(vectors, manifest.labels.tolist(),
                        list(manifest.paths), metadata=speakers,
                        ids=manifest.ids.tolist())
@@ -602,64 +518,11 @@ class DetectionPipeline:
         return len(sub)
 
     def _place_index_on_mesh(self) -> None:
-        """On a mesh: this rank's row block of the index on its device (JAX
-        ``_place_index_on_mesh``, pipeline.py:444-475), the capacity padded
-        by ``shard_capacity`` to a multiple of ``SQ8_SHARD_ROWS`` x the
-        'index' axis (padding rows have id -1); the IVF and
-        residual-SQ8 centroids whole; IVF's per-shard chunk tables
-        (``_build_mesh_ivf_tables``). The whole index then moves to the
-        host, where it serves saves and later adds, never a search."""
-        if self.mesh is None or self.index.ntotal == 0:
-            return
-        ix, mesh = self.index, self.mesh
-        cap = shard_capacity(ix.ids.shape[0], mesh.index, SQ8_SHARD_ROWS)
-
-        def block(t, fill=0):
-            return index_sharding(mesh, pad_rows(t, cap, fill)).to(
-                self.device, copy=True)
-
-        if self.is_quantized:
-            sh = dict(codes=block(ix.codes), scales=block(ix.scales),
-                      norm_sq=block(ix.norm_sq))
-        else:
-            sh = dict(vectors=block(ix.vectors), norms_sq=block(ix.norms_sq))
-        sh.update(labels=block(ix.labels), ids=block(ix.ids, -1))
-        self._mesh_ivf = None
-        if ix.centroids is not None:  # IVF, or residual SQ8
-            sh.update(centroids=ix.centroids.to(self.device, copy=True),
-                      cells=block(ix.cells))
-            if not self.is_quantized:
-                cells = np.zeros((cap,), np.int32)
-                cells[: ix.n] = ix.cells[: ix.n].cpu().numpy()
-                self._build_mesh_ivf_tables(cells)
-        self._shard = sh
-        _move_index(ix, "cpu")
-
-    def _build_mesh_ivf_tables(self, cells: np.ndarray) -> None:
-        """The sharded gather-probed IVF search's chunk tables (JAX
-        ``_build_mesh_ivf_tables``, pipeline.py:477-501), built on the host
-        from the capacity-padded cells; this rank keeps its shard's, and
-        every shard's statistics for the one budget all ranks share."""
-        mesh = self.mesh
-        chunk_rows, cell_chunks, n_valid_shard, stats = (
-            build_sharded_chunk_tables(cells, self.index.n,
-                                       int(self.index.centroids.shape[0]),
-                                       mesh.index))
-        self._mesh_ivf = {
-            "chunk_rows": index_sharding(
-                mesh, torch.as_tensor(chunk_rows)).to(self.device),
-            "cell_chunks": index_sharding(
-                mesh, torch.as_tensor(cell_chunks)).to(self.device),
-            "n_valid_shard": int(n_valid_shard[mesh.coord(INDEX_AXIS)]),
-            "stats": stats,
-            "budgets": {},  # nprobe -> the budget (JAX _mesh_gather_budget)
-        }
-
-    def _mesh_gather_budget(self, nprobe: int) -> int:
-        budgets = self._mesh_ivf["budgets"]
-        if nprobe not in budgets:
-            budgets[nprobe] = gather_budget(self._mesh_ivf["stats"], nprobe)
-        return budgets[nprobe]
+        """On a mesh: this rank's block of the index, the searcher
+        (``ShardedIndex.from_index``; the whole index moves to the
+        host)."""
+        if self.mesh is not None and self.index.ntotal:
+            self.sharded = ShardedIndex.from_index(self.mesh, self.index)
 
     # ------------------------------------------------------------------
     @property
@@ -668,94 +531,15 @@ class DetectionPipeline:
 
     def _retrieve(self, tpp, exclude, exclude_mode,
                   prefer_ivf_gather: bool = False):
-        """Search + neighbors by index kind → (neighbors, nlabels, dists,
-        idx).
-
-        IVF, as the JAX package's single-device dispatch
-        (``radad_tpu/train/pipeline.py:660-689``): the predict paths
-        (``prefer_ivf_gather``) take the chunked gather route when
-        2 B budget chunk < n; everything else (train, eval, larger predict
-        batches) takes ``retrieve_on_device`` without the centroids, the
-        certified search over every row, unprobed. On a mesh:
-        ``_retrieve_mesh``."""
-        if self.mesh is not None:
-            return self._retrieve_mesh(tpp, exclude, exclude_mode,
-                                       prefer_ivf_gather)
-        ix = self.index
-        if self.is_quantized:
-            out = retrieve_on_device_sq8(
-                tpp, ix.codes, ix.scales, ix.norm_sq, ix.labels, ix.ids,
-                exclude, k=self.config.top_k, metric=ix.metric,
-                n_valid=ix.ntotal, accel=ix.build_accel,
-                exclude_mode=exclude_mode, centroids=ix.centroids,
-                cells=ix.cells, codes2=ix.codes2, scales2=ix.scales2,
-                rerank_depth=ix.rerank_depth)
-            ix.count_search()
-            return out
-        if (prefer_ivf_gather and ix.metric == "IVF"
-                and ix.ivf_chunk_rows is not None):
-            nprobe = min(ix.nprobe, ix.ivf_cell_chunks.shape[0])
-            budget = ix.chunk_budget(nprobe)
-            if 2 * tpp.shape[0] * budget * ix.ivf_chunk_rows.shape[1] \
-                    < ix.ntotal:
-                out = retrieve_on_device_ivf_gather_chunked(
-                    tpp, ix.vectors, ix.norms_sq, ix.labels, ix.ids,
-                    exclude, ix.centroids, ix.ivf_chunk_rows,
-                    ix.ivf_cell_chunks, ix.cells, k=self.config.top_k,
-                    nprobe=nprobe, budget=budget, n_valid=ix.ntotal,
-                    exclude_mode=exclude_mode)
-                ix.count_gather_search(out[4])
-                return out[:4]
-        out = retrieve_on_device(
-            tpp, ix.vectors, ix.labels, ix.ids, exclude, k=self.config.top_k,
-            metric=ix.metric, n_valid=ix.ntotal, xsq=ix.norms_sq,
-            scan_bf16=ix.scan_bf16, resid_bf16=ix.resid_bf16,
-            exclude_mode=exclude_mode, use_pallas=ix.use_pallas)
-        ix.count_search(out[4])
-        return out[:4]
-
-    def _retrieve_mesh(self, tpp, exclude, exclude_mode,
-                       prefer_ivf_gather: bool):
-        """The sharded search on this rank's slice of the batch (JAX
-        ``_retrieve``'s mesh branch, pipeline.py:596-655): SQ8 plain or
-        residual; flat; IVF with its probe mask at the index's nprobe (on a
-        mesh train and eval probe too, unlike the single-device
-        dispatch's unprobed search); IVF's gather route on the predict
-        paths where 2 b budget chunk < the rows of a shard."""
-        ix, sh, mesh, k = self.index, self._shard, self.mesh, \
-            self.config.top_k
-        if self.is_quantized:
-            ret = sharded_retrieve_sq8(
-                mesh, tpp, sh["codes"], sh["scales"], sh["norm_sq"],
-                sh["labels"], sh["ids"], exclude, k=k, metric="L2",
-                centroids=sh.get("centroids"), cells=sh.get("cells"),
-                exclude_mode=exclude_mode)
-            ix.count_search()
-            return ret
-        cents = sh.get("centroids")
-        if prefer_ivf_gather and self._mesh_ivf is not None:
-            tables = self._mesh_ivf
-            nprobe = min(ix.nprobe, cents.shape[0])
-            budget = self._mesh_gather_budget(nprobe)
-            if (2 * tpp.shape[0] * budget * tables["chunk_rows"].shape[1]
-                    < sh["vectors"].shape[0]):
-                ret, scanned = sharded_retrieve_ivf_gather(
-                    mesh, tpp, sh["vectors"], sh["labels"], sh["ids"],
-                    exclude, cents, sh["cells"], tables["chunk_rows"],
-                    tables["cell_chunks"], tables["n_valid_shard"], k=k,
-                    nprobe=nprobe, budget=budget, exclude_mode=exclude_mode,
-                    xsq=sh["norms_sq"])
-                ix.count_gather_search(scanned)
-                return ret
-        ret = sharded_retrieve(
-            mesh, tpp, sh["vectors"], sh["labels"], sh["ids"],
-            sh["ids"] >= 0, exclude, k=k,
-            metric="L2" if ix.metric == "IVF" else ix.metric,
-            centroids=cents, cells=sh.get("cells"),
-            nprobe=ix.nprobe if cents is not None else 32,
-            exclude_mode=exclude_mode, xsq=sh["norms_sq"])
-        ix.count_search(False)
-        return ret
+        """Search + neighbors → (neighbors, nlabels, dists, idx): the
+        searcher's ``retrieve`` (the index on one device, this rank's
+        ``ShardedIndex`` on a mesh), which picks the route and counts the
+        search; ``prefer_ivf_gather`` marks the predict paths, where IVF
+        may take its gather route."""
+        searcher = self.index if self.mesh is None else self.sharded
+        return searcher.retrieve(tpp, exclude, k=self.config.top_k,
+                                 exclude_mode=exclude_mode,
+                                 serving=prefer_ivf_gather)
 
     @torch.inference_mode()
     def _predict_tensors(self, waves, exclude: List[int],

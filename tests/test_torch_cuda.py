@@ -419,12 +419,11 @@ def test_train_step_on_card_matches_cpu(cuda):
     import copy
 
     from radad_tpu_torch.config import Config
-    from radad_tpu_torch.index.flat import FlatIndex
+    from radad_tpu_torch.index.flat import FlatIndex, retrieve_on_device
     from radad_tpu_torch.models.fusion import build_radad_model
     from radad_tpu_torch.train.optim import GroupAdam
     from radad_tpu_torch.train.pipeline import (make_step_fns,
-                                                new_accumulators,
-                                                retrieve_on_device)
+                                                new_accumulators)
 
     g = torch.Generator().manual_seed(7)
     n, d, b = 2048, 256, 16

@@ -127,13 +127,15 @@ def test_ivf_predict_matches_jax_on_both_sides_of_the_gate(ivf_pipes, split):
 
 @pytest.mark.parametrize("table", ["span", "chunked"])
 def test_ivf_gather_retrieval_matches_jax(ivf_pipes, table):
-    """retrieve_on_device_ivf_gather(_chunked) on the loaded DB: JAX's
-    neighbors (an XLA take in JAX; index_select here, no kernel), labels,
-    distances and rows, on a batch of 8 with batch exclusion."""
+    """JAX's retrieve_on_device_ivf_gather(_chunked) on the loaded DB
+    against the port's ivf_gather_search + _gathered_to_neighbors (span)
+    and retrieve_on_device_ivf_gather_chunked: neighbors (an XLA take in
+    JAX; index_select here, no kernel), labels, distances and rows, on a
+    batch of 8 with batch exclusion."""
     import jax.numpy as jnp
 
     from radad_tpu.train import pipeline as jp
-    from radad_tpu_torch.train import pipeline as tp
+    from radad_tpu_torch.index import ivf_gather as tg
 
     jpipe, tpipe, splits = ivf_pipes
     j, t = jpipe.index, tpipe.index
@@ -147,16 +149,18 @@ def test_ivf_gather_retrieval_matches_jax(ivf_pipes, table):
         want = jp.retrieve_on_device_ivf_gather(
             jq, *(getattr(j, n) for n in head), jex, j.centroids,
             j.ivf_table, j.ivf_overflow, k=5, nprobe=NPROBE)
-        got = tp.retrieve_on_device_ivf_gather(
-            tpp, *(getattr(t, n) for n in head), tex, t.centroids,
-            t.ivf_table, t.ivf_overflow, k=5, nprobe=NPROBE)
+        vectors, xsq, labels, ids = (getattr(t, n) for n in head)
+        found = tg.ivf_gather_search(
+            tpp, vectors, xsq, ids, tex, t.centroids, t.ivf_table,
+            t.ivf_overflow, 5, nprobe=NPROBE)
+        got = tg._gathered_to_neighbors(vectors, labels, *found)
     else:
         kw = dict(k=5, nprobe=NPROBE, budget=t.chunk_budget(NPROBE),
                   n_valid=t.ntotal)
         want = jp.retrieve_on_device_ivf_gather_chunked(
             jq, *(getattr(j, n) for n in head), jex, j.centroids,
             j.ivf_chunk_rows, j.ivf_cell_chunks, j.cells, **kw)
-        got = tp.retrieve_on_device_ivf_gather_chunked(
+        got = tg.retrieve_on_device_ivf_gather_chunked(
             tpp, *(getattr(t, n) for n in head), tex, t.centroids,
             t.ivf_chunk_rows, t.ivf_cell_chunks, t.cells, **kw)
         assert got[4] is False

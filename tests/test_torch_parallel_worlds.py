@@ -124,7 +124,8 @@ def _index_cases(rank, p):
         six.build(f["vecs"], f["labels"], f["ids"])
         for mode in ("batch", "self"):
             mesh.reset_counts()
-            ret = six.retrieve(local(f["q"]), local(f["excl"]), K, mode)
+            ret = six.retrieve(local(f["q"]), local(f["excl"]), k=K,
+                               exclude_mode=mode)
             out[("calls", metric, mode)] = dict(mesh.calls)
             out[("flat", metric, mode)] = _gathered(mesh, ret)
     # the plain form over the same padded table (L2)
@@ -350,10 +351,9 @@ def _step_tp_cases(rank, p):
 def _one_device_steps(p):
     """The port's single-device trainer (make_step_fns, exact f32 scan) on
     the whole batches, each step from the given starting state."""
-    from radad_tpu_torch.index.flat import FlatIndex
+    from radad_tpu_torch.index.flat import FlatIndex, retrieve_on_device
     from radad_tpu_torch.train.pipeline import (make_embed_fn, make_step_fns,
-                                                new_accumulators,
-                                                retrieve_on_device)
+                                                new_accumulators)
 
     enc, cfg, model, opt = _port_model(p)
     ix = FlatIndex(p["dtpp"], "L2", build_accel=False, device="cpu")
@@ -468,7 +468,7 @@ def serve_record(pipe, paths):
 
 def _padded_index(ix, shards: int):
     """The host index's arrays at the mesh's padded capacity (as
-    ``_place_index_on_mesh``)."""
+    ``ShardedIndex.from_index``)."""
     cap = -(-ix.ids.shape[0] // (8 * shards)) * 8 * shards
 
     def pad(t, fill=0):
@@ -495,7 +495,7 @@ def _hold_to_plain(pipe, paths, mesh) -> dict:
     tpp = pipe._embed(torch.as_tensor(waves))
     excl = torch.as_tensor([file_id(p) for p in paths], dtype=torch.int32)
     pad = _padded_index(ix, mesh.index)
-    if pipe.is_quantized:
+    if pipe.sharded.codes is not None:  # the rank's block is SQ8
         ret = tsi.plain_sharded_retrieve_sq8(
             tpp, pad(ix.codes), pad(ix.scales), pad(ix.norm_sq),
             pad(ix.labels), pad(ix.ids, -1), excl, shards=mesh.index,
@@ -530,7 +530,7 @@ def _pipeline_on_mesh(mesh, p, tag: str) -> dict:
 
     flat = pipe_for("flat")
     flat.build_vector_database(splits["train"], save=True)
-    shard = flat._shard["vectors"].shape[0]
+    shard = flat.sharded.vectors.shape[0]
     scores = flat.evaluate_with_scores(splits["val"])
     out["flat"] = dict(serve_record(flat, val), rows_a_rank=shard,
                        scores=scores[2], labels=scores[3],

@@ -263,8 +263,8 @@ def _step_setup(rng, d=24, n=40, k=5, lr=1e-3, wd=1e-5, **model_over):
     from radad_tpu.train.pipeline import (make_step_fns as jmake,
                                           retrieve_on_device as jret)
     from radad_tpu_torch.index.flat import FlatIndex
-    from radad_tpu_torch.train.pipeline import (make_step_fns as tmake,
-                                                retrieve_on_device as tret)
+    from radad_tpu_torch.index.flat import retrieve_on_device as tret
+    from radad_tpu_torch.train.pipeline import make_step_fns as tmake
 
     over = dict(use_batch_norm=True, use_layer_norm=False, **NO_DROPOUT)
     over.update(model_over)
