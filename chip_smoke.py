@@ -6,11 +6,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit, the precision flags, builds
    the native audio decoder (``radad_tpu_torch/native``, host g++; it must
-   load) and the six CUDA kernels from ``radad_tpu_torch/csrc`` (one
+   load) and the seven CUDA kernels from ``radad_tpu_torch/csrc`` (one
    ``nvcc`` each, in parallel): ``gather_rows``, ``exact_dot``,
-   ``extract_candidates``, ``fused_mha``, ``flat_topk`` and
-   ``bias_gelu``, with ptxas's registers and spills of each template
-   instance;
+   ``extract_candidates``, ``fused_mha``, ``flat_topk``, ``bias_gelu``
+   and ``channel_ln_gelu``, with ptxas's registers and spills of each
+   template instance;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving and training paths' shapes (``gather_rows`` at M = 5, 32, 40,
    256, 320, 640, 1,280 and 2,048 rows, each timed call reading its rows
@@ -59,7 +59,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    first conv [128, 512, 9599], FFN [128, 149, 3072] and positional conv
    [128, 768, 150], equal bit for bit to the op-by-op chain (its plain
    version), timed beside it and the library's ``x + b`` then
-   ``F.gelu(approximate="tanh")``;
+   ``F.gelu(approximate="tanh")``; ``channel_ln_gelu`` (the layer-normed
+   front end's bias add, LayerNorm over the channels and GELU) at
+   wavlm-large's seven conv outputs [128, 512, 6399 .. 99] and at
+   [128, 16, 3199], channels-last, every element within one bf16
+   step of the chain's LayerNorm output or near 0 within the f32
+   reordering's band of it (``compare_with_chain``), timed
+   beside the chain and the library's add + ``F.layer_norm`` + ``F.gelu``;
+   a WavLM-Large front end at published widths on 128 windows of 2 s
+   timed against the chain's (row-major convs, the chain op by op);
 3. wav2vec2 serving phase: a ``DetectionPipeline`` with a seeded random
    wav2vec2-base encoder (12 layers, 768 wide, f32) builds its DB from
    synthetic clips, the index is padded with seeded rows to 25,600 x 5,376
@@ -169,7 +177,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    form only, ``flat_topk``, ``gather_rows``); the trainer in bf16 (path
    "train_bf16", the resident form only: the card's
    first update against the CPU's bf16 update, 1 epoch + ``evaluate``,
-   save -> load, step timings);
+   save -> load, step timings); then the layer-normed front end on the
+   serving path (``wavlm_large_bf16_phase``, path "wavlm_large_bf16"): a
+   seeded random WavLM-Large pipeline at its published widths in bf16 with
+   ``RADAD_FUSED_ATTENTION=1`` (wavlm-large-bulk's settings) on the same
+   size of DB, 3 ``predict_batch`` calls of 64 clips whose every encoder
+   forward must launch ``channel_ln_gelu`` 7 times and ``bias_gelu`` 25
+   (the positional conv and 24 FFNs) and run no bf16 chain op by op, the
+   neighbors held to the f64 scan;
 9. Whisper serving (``whisper_phase``): a seeded random whisper-base
    pipeline (6 layers, 512 wide, 8 heads of 64; f32) on a 25,600 x 3,584
    index, every 2 s window padded to 30 s (T = 1,500) as the reference
@@ -222,8 +237,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Each phase sets the launch counts to 0 just before its counted run and
 reads them just after (``bias_gelu``'s on every path: launched iff the
 encoder is bf16, and then no GELU op by op; 8 launches a forward on the
-bf16 Whisper paths, 20 on wav2vec2's and WavLM's); each serving path prints the audio decoder that
-ran and fails unless it was the native one. The last line is
+bf16 Whisper paths, 20 on wav2vec2's and WavLM's; ``channel_ln_gelu``'s
+too, which only the layer-normed front end of "wavlm_large_bf16"
+launches); each serving path prints the audio decoder that ran and fails
+unless it was the native one. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
 table: for ``exact_dot`` and ``extract_candidates`` also each path's
 searches and fallbacks and the launches whose search was certified
@@ -268,6 +285,13 @@ BIAS_GELU_SHAPES = {"ffn": ((128, 1500, 2048), -1),
                     "w2v2_conv0": ((128, 512, 9599), None),
                     "w2v2_ffn": ((128, 149, 3072), -1),
                     "w2v2_pos_conv": ((128, 768, 150), 1)}
+# the layer-normed front end's conv outputs (wavlm-large-bulk: 128 windows
+# of 2 s, 512 channels, conv 0 .. 6) and a ragged case of the tests'
+# width: {record key: [B, C, T]}
+CHANNEL_LN_GELU_SHAPES = {
+    **{f"conv{i}": (128, 512, t) for i, t in enumerate(
+        (6399, 3199, 1599, 799, 399, 199, 99))},
+    "ragged": (128, 16, 3199)}
 # fused_mha's bias-free f32 body at the other shapes a path launches it:
 # {record key: ((rows, T, width, heads), the path)}
 F32_NO_BIAS_PATHS = {
@@ -358,6 +382,14 @@ class NoDeviceEvents(RuntimeError):
     sessions."""
 
 
+def _span(event) -> bool:
+    """Whether a profiler event is one of the port's spans (``radad.*``),
+    which the profiler also lays on the device's timeline as a user
+    annotation the length of the work under it: no device work of its
+    own."""
+    return event.key.startswith("radad.")
+
+
 def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
     """Mean device milliseconds per call: the time of every kernel and
     copy ``fn`` runs on the card whose name holds ``name``, summed by
@@ -382,7 +414,7 @@ def device_ms(torch, fn, iters: int = 20, name: str = "") -> float:
             torch.cuda.synchronize()
         seen = [e for e in prof.key_averages()
                 if getattr(getattr(e, "device_type", None), "name", "")
-                == "CUDA" and name in e.key]
+                == "CUDA" and name in e.key and not _span(e)]
         total_us = sum(e.device_time_total for e in seen)
         if total_us > 0 and all(e.count % iters == 0 for e in seen):
             return total_us / 1e3 / iters
@@ -422,7 +454,8 @@ def _kernel_breakdown(torch, fn, iters: int = 10, top: int = 8) -> str:
             fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
-           if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+           if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"
+           and not _span(e)]
     dev.sort(key=lambda e: -e.device_time_total)
     total = sum(e.device_time_total for e in dev) / 1e3 / iters
     return f"{total:.4f} ms in {sum(e.count for e in dev) / iters:.0f} " \
@@ -633,6 +666,7 @@ def kernel_phase(torch, dev):
     recs["fused_mha_bf16"] = _fused_mha_bf16_record(torch, g)
     recs["flat_topk"] = _flat_topk_record(torch, dev, g, table)
     recs["bias_gelu"] = _bias_gelu_record(torch, g)
+    recs["channel_ln_gelu"] = _channel_ln_gelu_record(torch, dev, g)
     for name, by_shape in _whisper_kernel_records(torch, dev, g).items():
         recs[name]["whisper"] = by_shape
     for name in ("gather_rows", "exact_dot", "extract_candidates"):
@@ -1182,6 +1216,160 @@ def _bias_gelu_record(torch, g) -> dict:
                 shape=f"[128,1500,2048] bf16, bias on the last axis "
                       f"(by_shape: {', '.join(BIAS_GELU_SHAPES)})",
                 **by_shape["ffn"], by_shape=by_shape)
+
+
+def _channel_ln_gelu_at(torch, g, shape) -> dict:
+    """``channel_ln_gelu`` on a seeded bf16 ``shape`` with a conv bias,
+    channels-last as the port's front-end convs write it, held to the
+    chain by ``compare_with_chain`` (every element within one bf16 step of
+    the chain's LayerNorm output, or near 0 within the f32 reordering's
+    band of it), timed beside the chain on the row-major tensor (the front
+    end before the kernel) and beside the library's bias add,
+    ``F.layer_norm`` and ``F.gelu`` (tanh) on the ``[B, T, C]`` rows;
+    bound: x read and the output written once, 4 bytes an element, at
+    3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from radad_tpu_torch.ops.channel_ln_gelu import (channel_ln_gelu,
+                                                     channel_ln_gelu_plain,
+                                                     compare_with_chain)
+
+    bb, c, t = shape
+    dev = g.device
+    rows = (3 * torch.randn((bb, t, c), generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    x = rows.transpose(1, 2)  # channels-last [B, C, T]
+    x_rm = x.contiguous()
+    b = (torch.randn(c, generator=g, device=dev) / 2).to(torch.bfloat16)
+    scale = 1 + torch.randn(c, generator=g, device=dev) / 4
+    shift = torch.randn(c, generator=g, device=dev) / 4
+    before = channel_ln_gelu.launches
+    got = channel_ln_gelu(x, b, scale, shift)
+    launches = channel_ln_gelu.launches - before
+    torch.cuda.synchronize()
+    held = compare_with_chain(got, x, b, scale, shift)
+    if held["off"] or got.stride() != x.stride():
+        raise AssertionError(f"channel_ln_gelu {list(shape)}: off the "
+                             f"chain: {held}")
+    del got
+    scale_lib, shift_lib = scale.to(torch.bfloat16), shift.to(torch.bfloat16)
+    rec = timings(torch, lambda: channel_ln_gelu(x, b, scale, shift),
+                  lambda: channel_ln_gelu_plain(x_rm, b, scale, shift),
+                  lambda: F.gelu(F.layer_norm(rows + b, (c,), scale_lib,
+                                              shift_lib, 1e-5),
+                                 approximate="tanh"), iters=10)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(4 * x.numel())
+    rec.update(dims=list(shape), launches_a_call=launches,
+               bits_apart=held["bits_apart"] / x.numel(),
+               off_one_step=held["off_one_step"],
+               band_ratio=held["band_ratio"],
+               max_abs_err=held["max_abs_err"])
+    del rows, x, x_rm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _frontend_routes(torch, model, wav) -> dict:
+    """Device ms of the layer-normed front end of ``model`` on ``wav`` by
+    two routes: "kernel" (``feature_encoder``: each conv channels-last,
+    ``conv1d_channels_last``, then the kernel) and "chain" (each conv
+    row-major, then ``channel_ln_gelu_plain``: the front end before the
+    kernel); with each route's peak memory, its output's largest
+    difference from the chain's relative to the chain's largest value, and
+    its kernel launches."""
+    from radad_tpu_torch.models import encoder_common as C
+    from radad_tpu_torch.models import wav2vec2 as W2
+    from radad_tpu_torch.ops import channel_ln_gelu as CLG
+
+    cfg, bf16 = model.cfg, torch.bfloat16
+
+    def chain():
+        x = wav.to(bf16)[:, None, :]
+        for i, layer in enumerate(model.conv_layers):
+            x = C.conv1d(x, layer["kernel"], None, cfg.conv_stride[i], 0)
+            x = CLG.channel_ln_gelu_plain(x, layer["bias"].to(bf16),
+                                          layer["norm_scale"],
+                                          layer["norm_bias"])
+        return x.transpose(1, 2)
+
+    routes = {"kernel": lambda: W2.feature_encoder(model, wav.to(bf16)),
+              "chain": chain}
+    out = {}
+    with torch.no_grad():
+        want = chain().float()
+        for name, fn in routes.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            CLG.reset_counts()
+            diff = (fn().float() - want).abs().max() / want.abs().max()
+            out[name] = dict(launches=CLG.channel_ln_gelu.launches,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             rel_diff=float(diff))
+            out[name]["ms"] = timed_ms(torch, fn, iters=5)[0]
+    CLG.reset_counts()
+    return out
+
+
+def _channel_ln_gelu_record(torch, dev, g) -> dict:
+    """``channel_ln_gelu`` at ``CHANNEL_LN_GELU_SHAPES`` (``_channel_ln_
+    gelu_at``); the front end of a seeded WavLM-Large at its published
+    widths on 128 windows of 2 s by two routes (``_frontend_routes``). →
+    record (conv 0) with ``by_shape`` and ``frontend``; its max_abs_err is
+    the largest |kernel - chain| over the shapes. The launches on the
+    serving path: ``wavlm_large_bf16_phase``."""
+    from radad_tpu_torch.models import wav2vec2 as W2
+    from radad_tpu_torch.models import wavlm as WL
+    from radad_tpu_torch.models.encoder import resolve_arch_config
+    from radad_tpu_torch.ops import channel_ln_gelu as CLG
+
+    by_shape = {}
+    for key, shape in CHANNEL_LN_GELU_SHAPES.items():
+        by_shape[key] = rec = _channel_ln_gelu_at(torch, g, shape)
+        print(f"channel_ln_gelu {key} {list(shape)}: device {rec['ms']:.4f} "
+              f"ms (call {rec['call_ms']:.4f}), bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_ms'] / rec['ms']:.2f} of it), plain (the "
+              f"chain) {rec['plain_ms']:.4f} ms, library (add, F.layer_norm, "
+              f"F.gelu tanh) {rec['library_ms']:.4f} ms, "
+              f"{rec['launches_a_call']} launch(es); held to the chain, bits "
+              f"apart on {rec['bits_apart']:.3e}, more than one bf16 step of "
+              f"y on {rec['off_one_step']}, all within "
+              f"{rec['band_ratio']:.3f} of the band near 0, max |kernel - "
+              f"chain| {rec['max_abs_err']:.3e}")
+    cfg = resolve_arch_config("microsoft/wavlm-large", kind="wavlm")
+    model = WL.init_params(WL.WavLMModel(cfg),
+                           torch.Generator().manual_seed(SEED)).to(dev)
+    wav = torch.randn((128, 32000), generator=g, device=dev) / 10
+    frontend = _frontend_routes(torch, model, wav)
+    print("wavlm-large front end, 128 windows, the port's route: "
+          + _kernel_breakdown(torch, lambda: W2.feature_encoder(
+              model, wav.to(torch.bfloat16)), iters=3, top=10))
+    print("wavlm-large front end, 128 windows of 2 s, by route: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms, peak {v['peak_gb']:.3f} GB, "
+        f"max |diff| {v['rel_diff']:.3e} of the chain's, kernel launches "
+        f"{v['launches']}" for k, v in frontend.items()))
+    if frontend["kernel"]["launches"] != 7:
+        raise AssertionError(f"wavlm-large front end: want 7 kernel "
+                             f"launches: {frontend}")
+    del model, wav
+    CLG.reset_counts()
+    torch.cuda.empty_cache()
+    return dict(route="cuda", source="radad_tpu_torch/csrc/channel_ln_gelu.cu",
+                replaces="the layer-normed front end's bias add, f32 "
+                         "LayerNorm through a transpose and GELU op by op "
+                         "(ops/channel_ln_gelu.py::channel_ln_gelu_plain)",
+                max_abs_err=max(r["max_abs_err"] for r in by_shape.values()),
+                tolerance="every element the GELU of the chain's bf16 "
+                          "LayerNorm output y or of one of y's two bf16 "
+                          "neighbours, or near 0 within 2^-21 of the "
+                          "column's terms of the chain's f32 output (f32 "
+                          "summation order)",
+                bound_rate="bytes, 3.35 TB/s",
+                shape=f"[128,512,6399] bf16 channels-last with a conv bias "
+                      f"(by_shape: "
+                      f"{', '.join(CHANNEL_LN_GELU_SHAPES)})",
+                **{k: v for k, v in by_shape["conv0"].items()
+                   if k != "max_abs_err"},
+                by_shape=by_shape, frontend=frontend)
 
 
 def _whisper_kernel_records(torch, dev, g) -> dict:
@@ -1851,8 +2039,10 @@ def _build_pipeline(torch, dev, tmp: str, label: str, **cfg_kw):
 
 
 def _launch_counts(kernels, index=None) -> dict:
-    """{kernel name: launches} of ``kernels`` and of ``bias_gelu`` (with
-    "bias_gelu_chain": the bf16 GELUs on the card that ran op by op), with
+    """{kernel name: launches} of ``kernels``, of ``bias_gelu`` (with
+    "bias_gelu_chain": the bf16 GELUs on the card that ran op by op) and of
+    ``channel_ln_gelu`` (with "channel_ln_gelu_chain": the layer-normed
+    front ends' bf16 conv layers on the card that ran op by op), with
     exact_dot's per form
     and row type ("exact_dot_split", "exact_dot_int8", ...) and
     extract_candidates' per shape ("extract_candidates_T=8 m=5");
@@ -1864,11 +2054,14 @@ def _launch_counts(kernels, index=None) -> dict:
     IVF index's gather-route searches also ("gather_searches",
     "gather_fallbacks": those over their chunk budget)."""
     from radad_tpu_torch.ops import bias_gelu as BG
+    from radad_tpu_torch.ops import channel_ln_gelu as CLG
     from radad_tpu_torch.ops.attention import fused_mha
 
     out = {w.__name__: w.launches for w in kernels if w is not fused_mha}
     out["bias_gelu"] = BG.bias_gelu.launches  # every path: the encoders'
     out["bias_gelu_chain"] = BG.bias_gelu_plain.calls
+    out["channel_ln_gelu"] = CLG.channel_ln_gelu.launches  # layer-normed
+    out["channel_ln_gelu_chain"] = CLG.channel_ln_gelu_plain.calls
     for w in kernels:  # exact_dot's per form and row type;
         if w is fused_mha:  # extract_candidates' per "T=.. m=.."
             continue
@@ -1909,17 +2102,21 @@ def _resident_only(launches, label: str) -> None:
 def _gelu_fused_only(launches, label: str) -> None:
     """Raise unless ``bias_gelu`` ran and no bf16 GELU ran op by op: a bf16
     encoder on the card with no gradient to carry."""
-    if launches["bias_gelu"] <= 0 or launches["bias_gelu_chain"]:
+    if launches["bias_gelu"] <= 0 or launches["bias_gelu_chain"] or \
+            launches["channel_ln_gelu_chain"]:
         raise AssertionError(f"{label}: want every bf16 GELU in bias_gelu "
-                             f"and none op by op: {launches}")
+                             f"or channel_ln_gelu and none op by op: "
+                             f"{launches}")
 
 
 def _reset(kernels, index=None) -> None:
-    """Every launch count of ``kernels`` and of ``bias_gelu`` (and
-    ``index``'s search counts) to 0."""
-    from radad_tpu_torch.ops import attention, bias_gelu, rerank
+    """Every launch count of ``kernels``, of ``bias_gelu`` and of
+    ``channel_ln_gelu`` (and ``index``'s search counts) to 0."""
+    from radad_tpu_torch.ops import (attention, bias_gelu, channel_ln_gelu,
+                                     rerank)
 
     bias_gelu.reset_counts()
+    channel_ln_gelu.reset_counts()
 
     if index is not None:
         index.searches = index.fallbacks = 0
@@ -2341,6 +2538,71 @@ def wavlm_phase(torch, dev, tmp: str, mixed: bool = False):
                 print(f"{label} stages {name} (median of 5, ms): "
                       + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
     finally:
+        os.environ.pop("RADAD_FUSED_ATTENTION", None)
+    return {label: launches}
+
+
+def wavlm_large_bf16_phase(torch, dev, tmp: str):
+    """The layer-normed front end on the serving path: a seeded random
+    WavLM-Large pipeline at its published widths (conv biases, the
+    layer-normed front end) with ``use_mixed_precision=True`` and
+    ``RADAD_FUSED_ATTENTION=1``, as wavlm-large-bulk runs it. After a
+    warm-up, the launch counts are set to 0 and ``predict_batch`` of 64
+    clips runs 3 times, with each encoder forward counted where it enters
+    ``feature_encoder``: each must launch ``channel_ln_gelu`` 7 times (one
+    a conv layer) and ``bias_gelu`` 25 (the positional conv and the 24
+    FFNs), and no bf16 chain may run op by op; the neighbors of the last
+    call are held to the f64 scan. Returns {path: launches}."""
+    from radad_tpu_torch.models import wav2vec2 as W2
+    from radad_tpu_torch.ops.attention import fused_mha
+    from radad_tpu_torch.ops.gather import gather_rows
+    from radad_tpu_torch.ops.rerank import exact_dot
+    from radad_tpu_torch.ops.topk import extract_candidates, flat_topk
+
+    label = "wavlm_large_bf16"
+    os.environ["RADAD_FUSED_ATTENTION"] = "1"
+    encoder = W2.feature_encoder
+    forwards = []
+
+    def counted(*args, **kwargs):
+        forwards.append(args[1].shape[0])
+        return encoder(*args, **kwargs)
+
+    try:
+        pipe, db_paths = _build_pipeline(
+            torch, dev, tmp, label, feature_extractor_type="wavlm",
+            wavlm_model_name="microsoft/wavlm-large",
+            use_mixed_precision=True)
+        q_paths, _ = _write_clips(tmp, 32, SEED + 5, "wlquery")
+        batch64 = q_paths + db_paths[:32]
+        kernels = (gather_rows, exact_dot, extract_candidates, fused_mha,
+                   flat_topk)
+        pipe.predict_batch(batch64)  # warm-up outside the counted run
+        torch.cuda.synchronize()
+        _reset(kernels, pipe.index)
+        W2.feature_encoder = counted
+        try:
+            for _ in range(3):
+                outs = pipe.predict_batch(batch64)
+            torch.cuda.synchronize()
+        finally:
+            W2.feature_encoder = encoder
+        launches = _launch_counts(kernels, pipe.index)
+        n = len(forwards)
+        print(f"{label}: 3 predict_batch(64) calls, {n} encoder forwards "
+              f"of {forwards} windows; launches {launches}")
+        want = dict(channel_ln_gelu=7 * n, channel_ln_gelu_chain=0,
+                    bias_gelu=25 * n, bias_gelu_chain=0)
+        got = {k: launches[k] for k in want}
+        if n < 3 or got != want:
+            raise AssertionError(f"{label}: want 7 channel_ln_gelu and 25 "
+                                 f"bias_gelu launches a forward and no chain "
+                                 f"op by op over {n} forwards, got {got}")
+        held = _check_against_full_scan(torch, pipe, batch64, outs)
+        print(f"{label} predict_batch_64: neighbors match the f64 full scan "
+              f"on all {len(batch64)} rows, {_held_text(held)}")
+    finally:
+        W2.feature_encoder = encoder
         os.environ.pop("RADAD_FUSED_ATTENTION", None)
     return {label: launches}
 
@@ -5266,7 +5528,8 @@ def main() -> int:
                       # mixed precision: bf16 encoders and fusion model
                       lambda: serving_bf16_phase(torch, dev, tmp, ref),
                       lambda: wavlm_phase(torch, dev, tmp, mixed=True),
-                      lambda: train_bf16_phase(torch, dev, tmp)):
+                      lambda: train_bf16_phase(torch, dev, tmp),
+                      lambda: wavlm_large_bf16_phase(torch, dev, tmp)):
             gc.collect()
             torch.cuda.empty_cache()
             by_path.update(phase())
@@ -5340,7 +5603,8 @@ def main() -> int:
         if "max_bf16_steps" in r:
             rec["max_bf16_steps"] = r["max_bf16_steps"]
         for key in ("by_shape", "hd80", "whisper", "sq8_int8", "sq8",
-                    "bf16_rows", "f32_body", "whisper_large_v3", "tp_rank"):
+                    "bf16_rows", "f32_body", "whisper_large_v3", "tp_rank",
+                    "frontend"):
             if key in r:
                 rec[key] = r[key]
         kernels.append(rec)

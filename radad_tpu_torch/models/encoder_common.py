@@ -20,7 +20,10 @@ form written op by op with bf16 constants, the attention scale is rounded
 to bf16, and the per-channel norm takes the JAX package's shifted moments.
 A GELU and the bias add before it (``gelu_bias``: ``linear_gelu``,
 ``conv1d_gelu``) run on bf16 CUDA tensors as one kernel with the same bits
-(``radad_tpu_torch/ops/bias_gelu.py``). The f32 path keeps its own
+(``radad_tpu_torch/ops/bias_gelu.py``); a layer-normed front end's bias
+add, LayerNorm over the channels and GELU (``conv1d_ln_gelu``) as one
+kernel that sums its f32 statistics in another order
+(``radad_tpu_torch/ops/channel_ln_gelu.py``). The f32 path keeps its own
 arithmetic (fused bias adds, exact GELU, ``F.group_norm``).
 
 Tensor parallelism (``parallel/tp.py``): with ``tp = (mesh, axis)`` the
@@ -42,6 +45,9 @@ from radad_tpu_torch.ops.attention import (fused_mha, mha_reference,
                                            use_fused_attention)
 from radad_tpu_torch.ops.bias_gelu import (bias_gelu, bias_gelu_plain,
                                            use_bias_gelu)
+from radad_tpu_torch.ops.channel_ln_gelu import (channel_ln_gelu,
+                                                 channel_ln_gelu_plain,
+                                                 use_channel_ln_gelu)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -217,6 +223,49 @@ def conv1d_gelu(x: torch.Tensor, kernel: torch.Tensor,
         return gelu(conv1d(x, kernel, bias, stride, padding, groups))
     return gelu_bias(conv1d(x, kernel, None, stride, padding, groups), bias,
                      channel_axis=True)
+
+
+def conv1d_channels_last(x: torch.Tensor, kernel: torch.Tensor,
+                         stride: int) -> torch.Tensor:
+    """conv1d of ``x [B, C_in, T]`` without bias or padding, kernel cast
+    to x's dtype: ``[B, C_out, T']`` with the channels fastest. A 2-D conv
+    of ``[B, C_in, 1, T]`` in channels_last (cuDNN's NHWC kernels: the
+    front end's row-major bf16 convs took over twice as long on an H100);
+    with one input channel, where cuDNN writes row-major whatever the
+    format, the product of the ``[B, T', K]`` windows and the
+    ``[K, C_out]`` kernel."""
+    kernel = kernel.to(x.dtype)
+    if x.shape[1] == 1:
+        windows = x[:, 0].unfold(-1, kernel.shape[-1], stride)
+        return (windows @ kernel[:, 0].t()).transpose(1, 2)
+    x4 = x.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+    k4 = kernel.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x4, k4, stride=(1, stride)).squeeze(2)
+
+
+def conv1d_ln_gelu(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: Optional[torch.Tensor], stride: int,
+                   scale: torch.Tensor, shift: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """``gelu(LayerNorm over the channels(conv1d(x, kernel, bias, stride,
+    0)))`` on ``[B, C, T]``, a layer-normed front end's conv layer (HF
+    Wav2Vec2LayerNormConvLayer). In f32 the bias goes inside the product;
+    outside f32 it is added to the rounded product with the norm. On the
+    card in bf16 the product is ``conv1d_channels_last``'s, so that each
+    layer reads the last one's output as it lies, and the bias add, norm
+    and GELU are one kernel where ``use_channel_ln_gelu`` takes the
+    product (``ops/channel_ln_gelu.py``); elsewhere op by op
+    (``channel_ln_gelu_plain``)."""
+    if x.dtype == torch.float32:
+        return channel_ln_gelu_plain(conv1d(x, kernel, bias, stride, 0),
+                                     None, scale, shift, eps)
+    out = (conv1d_channels_last(x, kernel, stride) if x.is_cuda
+           else conv1d(x, kernel, None, stride, 0))
+    if bias is not None:
+        bias = bias.to(x.dtype)
+    if use_channel_ln_gelu(out, bias, scale, shift):
+        return channel_ln_gelu(out, bias, scale.float(), shift.float(), eps)
+    return channel_ln_gelu_plain(out, bias, scale, shift, eps)
 
 
 def instance_norm_channels(x: torch.Tensor, scale: torch.Tensor,

@@ -114,25 +114,24 @@ def feature_encoder(model: Wav2Vec2Model, waveform: torch.Tensor
                     ) -> torch.Tensor:
     """Strided conv stack: ``[B, T_samples]`` → ``[B, T_frames, C]``.
     First layer group-normed ("group") or every layer LN'd over channels
-    ("layer"), GELU after every conv, no padding. In a trace, one
+    ("layer": ``conv1d_ln_gelu``, one kernel a layer in bf16 on the card),
+    GELU after every conv, no padding. In a trace, one
     ``radad.encoder.frontend`` span."""
     cfg = model.cfg
     x = waveform[:, None, :]  # [B, 1, T]
     with annotate("radad.encoder.frontend"):
         for i, layer in enumerate(model.conv_layers):
-            conv = (layer["kernel"], layer.get("bias"), cfg.conv_stride[i], 0)
+            conv = (layer["kernel"], layer.get("bias"), cfg.conv_stride[i])
             if "norm_scale" not in layer:
-                x = C.conv1d_gelu(x, *conv)
-                continue
-            x = C.conv1d(x, *conv)  # one step a line, so each frees the last
-            if cfg.feat_extract_norm == "group":
+                x = C.conv1d_gelu(x, *conv, 0)
+            elif cfg.feat_extract_norm == "layer":
+                x = C.conv1d_ln_gelu(x, *conv, layer["norm_scale"],
+                                     layer["norm_bias"])
+            else:  # one step a line, so each frees the last
+                x = C.conv1d(x, *conv, 0)
                 x = C.instance_norm_channels(x, layer["norm_scale"],
                                              layer["norm_bias"])
                 x = C.gelu_bias(x)
-            else:  # GELU on the normed [B, T, C], before the transpose back
-                x = C.layer_norm(x.transpose(1, 2), layer["norm_scale"],
-                                 layer["norm_bias"])
-                x = C.gelu_bias(x).transpose(1, 2)
         return x.transpose(1, 2)
 
 

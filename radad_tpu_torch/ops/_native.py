@@ -35,6 +35,8 @@ ENTRIES = {
                   + [_P]},
     "flat_topk": {"radad_flat_topk": [_P] * 7 + [_I] * 8 + [_P]},
     "bias_gelu": {"radad_bias_gelu": [_P] * 3 + [_I64] * 3 + [_P]},
+    "channel_ln_gelu": {"radad_channel_ln_gelu": [_P] * 5 + [_I64] * 2
+                        + [ctypes.c_float, _P]},
 }
 SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,6 +21,7 @@ from radad_tpu_torch.models import encoder_common as C
 from radad_tpu_torch.models import wav2vec2 as W2
 from radad_tpu_torch.ops import _native
 from radad_tpu_torch.ops import bias_gelu as BG
+from radad_tpu_torch.ops import channel_ln_gelu as CLG
 
 BF16 = torch.bfloat16
 
@@ -290,16 +291,38 @@ def test_whisper_conv_outputs_on_card(cuda, stride, t_in):
 @pytest.mark.cuda
 @pytest.mark.parametrize("norm", ["group", "layer"])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
-def test_wav2vec2_convs_on_card(cuda, dtype, norm, counts):
+def test_wav2vec2_convs_on_card(cuda, dtype, norm, counts, monkeypatch):
     """On the card, wav2vec2's conv stack and positional conv give the bits
     of the order before the kernel in f32 and in bf16; in bf16 every GELU
-    of the new order is the kernel (5 of them), none op by op."""
+    of the new order is the kernel (5 of them), none op by op. The
+    layer-normed stack in bf16 takes ``channel_ln_gelu`` at each of its 4
+    conv layers instead (``bias_gelu`` then runs once, for the positional
+    conv, which keeps its bits): a reduction across the channels cannot
+    keep ``F.layer_norm``'s summation order, so each layer's output is held
+    to the chain on that layer's own input (``compare_with_chain``)."""
     model = _wav2vec2(norm, 11, cuda, **TINY_W2V2)
+    fused_ln = dtype == BF16 and norm == "layer"
+    held, kernel = [], CLG.channel_ln_gelu
+    CLG.reset_counts()
+
+    def checked(x, b, scale, shift, eps=1e-5):
+        out = kernel(x, b, scale, shift, eps)
+        held.append(CLG.compare_with_chain(out, x, b, scale, shift,
+                                           eps)["off"])
+        return out
+    monkeypatch.setattr(C, "channel_ln_gelu", checked)
     with torch.no_grad():
         pairs = _wav2vec2_convs(model, dtype, cuda)
-    for old, new in pairs:
-        assert _same_bits(new, old)
-    assert counts() == ((5, 0) if dtype == BF16 else (0, 0))
+    for i, (old, new) in enumerate(pairs):
+        if fused_ln and i == 0:  # the conv stack
+            assert held == [0] * 4 and (CLG.channel_ln_gelu.launches,
+                                        CLG.channel_ln_gelu_plain.calls) \
+                == (4, 0)
+        else:
+            assert _same_bits(new, old)
+    assert held == ([0] * 4 if fused_ln else [])
+    assert counts() == ((1 if fused_ln else 5, 0) if dtype == BF16
+                        else (0, 0))
 
 
 @pytest.mark.cuda
@@ -440,15 +463,21 @@ def test_wav2vec2_base_bf16_features_on_card(cuda, norm, counts,
     """A seeded wav2vec2 at base's widths in bf16 at B = 2 (1 s), with
     conv biases, group-normed first conv or every conv layer-normed: 20
     fused calls a forward (7 convs, the positional conv, 12 FFNs) and no
-    chain; the features are the chain's, bit for bit."""
+    chain; the features are the chain's, bit for bit. Layer-normed, the 7
+    conv layers take ``channel_ln_gelu`` in both forwards (7 launches
+    each) and 13 GELUs are left to ``bias_gelu``."""
     model = _wav2vec2(norm, 14, cuda)
     g = torch.Generator(device=cuda).manual_seed(15)
     wav = torch.randn((2, 16000), generator=g, device=cuda) / 10
+    n = 20 if norm == "group" else 13
+    CLG.reset_counts()
     with torch.no_grad():
         fused = W2.extract_features(model, wav, dtype=BF16)
-        assert counts() == (20, 0)
+        assert counts() == (n, 0)
         monkeypatch.setattr(C, "use_bias_gelu", lambda *a, **k: False)
         BG.reset_counts()
         chain = W2.extract_features(model, wav, dtype=BF16)
-        assert counts() == (0, 20)
+        assert counts() == (0, n)
     assert _same_bits(fused, chain)
+    assert (CLG.channel_ln_gelu.launches, CLG.channel_ln_gelu_plain.calls) \
+        == ((0, 0) if norm == "group" else (14, 0))
