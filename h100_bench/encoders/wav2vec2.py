@@ -7,8 +7,8 @@ are the mean of the hidden states that ``wav2vec2_layers_to_use`` names
 (the last four).
 
 The encoder file of ``"encoder": "wav2vec2"``: its weights, plain forward,
-operations, attention shape, frame width and CPU cut, as
-``harness/common.py::encoder`` lists them.
+operations, attention shape, frame width, CPU cut and the port's classes,
+as ``harness/common.py::encoder`` lists them.
 """
 
 from __future__ import annotations
@@ -20,6 +20,9 @@ import torch.nn.functional as F
 
 from reference import encoders as RE
 from reference import precision as P
+
+# the port's module of radad_tpu_torch.models, config class and model class
+PORT = ("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Model")
 
 TINY = {"architecture": dict(
     hidden_size=32, num_hidden_layers=2, num_attention_heads=4,

@@ -29,8 +29,8 @@ processor is applied here when ``input_normalize`` says so.
 control that shows the comparison sees the mechanism.
 
 The encoder file of ``"encoder": "wavlm"``: its weights, plain forward,
-operations, attention shape, frame width and CPU cut, as
-``harness/common.py::encoder`` lists them. Names and shapes are those of
+operations, attention shape, frame width, CPU cut and the port's classes,
+as ``harness/common.py::encoder`` lists them. Names and shapes are those of
 ``radad_tpu_torch``'s ``WavLMModel`` state dict.
 """
 
@@ -45,6 +45,10 @@ from reference import encoders as RE
 from reference import precision as P
 
 GATE_OUT = 8  # the gate's projection: two groups of 4, summed
+
+# the port's module of radad_tpu_torch.models, config class and model class
+PORT = ("wavlm", "WavLMConfig", "WavLMModel")
+
 TINY = {"architecture": dict(
     hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
     intermediate_size=64, conv_dim=[16] * 7, num_conv_pos_embeddings=16,

@@ -7,8 +7,8 @@ projection has no bias), the final LN. The features are the last hidden
 state.
 
 The encoder file of ``"encoder": "whisper"``: its weights, plain forward,
-operations, attention shape, frame width and CPU cut, as
-``harness/common.py::encoder`` lists them.
+operations, attention shape, frame width, CPU cut and the port's classes,
+as ``harness/common.py::encoder`` lists them.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ import torch.nn.functional as F
 
 from reference import encoders as RE
 from reference import precision as P
+
+# the port's module of radad_tpu_torch.models, config class and model class
+PORT = ("whisper", "WhisperConfig", "WhisperEncoder")
 
 # 100 frames a window: the real frames only, not padded to 30 s
 TINY = {"architecture": dict(d_model=32, num_hidden_layers=2,

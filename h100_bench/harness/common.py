@@ -75,6 +75,9 @@ def encoder(config: dict):
     - ``width(arch)``: the width of a frame's features;
     - ``TINY``: the CPU cut of the tests, as overrides of
       ``"architecture"`` and ``"pipeline"``.
+    - ``PORT``: ``(module of radad_tpu_torch.models, config class, model
+      class)``, names only, which ``harness/program.py::port_encoder``
+      resolves; the file imports nothing of the program.
 
     Raises ``FileNotFoundError``, naming the file, where there is none."""
     name = config["encoder"]

@@ -15,38 +15,58 @@ from typing import Dict, List, Optional
 
 import torch
 
-# Config fields the configuration files set, as the program names them
-_TUPLES = ("tpp_levels", "wav2vec2_layers_to_use", "detection_hidden_dims")
-# Every encoder kind of the port (a configuration's "encoder"): the module
-# of radad_tpu_torch.models, its architecture config and its model
-PORT_ENCODERS = {
-    "wav2vec2": ("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Model"),
-    "hubert": ("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Model"),
-    "wavlm": ("wavlm", "WavLMConfig", "WavLMModel"),
-    "whisper": ("whisper", "WhisperConfig", "WhisperEncoder"),
-}
+from harness import common
 
 
-def port_encoder(kind: str):
-    """The port's (module, config class, model class) names of an encoder
-    kind. Raises ``ValueError``, naming this file, for a kind the port
-    does not have."""
-    if kind not in PORT_ENCODERS:
-        raise ValueError(f"encoder kind {kind!r} is none of the port's "
-                         f"{sorted(PORT_ENCODERS)} (h100_bench/harness/"
-                         f"program.py)")
-    return PORT_ENCODERS[kind]
+def _tuples(fields: dict) -> dict:
+    """A configuration's fields with each list as a tuple, as the program's
+    configs hold them."""
+    return {k: (tuple(v) if isinstance(v, list) else v)
+            for k, v in fields.items()}
+
+
+def port_encoder(config: dict):
+    """The port's (architecture config class, model class) of the
+    configuration's encoder, as its encoder file's ``PORT`` names them:
+    ``(module of radad_tpu_torch.models, config class, model class)``.
+    Raises ``FileNotFoundError`` where there is no encoder file, and
+    ``ValueError``, naming the encoder file, where ``PORT`` is missing or
+    malformed, the module or either class is missing, or the model class
+    is not an ``nn.Module``."""
+    enc = common.encoder(config)
+    port = getattr(enc, "PORT", None)
+    if not (isinstance(port, tuple) and len(port) == 3
+            and all(isinstance(s, str) and s.isidentifier() for s in port)):
+        raise ValueError(f"{enc.__file__}: PORT is {port!r}, not (module, "
+                         f"config class, model class) of "
+                         f"radad_tpu_torch.models")
+    module, config_class, model_class = port
+    name = f"radad_tpu_torch.models.{module}"
+    try:
+        models = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ValueError(f"{enc.__file__}: PORT names {name}, which the "
+                         f"port does not have") from None
+    config_cls, model_cls = (getattr(models, c, None) for c in port[1:])
+    for c, cls in ((config_class, config_cls), (model_class, model_cls)):
+        if not isinstance(cls, type):
+            raise ValueError(f"{enc.__file__}: PORT names {name}.{c}, "
+                             f"which is no class of the port")
+    if not issubclass(model_cls, torch.nn.Module):
+        raise ValueError(f"{enc.__file__}: PORT's model class {name}."
+                         f"{model_class} is not an nn.Module")
+    return config_cls, model_cls
 
 
 def program_config(config: dict, data_root: str, seed: int):
     from radad_tpu_torch.config import Config
 
-    fields = {k: (tuple(v) if k in _TUPLES else v)
-              for k, v in config["pipeline"].items()}
     return Config().replace(
         data_root=data_root, vector_db_path=os.path.join(data_root, "vdb"),
         train_data_path=data_root, test_data_path=data_root,
-        random_seed=int(seed), **fields)
+        random_seed=int(seed), **_tuples(config["pipeline"]))
 
 
 def build_pipeline(config: dict, enc_w: Dict[str, torch.Tensor],
@@ -59,18 +79,14 @@ def build_pipeline(config: dict, enc_w: Dict[str, torch.Tensor],
     from radad_tpu_torch.utils.device import compute_dtype
 
     cfg = program_config(config, data_root, seed)
-    arch = {k: (tuple(v) if isinstance(v, list) else v)
-            for k, v in config["architecture"].items()}
-    kind = config["encoder"]
-    module, config_class, model_class = port_encoder(kind)
-    models = importlib.import_module(f"radad_tpu_torch.models.{module}")
+    config_class, model_class = port_encoder(config)
     with torch.device(device):
-        arch_cfg = getattr(models, config_class)(**arch)
-        model = getattr(models, model_class)(arch_cfg)
+        arch_cfg = config_class(**_tuples(config["architecture"]))
+        model = model_class(arch_cfg)
     model.load_state_dict(enc_w, strict=True)
     encoder = FrozenEncoder(
-        name=kind, model_name=config["model_name"], arch_cfg=arch_cfg,
-        model=model.eval(), pretrained=False,
+        name=config["encoder"], model_name=config["model_name"],
+        arch_cfg=arch_cfg, model=model.eval(), pretrained=False,
         layers_to_use=cfg.wav2vec2_layers_to_use,
         input_normalize=bool(cfg.input_normalize),
         compute_dtype=compute_dtype(cfg),

@@ -8,16 +8,16 @@ The cell (``BENCHMARK.json`` ``workloads``) names a configuration
 (``h100_bench/traffic/<traffic>.json``), whose ``driver`` names the code
 that sets it up, runs the window and checks it (``drivers/<driver>.py``).
 The configuration's ``"encoder"`` names its encoder's weights, plain
-forward and operations (``encoders/<encoder>.py``) and is one of the port's
-kinds (``harness/program.py``).
+forward and operations (``encoders/<encoder>.py``), whose ``PORT`` names
+the port's module and classes that build it.
 With ``--trace 0`` the cell's end-to-end metrics are reported; with
 ``--trace 1`` its per-layer metrics, each read by ``metrics/<name>.py``.
 The last line of standard output is the result, as JSON; the numbers
 compared to decide ``correct`` come last on standard error and under
 ``checks`` in the result. No result is printed, and the exit code is not 0,
-where the encoder file or the port's encoder kind is missing, where CUDA is
-missing or has fewer devices than the cell asks for, or where JAX or the
-JAX package was loaded.
+where the encoder file, or the port's module or classes that its ``PORT``
+names, are missing, where CUDA is missing or has fewer devices than the
+cell asks for, or where JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -111,8 +111,7 @@ def main(argv=None) -> int:
     from harness import program
 
     try:
-        common.encoder(config)
-        program.port_encoder(config["encoder"])
+        program.port_encoder(config)
     except (FileNotFoundError, ValueError) as e:
         print(e, file=sys.stderr)
         return 2

@@ -1,12 +1,14 @@
 """Each encoder lives in one file, ``encoders/<name>.py``, found by name:
 its weights and reference embeddings are those the harness made before the
-encoders had files, a copy under another name runs a cell, and a kind with
-no file stops a run before any CUDA work."""
+encoders had files, a copy under another name runs a cell or, under a new
+kind, builds with no other file edited, and a kind with no file or with a
+``PORT`` the port lacks stops a run before any CUDA work."""
 
+import filecmp
 import hashlib
-import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -137,16 +139,36 @@ def test_a_configuration_runs_through_an_encoder_file_found_by_name_only(
     assert run.attempted > 0 and run.failed == 0
 
 
-def _bench_copy(tmp_path, config: dict, encoder_copy: bool) -> str:
-    """A checkout of the harness alone, with one cell of ``config``, and
-    where ``encoder_copy`` says so, wav2vec2's encoder file under the name
-    of ``config``'s kind."""
+WAV2VEC2_PORT = ("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Model")
+# the three configurations' list-valued "pipeline" fields: the parent turned
+# these, by name, into tuples
+PARENT_TUPLES = ("tpp_levels", "wav2vec2_layers_to_use",
+                 "detection_hidden_dims")
+
+
+def _encoder_copy(path, port) -> None:
+    """wav2vec2's encoder file at ``path``, its ``PORT`` replaced by
+    ``port`` (taken out where ``port`` is ``False``)."""
+    with open(os.path.join(common.ENCODERS_DIR, "wav2vec2.py")) as f:
+        text = f.read()
+    text, n = re.subn(r"^PORT = .*\n", "" if port is False
+                      else f"PORT = {port!r}\n", text, flags=re.M)
+    assert n == 1
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def _bench_copy(tmp_path, config: dict, port=None) -> str:
+    """A checkout of the harness, with the program beside it and one cell
+    of ``config``; where ``port`` is given, wav2vec2's encoder file under
+    the name of ``config``'s kind, with that ``PORT``."""
     shutil.copytree(tiny.BENCH_DIR, tmp_path / "h100_bench",
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
-    if encoder_copy:
-        encoders = tmp_path / "h100_bench" / "encoders"
-        shutil.copy(encoders / "wav2vec2.py",
-                    encoders / f"{config['encoder']}.py")
+    os.symlink(os.path.join(os.path.dirname(tiny.BENCH_DIR),
+                            "radad_tpu_torch"), tmp_path / "radad_tpu_torch")
+    if port is not None:
+        _encoder_copy(tmp_path / "h100_bench" / "encoders"
+                      / f"{config['encoder']}.py", port)
     with open(tmp_path / "h100_bench" / "configs" / "odd.json", "w") as f:
         json.dump(dict(config, name="odd"), f)
     bench = dict(common.benchmark())
@@ -157,29 +179,120 @@ def _bench_copy(tmp_path, config: dict, encoder_copy: bool) -> str:
     return str(tmp_path)
 
 
-@pytest.mark.parametrize("encoder_copy,named", [
-    (False, os.path.join("encoders", "nosuch.py")),
-    (True, os.path.join("harness", "program.py")),
-])
+@pytest.mark.parametrize("port", [
+    None, ("wav2vec2", "Wav2Vec2Config", "NoSuchModel")],
+    ids=["no-file", "missing-class"])
 def test_a_kind_without_a_file_stops_the_run_without_a_result(
-        tmp_path, encoder_copy, named):
+        tmp_path, port):
+    """No encoder file, or one whose ``PORT`` names a class the port
+    lacks: exit 2 with no result, naming the file, before any CUDA work."""
     cfg = dict(common.load_config("wav2vec2-base-itw-f32"), encoder="nosuch")
-    root = _bench_copy(tmp_path, cfg, encoder_copy)
+    root = _bench_copy(tmp_path, cfg, port)
     proc = subprocess.run(
         [sys.executable, os.path.join("h100_bench", "run.py"), "--workload",
          "odd-bulk", "--seed", str(SEED), "--seconds", "1"],
         capture_output=True, text=True, cwd=root, timeout=300)
-    assert proc.returncode != 0 and proc.stdout == ""
-    assert named in proc.stderr, proc.stderr
+    assert proc.returncode == 2 and proc.stdout == ""
+    assert os.path.join("encoders", "nosuch.py") in proc.stderr, proc.stderr
+    assert port is None or "NoSuchModel" in proc.stderr, proc.stderr
     assert "CUDA" not in proc.stderr
 
 
+_BUILD = """
+import json, sys, tempfile
+sys.path[:0] = ["h100_bench", "."]
+from harness import common, program, weights as W
+cfg = common.load_config("odd")
+config_cls, model_cls = program.port_encoder(cfg)
+pipe = program.build_pipeline(cfg, W.encoder_weights(cfg, 7, "cpu"),
+                              W.fusion_weights(cfg, 7, "cpu"), "cpu",
+                              tempfile.mkdtemp(), 7)
+print(json.dumps([program.__file__, common.encoder(cfg).__file__,
+                  config_cls.__name__, model_cls.__name__, pipe.encoder.name,
+                  type(pipe.encoder.model).__name__]))
+"""
+
+
+def test_a_new_kind_from_a_copied_encoder_file_builds_with_no_file_edited(
+        tmp_path):
+    cfg = dict(tiny.tiny_config("wav2vec2-base-itw-f32"), encoder="newkind")
+    root = _bench_copy(tmp_path, cfg, WAV2VEC2_PORT)
+    copy = os.path.join(root, "h100_bench")
+    added = set()
+    for d, _, files in os.walk(copy):
+        for name in files:
+            rel = os.path.relpath(os.path.join(d, name), copy)
+            orig = os.path.join(tiny.BENCH_DIR, rel)
+            if not os.path.exists(orig):
+                added.add(rel)
+            else:
+                assert filecmp.cmp(orig, os.path.join(copy, rel),
+                                   shallow=False), rel
+    assert added == {os.path.join("encoders", "newkind.py"),
+                     os.path.join("configs", "odd.json")}
+    proc = subprocess.run([sys.executable, "-c", _BUILD], capture_output=True,
+                          text=True, cwd=root, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == [os.path.join(copy, "harness", "program.py"),
+                   os.path.join(copy, "encoders", "newkind.py"),
+                   "Wav2Vec2Config", "Wav2Vec2Model", "newkind",
+                   "Wav2Vec2Model"]
+
+
+@pytest.mark.parametrize("port,says", [
+    (False, "PORT is None"),
+    (("wav2vec2", "Wav2Vec2Model"), "PORT is ("),
+    (("wav2vec2.x", "Wav2Vec2Config", "Wav2Vec2Model"), "PORT is ("),
+    (("nosuch", "Wav2Vec2Config", "Wav2Vec2Model"),
+     "radad_tpu_torch.models.nosuch, which the port does not have"),
+    (("wav2vec2", "NoSuchConfig", "Wav2Vec2Model"), ".NoSuchConfig, which"),
+    (("wav2vec2", "Wav2Vec2Config", "extract_features"),
+     ".extract_features, which"),
+    (("wav2vec2", "Wav2Vec2Config", "Wav2Vec2Config"), "not an nn.Module"),
+], ids=["missing", "short", "dotted", "no-module", "no-config-class",
+        "not-a-class", "not-a-module"])
+def test_a_port_the_program_lacks_is_refused_naming_the_encoder_file(
+        tmp_path, monkeypatch, port, says):
+    kind = f"odd_{abs(hash(repr(port)))}"
+    _encoder_copy(tmp_path / f"{kind}.py", port)
+    monkeypatch.setattr(common, "ENCODERS_DIR", str(tmp_path))
+    with pytest.raises(ValueError) as e:
+        program.port_encoder({"name": "odd", "encoder": kind})
+    assert str(tmp_path / f"{kind}.py") in str(e.value)
+    assert says in str(e.value), str(e.value)
+
+
 def test_the_harness_builds_every_encoder_kind_of_the_port():
+    """Every encoder file's ``PORT`` resolves; where the port's factory
+    has that kind, to the config class it uses."""
     from radad_tpu_torch.models import encoder
 
-    assert set(program.PORT_ENCODERS) == set(encoder._CONFIGS)
-    for kind, cls in encoder._CONFIGS.items():
-        module, config_class, model_class = program.port_encoder(kind)
-        models = importlib.import_module(f"radad_tpu_torch.models.{module}")
-        assert getattr(models, config_class) is cls
-        assert issubclass(getattr(models, model_class), torch.nn.Module)
+    kinds = sorted(f[:-3] for f in os.listdir(common.ENCODERS_DIR)
+                   if f.endswith(".py"))
+    assert kinds
+    for kind in kinds:
+        config_cls, model_cls = program.port_encoder(
+            {"name": kind, "encoder": kind})
+        assert issubclass(model_cls, torch.nn.Module)
+        if kind in encoder._CONFIGS:
+            assert config_cls is encoder._CONFIGS[kind]
+
+
+@pytest.mark.parametrize("config", ["wav2vec2-base-itw-f32",
+                                    "whisper-base-itw-bf16",
+                                    "wavlm-large-itw-bf16"])
+def test_every_list_of_the_pipeline_is_a_tuple_as_the_parent_made_them(
+        config, tmp_path):
+    from radad_tpu_torch.config import Config
+
+    cfg = common.load_config(config)
+    assert {k for k, v in cfg["pipeline"].items()
+            if isinstance(v, list)} == set(PARENT_TUPLES)
+    root = str(tmp_path)
+    parent = Config().replace(
+        data_root=root, vector_db_path=os.path.join(root, "vdb"),
+        train_data_path=root, test_data_path=root, random_seed=7,
+        **{k: (tuple(v) if k in PARENT_TUPLES else v)
+           for k, v in cfg["pipeline"].items()})
+    assert program.program_config(cfg, root, 7) == parent

@@ -52,7 +52,7 @@ def test_every_cell_finds_its_config_traffic_and_driver():
 
 
 EXPORTS = ("weights", "features", "segment_flops", "attention", "width",
-           "TINY")
+           "TINY", "PORT")
 
 
 def test_every_configuration_finds_its_encoder_file_and_its_exports():
@@ -66,7 +66,7 @@ def test_every_configuration_finds_its_encoder_file_and_its_exports():
         for name in EXPORTS:
             assert hasattr(enc, name), (c["name"], name)
         assert set(enc.TINY) <= {"architecture", "pipeline"}
-        assert program.port_encoder(cfg["encoder"])
+        assert program.port_encoder(cfg)
 
 
 def _imports(path):
